@@ -1,0 +1,69 @@
+// Modular arithmetic of the NTT kernels, on 32-bit words.
+//
+// The same helpers as agilex_ntt_tpu/ops/modmul.py and the butterflies of
+// agilex_ntt_tpu/ops/stage_math.py, written once for the device and the
+// host: the CUDA kernels (ntt_kernels.cu) include this file, and
+// tests/test_torch_arith_host.py builds it with a plain C++ compiler (with
+// __host__/__device__/__forceinline__ defined away) and holds it bit for bit
+// against the int64 helpers of ops/modmul.py.
+//
+// All moduli are below 2^30, so Harvey's lazy range [0, 4q) fits in a word.
+// Every result below is the exact word the JAX helper returns.
+#pragma once
+
+#include <stdint.h>
+
+#define NTT_HD __host__ __device__ __forceinline__
+
+// High 32 bits of a 32x32-bit product.
+NTT_HD uint32_t ntt_mulhi(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+
+// x - bound if x >= bound else x.  Unsigned compare: x may reach 4q - 1,
+// above 2^31.
+NTT_HD uint32_t ntt_cond_sub(uint32_t x, uint32_t bound) {
+  return x >= bound ? x - bound : x;
+}
+
+// w * a mod q in [0, 2q) by Shoup's trick, for w < q,
+// wp = floor(w * 2^32 / q) and any 32-bit a.  Both products wrap mod 2^32.
+NTT_HD uint32_t ntt_shoup_lazy(uint32_t a, uint32_t w, uint32_t wp, uint32_t q) {
+  return w * a - ntt_mulhi(a, wp) * q;
+}
+
+// Harvey's Cooley-Tukey butterfly: x, y in [0, 4q) -> (x + w y, x - w y),
+// both in [0, 4q).
+NTT_HD void ntt_ct_butterfly(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
+                             uint32_t q) {
+  const uint32_t two_q = 2u * q;
+  const uint32_t tx = ntt_cond_sub(x, two_q);
+  const uint32_t t = ntt_shoup_lazy(y, w, wp, q);
+  x = tx + t;
+  y = tx + two_q - t;
+}
+
+// Harvey's Gentleman-Sande butterfly: x, y in [0, 2q) -> (x + y, w (x - y)),
+// both in [0, 2q).
+NTT_HD void ntt_gs_butterfly(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
+                             uint32_t q) {
+  const uint32_t two_q = 2u * q;
+  const uint32_t s = ntt_cond_sub(x + y, two_q);
+  const uint32_t d = x + two_q - y;
+  x = s;
+  y = ntt_shoup_lazy(d, w, wp, q);
+}
+
+// Montgomery REDC with R = 2^32: a * b * 2^-32 mod q in [0, 2q) for
+// a * b < 2^32 q.  (a b + m q) / R = hi(a b) + hi(m q) + carry, where the
+// low words cancel and carry out exactly when lo(a b) != 0.
+NTT_HD uint32_t ntt_mont_lazy(uint32_t a, uint32_t b, uint32_t q,
+                              uint32_t qinv_neg) {
+  const uint32_t lo = a * b;
+  const uint32_t m = lo * qinv_neg;
+  return ntt_mulhi(a, b) + ntt_mulhi(m, q) + (lo != 0u ? 1u : 0u);
+}

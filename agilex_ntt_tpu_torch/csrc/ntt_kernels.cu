@@ -1,0 +1,317 @@
+// Hopper (sm_90a) kernels of the single-prime negacyclic NTT.
+//
+// Replaces four Pallas TPU kernels of agilex_ntt_tpu/ops/ntt_kernel.py:
+//   fwd_kernel      <- _fwd_kernel      (K1, forward Cooley-Tukey NTT)
+//   inv_kernel      <- _inv_kernel      (K2, Gentleman-Sande inverse, scale
+//                                        folded into the last stage)
+//   polydot_kernel  <- _polymul_kernel  (K3, k = 1)
+//                   and _polydot_kernel (K6a, sum of k products)
+// They compute what the TPU kernels compute, not the TPU's layout: each
+// butterfly is computed once (the TPU computes it at both slots of a pair
+// and finds partners by lane rolls), on the compact HEXL twiddle tables
+// roots[m + i] instead of (log n, n) positional tables.
+//
+// Bound on this card: memory for fwd/inv, int32 issue for the fused ones.
+// A call must move 2 B n 4 bytes for fwd/inv, 3 B n 4 for the polymul and
+// (2k + 1) B n 4 for the polydot.  A transform also does (n/2) log2(n)
+// butterflies of 3 multiplies (FMA pipe only), one unsigned min (ALU pipe
+// only) and 3 adds (either pipe).  An H100 SM runs 64 lanes of each pipe
+// and issues 128 lane-operations a clock: 16.75 T multiplies/s and 33.5 T
+// operations/s at the clock behind its 67 TFLOP/s float32.  At n = 4096,
+// B = 8192 the forward transform moves 268 MB (80 us at 3.35 TB/s) and
+// needs 46 us of issue, so memory bounds it; the polymul's three
+// transforms and pointwise product need 143 us of issue against 120 us of
+// memory.  chip_smoke.py computes both for every kernel.
+//
+// Design against that bound: each polynomial is read from device memory
+// once and written once, and no butterfly is computed twice.  One thread
+// block holds one polynomial in shared memory (16 KiB at n = 4096, 128 KiB
+// at n = 32768) and runs all log2(n) stages there, separated by
+// __syncthreads(); below n = 1024 several polynomials share a block so it
+// still has 512 threads.  Twiddles come from the n-word tables in device
+// memory, which stay in L2.  The fused kernel keeps the first operand's
+// transform and the running sum beside the working tile in shared memory;
+// where they do not fit (n = 32768) they go to a scratch buffer in device
+// memory that the caller allocates.  These kernels run at a tenth to a
+// fifth of that bound on an H100 (PERF.md): every stage goes through
+// shared memory and a block-wide barrier.  Keeping several stages in
+// registers, vector loads and fewer barriers is later work.
+//
+// Every launcher returns cudaGetLastError(): a launch the card refuses (too
+// much shared memory, a bad configuration) never runs, and a later
+// synchronize does not report it.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ntt_arith.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+// Below this many words a block holds several polynomials.
+constexpr int kMinBlockWords = 1024;
+// Shared memory a block may opt in to on sm_90 (227 KB).
+constexpr size_t kMaxSmemBytes = 232448;
+// Above this a kernel needs cudaFuncAttributeMaxDynamicSharedMemorySize.
+constexpr size_t kDefaultSmemBytes = 48 * 1024;
+
+struct Plan {
+  int polys;      // polynomials per block
+  int words;      // polys * n: words of one tile
+  unsigned grid;  // blocks
+};
+
+Plan make_plan(long long batch, int logn) {
+  Plan p;
+  const int n = 1 << logn;
+  p.polys = n >= kMinBlockWords ? 1 : kMinBlockWords / n;
+  p.words = p.polys * n;
+  p.grid = (unsigned)((batch + p.polys - 1) / p.polys);
+  return p;
+}
+
+// Tile of `polys` polynomials starting at polynomial `first`: element e of
+// the tile is coefficient (e mod n) of polynomial first + e / n, term `term`
+// of a (batch, k, n) operand.  Polynomials past the batch read as zero.
+__device__ void load_tile(uint32_t* tile, const uint32_t* __restrict__ g,
+                          long long first, int polys, long long batch,
+                          int logn, int k, int term) {
+  const int words = polys << logn;
+  const int mask = (1 << logn) - 1;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const long long poly = first + (e >> logn);
+    tile[e] = poly < batch ? g[((poly * k + term) << logn) + (e & mask)] : 0u;
+  }
+}
+
+__device__ void store_tile(uint32_t* __restrict__ g, const uint32_t* tile,
+                           long long first, int polys, long long batch,
+                           int logn) {
+  const int words = polys << logn;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    if (first + (e >> logn) < batch) g[(first << logn) + e] = tile[e];
+  }
+}
+
+// Forward stages m = 1, 2, ..., n/2 (stride t = n/2m) on every polynomial of
+// the tile.  In [0, 4q), out [0, q).  Ends on a __syncthreads().
+__device__ void fwd_stages(uint32_t* tile, int logn, int polys,
+                           const uint32_t* __restrict__ roots,
+                           const uint32_t* __restrict__ precon, uint32_t q) {
+  const int half = 1 << (logn - 1);
+  const int butterflies = polys * half;
+  const uint32_t two_q = 2u * q;
+  for (int s = 0; s < logn; ++s) {
+    const int m = 1 << s;
+    const int logt = logn - 1 - s;
+    const int t = 1 << logt;
+    const bool last = s == logn - 1;
+    for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
+      const int b = j & (half - 1);
+      const int i = b >> logt;
+      uint32_t* u = tile + ((j >> (logn - 1)) << logn) + (i << (logt + 1)) +
+                    (b & (t - 1));
+      uint32_t x = u[0];
+      uint32_t y = u[t];
+      ntt_ct_butterfly(x, y, __ldg(roots + m + i), __ldg(precon + m + i), q);
+      if (last) {
+        x = ntt_cond_sub(ntt_cond_sub(x, two_q), q);
+        y = ntt_cond_sub(ntt_cond_sub(y, two_q), q);
+      }
+      u[0] = x;
+      u[t] = y;
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse stages m = n/2, ..., 1 (stride t = n/2m).  In [0, 2q), out [0, q).
+// The last stage (m = 1) multiplies the sum by `su` and the difference by
+// `sv` = scale * inv_roots[1] instead of a separate scaling pass, as the
+// TPU kernel's last twiddle row does.  Ends on a __syncthreads().
+__device__ void inv_stages(uint32_t* tile, int logn, int polys,
+                           const uint32_t* __restrict__ iroots,
+                           const uint32_t* __restrict__ iprecon, uint32_t q,
+                           uint32_t su, uint32_t sup, uint32_t sv,
+                           uint32_t svp) {
+  const int half = 1 << (logn - 1);
+  const int butterflies = polys * half;
+  const uint32_t two_q = 2u * q;
+  for (int s = 0; s < logn; ++s) {
+    const int m = half >> s;
+    const int t = 1 << s;
+    const bool last = s == logn - 1;
+    for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
+      const int b = j & (half - 1);
+      const int i = b >> s;
+      uint32_t* u = tile + ((j >> (logn - 1)) << logn) + (i << (s + 1)) +
+                    (b & (t - 1));
+      uint32_t x = u[0];
+      uint32_t y = u[t];
+      if (last) {
+        const uint32_t sum = x + y;
+        const uint32_t diff = x + two_q - y;
+        x = ntt_cond_sub(ntt_shoup_lazy(sum, su, sup, q), q);
+        y = ntt_cond_sub(ntt_shoup_lazy(diff, sv, svp, q), q);
+      } else {
+        ntt_gs_butterfly(x, y, __ldg(iroots + m + i), __ldg(iprecon + m + i),
+                         q);
+      }
+      u[0] = x;
+      u[t] = y;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+           const uint32_t* __restrict__ roots,
+           const uint32_t* __restrict__ precon, long long batch, int logn,
+           int polys, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const long long first = (long long)blockIdx.x * polys;
+  load_tile(smem, x, first, polys, batch, logn, 1, 0);
+  __syncthreads();
+  fwd_stages(smem, logn, polys, roots, precon, q);
+  store_tile(y, smem, first, polys, batch, logn);
+}
+
+__global__ void __launch_bounds__(kThreads)
+inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+           const uint32_t* __restrict__ iroots,
+           const uint32_t* __restrict__ iprecon, long long batch, int logn,
+           int polys, uint32_t q, uint32_t su, uint32_t sup, uint32_t sv,
+           uint32_t svp) {
+  extern __shared__ uint32_t smem[];
+  const long long first = (long long)blockIdx.x * polys;
+  load_tile(smem, x, first, polys, batch, logn, 1, 0);
+  __syncthreads();
+  inv_stages(smem, logn, polys, iroots, iprecon, q, su, sup, sv, svp);
+  store_tile(y, smem, first, polys, batch, logn);
+}
+
+// sum_i a_i * b_i for (batch, k, n) operands; k = 1 is the polymul.  Per
+// term: forward a_i, park it in `fa`; forward b_i in the working tile;
+// Montgomery product, accumulated lazily in [0, 2q) in the same order as
+// the TPU kernel (acc = t_0, then cond_sub(acc + t_i, 2q)); the last term
+// lands in the working tile, which the scaled inverse then transforms.
+// `fa` and `acc` are shared memory after the working tile, or this block's
+// slice of `scratch` when that is not null.
+__global__ void __launch_bounds__(kThreads)
+polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, uint32_t* scratch,
+               const uint32_t* __restrict__ roots,
+               const uint32_t* __restrict__ precon,
+               const uint32_t* __restrict__ iroots,
+               const uint32_t* __restrict__ iprecon, long long batch, int k,
+               int logn, int polys, uint32_t q, uint32_t qinv_neg,
+               uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp) {
+  extern __shared__ uint32_t smem[];
+  const int words = polys << logn;
+  uint32_t* work = smem;
+  uint32_t* fa = scratch != nullptr
+                     ? scratch + (size_t)blockIdx.x * (k > 1 ? 2 : 1) * words
+                     : smem + words;
+  uint32_t* acc = fa + words;
+  const long long first = (long long)blockIdx.x * polys;
+  const uint32_t two_q = 2u * q;
+  for (int i = 0; i < k; ++i) {
+    load_tile(work, a, first, polys, batch, logn, k, i);
+    __syncthreads();
+    fwd_stages(work, logn, polys, roots, precon, q);
+    for (int e = threadIdx.x; e < words; e += blockDim.x) fa[e] = work[e];
+    __syncthreads();
+    load_tile(work, b, first, polys, batch, logn, k, i);
+    __syncthreads();
+    fwd_stages(work, logn, polys, roots, precon, q);
+    const bool last = i == k - 1;
+    for (int e = threadIdx.x; e < words; e += blockDim.x) {
+      uint32_t term = ntt_mont_lazy(fa[e], work[e], q, qinv_neg);
+      if (i > 0) term = ntt_cond_sub(acc[e] + term, two_q);
+      if (last) {
+        work[e] = term;
+      } else {
+        acc[e] = term;
+      }
+    }
+    __syncthreads();
+  }
+  inv_stages(work, logn, polys, iroots, iprecon, q, su, sup, sv, svp);
+  store_tile(out, work, first, polys, batch, logn);
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= kDefaultSmemBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Tiles the fused kernel keeps besides the working tile: fa, and acc if k > 1.
+int polydot_extra_tiles(int k) { return k > 1 ? 2 : 1; }
+
+bool polydot_fits_smem(int k, int words) {
+  return (size_t)(1 + polydot_extra_tiles(k)) * words * 4 <= kMaxSmemBytes;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ntt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int ntt_fwd(const uint32_t* x, uint32_t* y, const uint32_t* roots,
+            const uint32_t* precon, long long batch, int logn, uint32_t q,
+            void* stream) {
+  const Plan p = make_plan(batch, logn);
+  const size_t bytes = (size_t)p.words * 4;
+  cudaError_t err = allow_smem((const void*)fwd_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwd_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, y, roots, precon, batch, logn, p.polys, q);
+  return (int)cudaGetLastError();
+}
+
+int ntt_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
+            const uint32_t* iprecon, long long batch, int logn, uint32_t q,
+            uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp,
+            void* stream) {
+  const Plan p = make_plan(batch, logn);
+  const size_t bytes = (size_t)p.words * 4;
+  cudaError_t err = allow_smem((const void*)inv_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  inv_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, y, iroots, iprecon, batch, logn, p.polys, q, su, sup, sv, svp);
+  return (int)cudaGetLastError();
+}
+
+// Words of device scratch ntt_polydot needs (0: all in shared memory).
+long long ntt_polydot_scratch_words(long long batch, int k, int logn) {
+  const Plan p = make_plan(batch, logn);
+  if (polydot_fits_smem(k, p.words)) return 0;
+  return (long long)p.grid * polydot_extra_tiles(k) * p.words;
+}
+
+int ntt_polydot(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                uint32_t* scratch, const uint32_t* roots,
+                const uint32_t* precon, const uint32_t* iroots,
+                const uint32_t* iprecon, long long batch, int k, int logn,
+                uint32_t q, uint32_t qinv_neg, uint32_t su, uint32_t sup,
+                uint32_t sv, uint32_t svp, void* stream) {
+  const Plan p = make_plan(batch, logn);
+  const bool in_smem = polydot_fits_smem(k, p.words);
+  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      (size_t)(in_smem ? 1 + polydot_extra_tiles(k) : 1) * p.words * 4;
+  cudaError_t err = allow_smem((const void*)polydot_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  polydot_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
+      batch, k, logn, p.polys, q, qinv_neg, su, sup, sv, svp);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

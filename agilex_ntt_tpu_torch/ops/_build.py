@@ -1,0 +1,114 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+``nvcc`` compiles ``csrc/ntt_kernels.cu`` for ``sm_90a`` into
+``build/torch_kernels/libntt_kernels.so`` beside the package.  The library
+has a plain C interface and includes no PyTorch header, so a build takes
+seconds; it is rebuilt when the hash of the sources and flags changes.
+Pointers and the stream cross as ``c_void_p`` (an undeclared pointer
+argument would be cut to 32 bits).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("ntt_arith.cuh", "ntt_kernels.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libntt_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint32
+SIGNATURES = {
+    "ntt_fwd": (_P, _P, _P, _P, _LL, _I, _U, _P),
+    "ntt_inv": (_P, _P, _P, _P, _LL, _I, _U, _U, _U, _U, _U, _P),
+    "ntt_polydot": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+        _U, _U, _U, _U, _U, _U, _P,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _source_hash(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Build the library unless an up-to-date one is present; return its path.
+
+    The compiler's output (including ``-Xptxas -v`` register and shared
+    memory counts) goes to ``build.log`` beside the library.
+    """
+    nvcc = _nvcc()
+    digest = _source_hash(nvcc)
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a unique name and rename: concurrent builds never load a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / "ntt_kernels.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.ntt_polydot_scratch_words.argtypes = [_LL, _I, _I]
+    lib.ntt_polydot_scratch_words.restype = _LL
+    lib.ntt_error_string.argtypes = [_I]
+    lib.ntt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        msg = lib.ntt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
