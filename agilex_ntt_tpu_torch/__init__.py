@@ -5,7 +5,7 @@ same rings, tables and outputs, with hand-written Hopper kernels in place of
 the Pallas ones.  It imports neither JAX nor the JAX package.
 """
 
-from .api import Ring
+from .api import Ring, RNSRing
 from .config import NTTConfig, REFERENCE_SIZES
 from .params import NTTParams, find_primes, find_psi, make_params, params_from_numpy
 
@@ -13,6 +13,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Ring",
+    "RNSRing",
     "NTTConfig",
     "NTTParams",
     "REFERENCE_SIZES",

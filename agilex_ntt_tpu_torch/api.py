@@ -1,8 +1,9 @@
-"""Public API: the single-prime negacyclic ring on an NVIDIA GPU.
+"""Public API: the negacyclic rings on an NVIDIA GPU.
 
-Counterpart of ``agilex_ntt_tpu/api.py::Ring`` for radix-2 sizes
-(n <= 32768), with the same public layout: (..., n) in, (..., n) out, and
-(..., k, n) for ``polydot``.  Values are ``torch.uint32``.
+Counterpart of ``agilex_ntt_tpu/api.py::Ring`` and ``RNSRing`` for radix-2
+sizes (n <= 32768), with the same public layout: (..., n) in, (..., n) out,
+and (..., k, n) for ``polydot``; an ``RNSRing`` puts its L prime channels
+first, (L, ..., n).  Values are ``torch.uint32``.
 
 Typical use::
 
@@ -12,24 +13,27 @@ Typical use::
     c = ring.polymul(a, b)                 # negacyclic convolution mod q
 
 The transforms, the polymul and the polydot run the hand-written CUDA
-kernels of ``ops/ntt_kernel.py``.  The elementwise ring operations are plain
-PyTorch on int64, as the JAX package leaves them to XLA.  ``Ring(n)`` runs on
-the GPU and raises when there is none; ``device="cpu"`` selects the plain
-CPU versions (the tests use it).
+kernels of ``ops/ntt_kernel.py`` (one launch for all channels of an
+``RNSRing``).  The elementwise ring operations are plain
+PyTorch on int64, as the JAX package leaves them to XLA.  ``Ring(n)`` and
+``RNSRing(n, L)`` run on the GPU and raise when there is none;
+``device="cpu"`` selects the plain CPU versions (the tests use it).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import NTTConfig, is_power_of_two
+from .ops import basechange, gadget
 from .ops import modmul as mm
 from .ops import ntt_kernel
-from .ops.plain_ntt import make_tables
+from .ops.plain_ntt import make_rns_tables, make_tables
 from .params import NTTParams, bit_reverse, find_primes, make_params
+from .utils.crt import crt_compose
 
 # Largest size of the radix-2 transforms; larger rings need the four-step
 # decomposition, which is not ported yet.
@@ -233,16 +237,20 @@ class Ring:
         x = self._as_u32(x)
         if x.dim() == 0 or x.shape[-1] != self.n:
             raise ValueError(f"last dim must be n={self.n}, got {tuple(x.shape)}")
+        k %= 2 * self.n
+        src, neg = self._rotate_tables(k)
+        return self._gather_signed(x, src, neg)
+
+    def _rotate_tables(self, k: int):
+        """Gather indices and signs of multiplication by X^k, k in [0, 2n)."""
         n = self.n
-        k %= 2 * n
 
         def build():
             src = (np.arange(n) - k) % (2 * n)
             neg = src >= n
             return np.where(neg, src - n, src).astype(np.int64), neg
 
-        src, neg = self._on_device(("rotate", k), build)
-        return self._gather_signed(x, src, neg)
+        return self._on_device(("rotate", k), build)
 
     def _auto_tables(self, k: int):
         """Gather indices and signs of tau_k: a(X) -> a(X^k) mod (X^n + 1).
@@ -285,6 +293,17 @@ class Ring:
             return x.to(torch.int64).index_select(-1, ntt_src).to(torch.uint32)
         return self._gather_signed(x, src, neg)
 
+    # -- gadget ----------------------------------------------------------------
+
+    def digit_decompose(self, x, base_bits: int, *, balanced: bool = False) -> torch.Tensor:
+        """Base-2^w gadget split: (..., n) in [0, q) -> (ndig, ..., n), with
+        sum_j d_j 2^(w j) == x exactly; ``balanced=True`` centers the digits
+        (held mod q; see ``ops/gadget.py``).  Elementwise PyTorch."""
+        digits = gadget.digit_decompose(
+            self._i64(x), self.q, int(base_bits), balanced=bool(balanced)
+        )
+        return self._u32(digits)
+
     # -- validation and sampling ---------------------------------------------
 
     def check(self, x, *, bound: Optional[int] = None) -> torch.Tensor:
@@ -313,3 +332,477 @@ class Ring:
 
     def __repr__(self):
         return f"Ring(n={self.n}, q={self.q}, device={str(self.device)!r})"
+
+
+def _prime_tuple(basis) -> Tuple[int, ...]:
+    """The primes of an RNSRing or of a sequence of primes."""
+    if isinstance(basis, RNSRing):
+        return tuple(basis.qs)
+    return tuple(int(q) for q in basis)
+
+
+class RNSRing:
+    """Residue-number-system ring: L prime channels of one n.
+
+    Counterpart of ``agilex_ntt_tpu/api.py::RNSRing``: data is (L, ..., n)
+    with the prime channel first, values ``torch.uint32`` below each
+    channel's q.  The transforms, polymul and polydot run one multi-prime
+    kernel launch for all channels (``ops/ntt_kernel.py``: ``fwd_ntt_rns``,
+    ``inv_ntt_rns``, ``polymul_rns_fused``, ``polydot_rns_fused``); the
+    elementwise, channel-mixing and permutation steps (base conversion,
+    rescaling, Montgomery products, automorphisms) are plain PyTorch on
+    int64, as the JAX package leaves them to XLA.
+
+    Args:
+      n: a power of two, 8 <= n <= 32768.
+      num_primes: L, when ``qs`` is not given: ``find_primes(n, L)``.
+      qs: the primes, each ≡ 1 (mod 2n) and below 2**30.
+      device: ``None`` for the current CUDA device, or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        n: int,
+        num_primes: int = 3,
+        qs: Optional[Sequence[int]] = None,
+        *,
+        device=None,
+    ):
+        if qs is None:
+            qs = find_primes(n, num_primes)
+        self.device = _resolve_device(device)
+        self.rings: List[Ring] = [Ring(n, int(q), device=self.device) for q in qs]
+        if not self.rings:
+            raise ValueError("an RNSRing needs at least one prime")
+        self.n = n
+        self.qs = [r.q for r in self.rings]
+        self.modulus = 1
+        for q in self.qs:
+            self.modulus *= q
+        self.tables = make_rns_tables([r.tables for r in self.rings])
+        # per-channel q and -q^-1 mod 2**32 as int64, for the PyTorch steps
+        self._q64 = torch.tensor(self.qs, dtype=torch.int64, device=self.device)
+        self._qinv64 = torch.tensor(
+            [r.qinv_neg for r in self.rings], dtype=torch.int64, device=self.device
+        )
+        # extended-basis rings built by the key switch, keyed by prime tuple
+        self._ext_rings: Dict[tuple, "RNSRing"] = {}
+
+    @property
+    def L(self) -> int:
+        return len(self.rings)
+
+    # -- shape plumbing ------------------------------------------------------
+
+    def _as_u32(self, x) -> torch.Tensor:
+        return self.rings[0]._as_u32(x)
+
+    def _check(self, x: torch.Tensor) -> None:
+        if x.dim() < 2 or x.shape[0] != self.L or x.shape[-1] != self.n:
+            raise ValueError(
+                f"expected shape (L={self.L}, ..., n={self.n}), got "
+                f"{tuple(x.shape)}"
+            )
+        if x.numel() == 0:
+            raise ValueError(f"empty batch: shape {tuple(x.shape)}")
+
+    def _col(self, values: torch.Tensor, ndim: int) -> torch.Tensor:
+        """An (L,) tensor of per-channel constants as an (L, 1, ..., 1)
+        column that broadcasts against an (L, ...) tensor of ``ndim`` dims."""
+        return values.view((self.L,) + (1,) * (ndim - 1))
+
+    def _qcol(self, ndim: int) -> torch.Tensor:
+        return self._col(self._q64, ndim)
+
+    def _mont_lazy(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Per-channel Montgomery product a b 2^-32 mod q_l in [0, 2 q_l) of
+        int64 (L, ...) operands."""
+        nd = max(a.dim(), b.dim())
+        return mm.mont_mul_lazy(
+            a, b, self._qcol(nd), self._col(self._qinv64, nd)
+        )
+
+    # -- transforms ----------------------------------------------------------
+
+    def _flat(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(self.L, -1, self.n).contiguous()
+
+    def ntt(self, x) -> torch.Tensor:
+        """Forward NTT of every channel: (L, ..., n) in [0, 4 q_l) ->
+        [0, q_l), in one launch."""
+        x = self._as_u32(x)
+        self._check(x)
+        return ntt_kernel.fwd_ntt_rns(self._flat(x), self.tables).view(x.shape)
+
+    def intt(self, x) -> torch.Tensor:
+        """Inverse NTT of every channel: (L, ..., n) in [0, 2 q_l) ->
+        [0, q_l), in one launch."""
+        return self._intt_scaled(self._as_u32(x), None)
+
+    def _intt_scaled(self, x: torch.Tensor, scales) -> torch.Tensor:
+        """Inverse NTT with channel l's n^-1 replaced by ``scales[l]``."""
+        self._check(x)
+        y = ntt_kernel.inv_ntt_rns(self._flat(x), self.tables, scales=scales)
+        return y.view(x.shape)
+
+    # -- ring arithmetic -----------------------------------------------------
+
+    def polymul(self, a, b) -> torch.Tensor:
+        """Negacyclic product of every channel, in one fused launch.
+
+        The lead dims between the channel axis and n broadcast, right-aligned
+        after the channel axis: a bare (L, n) operand never lines its L up
+        with a batch axis (keygen multiplies (K, dnum, n) by (K, 1, n))."""
+        a, b = self._as_u32(a), self._as_u32(b)
+        self._check(a)
+        self._check(b)
+        lead = torch.broadcast_shapes(a.shape[1:-1], b.shape[1:-1])
+        full = (self.L,) + tuple(lead) + (self.n,)
+
+        def spread(v):
+            pad = (1,) * (len(lead) - (v.dim() - 2))
+            return v.reshape(v.shape[:1] + pad + v.shape[1:]).expand(full)
+
+        out = ntt_kernel.polymul_rns_fused(
+            self._flat(spread(a)), self._flat(spread(b)), self.tables
+        )
+        return out.view(full)
+
+    def polydot(self, a, b) -> torch.Tensor:
+        """Per-channel inner product sum_i a_i * b_i of (L, ..., k, n)
+        operands -> (L, ..., n), in one fused launch."""
+        a, b = self._as_u32(a), self._as_u32(b)
+        if a.shape != b.shape or a.dim() < 3 or a.shape[-1] != self.n:
+            raise ValueError(
+                f"polydot expects matching (L, ..., k, n={self.n}) shapes, "
+                f"got {tuple(a.shape)} and {tuple(b.shape)}"
+            )
+        self._check(a)
+        k = a.shape[-2]
+        af = a.reshape(self.L, -1, k, self.n).contiguous()
+        bf = b.reshape(self.L, -1, k, self.n).contiguous()
+        out = ntt_kernel.polydot_rns_fused(af, bf, self.tables)
+        return out.view(a.shape[:-2] + (self.n,))
+
+    def _i64(self, x) -> torch.Tensor:
+        x = self._as_u32(x)
+        self._check(x)
+        return x.to(torch.int64)
+
+    def add(self, a, b) -> torch.Tensor:
+        a, b = self._i64(a), self._i64(b)
+        return mm.add_mod(a, b, self._qcol(max(a.dim(), b.dim()))).to(torch.uint32)
+
+    def sub(self, a, b) -> torch.Tensor:
+        a, b = self._i64(a), self._i64(b)
+        return mm.sub_mod(a, b, self._qcol(max(a.dim(), b.dim()))).to(torch.uint32)
+
+    def neg(self, a) -> torch.Tensor:
+        a = self._i64(a)
+        return mm.neg_mod(a, self._qcol(a.dim())).to(torch.uint32)
+
+    def _inverse_of_products(self, terms) -> tuple:
+        """One scaled inverse launch for several (L, ...) NTT-domain products,
+        each carrying one stray R^-1: polymul_scale folds it out."""
+        stacked = torch.stack(terms, dim=1).to(torch.uint32)
+        out = self._intt_scaled(stacked, self.tables.polymul_scale)
+        return tuple(out.unbind(1))
+
+    def tensor(self, a0, a1, b0, b1):
+        """Per-channel RLWE tensor product (a0 b0, a0 b1 + a1 b0, a1 b1):
+        one forward launch for the four operands, Karatsuba on the
+        transforms (see ``Ring.tensor``), one inverse launch for the three
+        results."""
+        ops = [self._as_u32(v) for v in (a0, a1, b0, b1)]
+        for v in ops:
+            self._check(v)
+        f = self.ntt(torch.stack(ops, dim=1)).to(torch.int64)
+        fa0, fa1, fb0, fb1 = f.unbind(1)
+        q = self._qcol(fa0.dim())
+        sa = mm.cond_sub(fa0 + fa1, q)
+        sb = mm.cond_sub(fb0 + fb1, q)
+        d0 = mm.cond_sub(self._mont_lazy(fa0, fb0), q)
+        d2 = mm.cond_sub(self._mont_lazy(fa1, fb1), q)
+        cr = mm.cond_sub(self._mont_lazy(sa, sb), q)
+        d1 = mm.cond_sub(mm.cond_sub(cr - d0 + q, q) - d2 + q, q)
+        return self._inverse_of_products([d0, d1, d2])
+
+    def tensor_square(self, a0, a1):
+        """Per-channel tensor square (a0^2, 2 a0 a1, a1^2): one forward and
+        one inverse launch (see ``Ring.tensor_square``)."""
+        ops = [self._as_u32(v) for v in (a0, a1)]
+        for v in ops:
+            self._check(v)
+        fa0, fa1 = self.ntt(torch.stack(ops, dim=1)).to(torch.int64).unbind(1)
+        q = self._qcol(fa0.dim())
+        d0 = mm.cond_sub(self._mont_lazy(fa0, fa0), q)
+        d2 = mm.cond_sub(self._mont_lazy(fa1, fa1), q)
+        x = mm.cond_sub(self._mont_lazy(fa0, fa1), q)
+        d1 = mm.cond_sub(x + x, q)
+        return self._inverse_of_products([d0, d1, d2])
+
+    # -- permutations ----------------------------------------------------------
+
+    def _gather_signed(self, x: torch.Tensor, src, neg) -> torch.Tensor:
+        g = x.to(torch.int64).index_select(-1, src)
+        g = torch.where(neg, mm.neg_mod(g, self._qcol(g.dim())), g)
+        return g.to(torch.uint32)
+
+    def automorphism(self, x, k: int, *, domain: str = "coeff") -> torch.Tensor:
+        """tau_k: a(X) -> a(X^k) on every channel, k odd; the index tables
+        are q-independent (see ``Ring.automorphism``)."""
+        if k % 2 == 0:
+            raise ValueError(f"k must be odd (unit mod 2n), got {k}")
+        if domain not in ("coeff", "ntt"):
+            raise ValueError(f"unknown domain {domain!r}")
+        x = self._as_u32(x)
+        self._check(x)
+        src, neg, ntt_src = self.rings[0]._auto_tables(k % (2 * self.n))
+        if domain == "ntt":
+            return x.to(torch.int64).index_select(-1, ntt_src).to(torch.uint32)
+        return self._gather_signed(x, src, neg)
+
+    def rotate(self, x, k: int) -> torch.Tensor:
+        """Multiply every channel by X^k."""
+        x = self._as_u32(x)
+        self._check(x)
+        src, neg = self.rings[0]._rotate_tables(k % (2 * self.n))
+        return self._gather_signed(x, src, neg)
+
+    # -- basis changes -------------------------------------------------------
+
+    def base_convert(self, x, dst, *, correction: str = "none") -> torch.Tensor:
+        """Fast base conversion (L, ..., n) -> (K, ..., n) into ``dst`` (an
+        RNSRing or primes): "none" is BEHZ (x + e Q mod p_j, 0 <= e < L),
+        "float" subtracts the HPS float32 estimate of e Q.  Coefficient
+        domain; inputs in [0, q_l)."""
+        y = basechange.base_convert(
+            self._i64(x), self.qs, _prime_tuple(dst), correction=correction
+        )
+        return y.to(torch.uint32)
+
+    def rescale(self, x) -> torch.Tensor:
+        """Divide and round by the last prime: (L, ..., n) -> (L-1, ..., n)
+        in the basis ``qs[:-1]`` (pair with ``drop_prime()``)."""
+        return basechange.rescale(self._i64(x), self.qs).to(torch.uint32)
+
+    def rescale_bgv(self, x, t: int) -> torch.Tensor:
+        """BGV modulus switch by the last prime, keeping the phase mod t."""
+        return basechange.rescale_bgv(self._i64(x), self.qs, int(t)).to(torch.uint32)
+
+    def mod_down(self, x, count: int = 1) -> torch.Tensor:
+        """Drop the last ``count`` primes by iterated centered rounding:
+        (L, ..., n) -> (L-count, ..., n)."""
+        y = basechange.mod_down(self._i64(x), self.qs, int(count))
+        return y.to(torch.uint32)
+
+    def mod_down_bgv(self, x, t: int, count: int = 1) -> torch.Tensor:
+        """Iterated t-correcting divide, the BGV ModDown."""
+        y = basechange.mod_down_bgv(self._i64(x), self.qs, int(t), int(count))
+        return y.to(torch.uint32)
+
+    def gadget_decompose(
+        self, x, dst, dnum: int, *, correction: str = "float"
+    ) -> torch.Tensor:
+        """Hybrid key-switch gadget split (L, ..., n) -> (dnum, K, ..., n):
+        digit d is group d's residues converted into ``dst``."""
+        y = gadget.gadget_decompose(
+            self._i64(x), self.qs, _prime_tuple(dst), int(dnum),
+            correction=correction,
+        )
+        return y.to(torch.uint32)
+
+    def drop_prime(self, count: int = 1) -> "RNSRing":
+        """The ring over ``qs[:-count]``, on the same device."""
+        if not 1 <= count <= self.L - 1:
+            raise ValueError(
+                f"count must be in [1, L-1={self.L - 1}], got {count}"
+            )
+        return RNSRing(self.n, qs=self.qs[:-count], device=self.device)
+
+    def to_rns(self, coeffs) -> torch.Tensor:
+        """Big-integer coefficients (..., n), any Python ints, -> residues
+        (L, ..., n) as uint32 on the ring's device (reduced on the host)."""
+        arr = np.asarray(coeffs, dtype=object)
+        res = np.stack([(arr % q).astype(np.uint32) for q in self.qs])
+        return torch.from_numpy(res).to(self.device)
+
+    def from_rns(self, residues) -> np.ndarray:
+        """Host CRT reconstruction -> big-integer (..., n) object array in
+        [0, modulus)."""
+        if isinstance(residues, torch.Tensor):
+            residues = residues.cpu().numpy()
+        return crt_compose(np.asarray(residues), self.qs)
+
+    # -- key switching -------------------------------------------------------
+
+    def _ext(self, ext) -> "RNSRing":
+        """The extended-basis ring of ``ext`` (an RNSRing or primes), built
+        once per prime tuple on this ring's device."""
+        qs_ext = _prime_tuple(ext)
+        ring = self._ext_rings.get(qs_ext)
+        if ring is None:
+            if isinstance(ext, RNSRing) and ext.device == self.device:
+                ring = ext
+            else:
+                ring = RNSRing(self.n, qs=qs_ext, device=self.device)
+            self._ext_rings[qs_ext] = ring
+        return ring
+
+    def _check_ext(self, ext) -> Tuple[int, ...]:
+        qs_ext = _prime_tuple(ext)
+        if qs_ext[: self.L] != tuple(self.qs):
+            raise ValueError(
+                "ext basis must extend this ring's (first L primes equal); "
+                f"got ext={qs_ext[:self.L]}... vs qs={tuple(self.qs)}"
+            )
+        if len(qs_ext) <= self.L:
+            raise ValueError("ext basis must add at least one special prime")
+        return qs_ext
+
+    def _down(self, prod: torch.Tensor, qs_ext, plain_mod) -> torch.Tensor:
+        """ModDown of an extended-basis int64 product back to this basis."""
+        spec = len(qs_ext) - self.L
+        if plain_mod is None:
+            return basechange.mod_down(prod, qs_ext, spec)
+        return basechange.mod_down_bgv(prod, qs_ext, int(plain_mod), spec)
+
+    def _decompose(self, x: torch.Tensor, qs_ext, dnum: int, correction):
+        """(dnum, K, ..., n) int64 digits of x in the extended basis."""
+        return gadget.gadget_decompose(
+            x.to(torch.int64), self.qs, qs_ext, dnum, correction=correction
+        )
+
+    @staticmethod
+    def _evaldot_intt(ext_ring: "RNSRing", fx: torch.Tensor, fk: torch.Tensor,
+                      d: int) -> torch.Tensor:
+        """The polydot's arithmetic on transformed operands: per channel the
+        Montgomery products of fx (K, d, ..., n) and fk (K, d, [1s,] n),
+        summed lazily in ascending digit order ([0, 2q), one conditional
+        subtraction a term, as the fused kernel sums), then one inverse
+        launch scaled by ``polymul_scale``.  Returns (K, ..., n) int64 in
+        [0, q)."""
+        t = ext_ring._mont_lazy(fx, fk)
+        two_q = 2 * ext_ring._qcol(t.dim() - 1)
+        acc = t[:, 0]
+        for dd in range(1, d):
+            acc = mm.cond_sub(acc + t[:, dd], two_q)
+        out = ext_ring._intt_scaled(
+            acc.to(torch.uint32), ext_ring.tables.polymul_scale
+        )
+        return out.to(torch.int64)
+
+    def keyswitch(
+        self, x, ksk, ext, dnum: int, *, correction: str = "float",
+        ksk_domain: str = "coeff", plain_mod: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Hybrid key switch: gadget-decompose x into ``dnum`` digits in the
+        extended basis ``ext``, dot them with the key, ModDown back here.
+
+        x: (L, ..., n) residues in this basis.
+        ksk: (dnum, K, n), shared over the batch, or (dnum, K, ..., n)
+          matching x's lead dims; generated in ``ext``, whose first L primes
+          must be this ring's.
+        ksk_domain: "coeff" dots in one fused launch (K6b); "ntt" takes keys
+          transformed once by ``ksk_to_ntt``: the digits take one forward
+          launch (K4a), the dot is a lazy Montgomery sum and one scaled
+          inverse launch (K4b).  Both give the same words.
+        plain_mod: the BGV plaintext modulus t: the ModDown then keeps the
+          phase mod t (key noise must be a t-multiple).
+        Returns (L, ..., n) residues of round(sum_d t_d ksk_d / P).
+        """
+        x = self._as_u32(x)
+        self._check(x)
+        ksk = self._as_u32(ksk)
+        if ksk_domain not in ("coeff", "ntt"):
+            raise ValueError(f"unknown ksk_domain {ksk_domain!r}")
+        qs_ext = self._check_ext(ext)
+        K, d = len(qs_ext), int(dnum)
+        if tuple(ksk.shape[:2]) != (d, K) or ksk.shape[-1] != self.n:
+            raise ValueError(
+                f"ksk must be (dnum={d}, K={K}, [...,] n={self.n}), "
+                f"got {tuple(ksk.shape)}"
+            )
+        shared = ksk.dim() == 3
+        ext_ring = self._ext(ext)
+        dig = self._decompose(x, qs_ext, d, correction)  # (d, K, ..., n)
+        if ksk_domain == "ntt":
+            fx = ext_ring.ntt(dig.movedim(0, 1).to(torch.uint32))  # (K, d, ..., n)
+            kb = ksk.movedim(0, 1)  # (K, d, [...,] n), evaluation domain
+            if shared:
+                kb = kb.reshape((K, d) + (1,) * (fx.dim() - 3) + (self.n,))
+            prod = self._evaldot_intt(
+                ext_ring, fx.to(torch.int64), kb.to(torch.int64), d
+            )
+        else:
+            dig = dig.movedim(0, -2)  # (K, ..., d, n)
+            kb = ksk.movedim(0, -2)   # (K, [...,] d, n)
+            if shared:
+                kb = kb.reshape(
+                    (K,) + (1,) * (dig.dim() - 3) + tuple(kb.shape[-2:])
+                ).expand(dig.shape)
+            prod = ext_ring.polydot(dig.to(torch.uint32), kb).to(torch.int64)
+        return self._down(prod, qs_ext, plain_mod).to(torch.uint32)
+
+    def ksk_to_ntt(self, ksk, ext, *, ch_axis: int = 1) -> torch.Tensor:
+        """Evaluation-domain key material: the per-channel NTT of coefficient
+        keys, done once at key setup.  ``ch_axis`` is the extended-basis
+        channel axis: 1 for ``keyswitch``'s (dnum, K, n), 2 for
+        ``hoisted_keyswitch``'s (nk, dnum, K, n)."""
+        ext_ring = self._ext(ext)
+        arr = self._as_u32(ksk).movedim(ch_axis, 0)
+        return ext_ring.ntt(arr).movedim(0, ch_axis)
+
+    def hoisted_keyswitch(
+        self, x, ksks, ks, ext, dnum: int, *, correction: str = "float",
+        ksk_domain: str = "coeff", plain_mod: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Hoisted rotation batch: one gadget decomposition and one forward
+        launch of the digits, shared by every Galois step; each step k then
+        costs a slot permutation (tau_k is a gather in the evaluation
+        domain), the lazy Montgomery dot, one inverse launch and the ModDown.
+
+        x: (L, ..., n) residues (the c1 part).
+        ksks: (nk, dnum, K, n) rotation keys in ``ext``, one per step,
+          shared over the batch; ksk_domain="ntt" takes
+          ``ksk_to_ntt(ksks, ext, ch_axis=2)``.
+        ks: odd Galois exponents.
+        Returns (nk, L, ..., n): entry j is keyswitch(tau_{ks[j]}(x),
+        ksks[j]) with tau applied to the digits.
+        """
+        x = self._as_u32(x)
+        self._check(x)
+        ksks = self._as_u32(ksks)
+        if ksk_domain not in ("coeff", "ntt"):
+            raise ValueError(f"unknown ksk_domain {ksk_domain!r}")
+        ks = tuple(int(k) % (2 * self.n) for k in ks)
+        for k in ks:
+            if k % 2 == 0:
+                raise ValueError(f"Galois exponents must be odd, got {k}")
+        qs_ext = self._check_ext(ext)
+        K, d = len(qs_ext), int(dnum)
+        if tuple(ksks.shape) != (len(ks), d, K, self.n):
+            raise ValueError(
+                f"ksks must be (nk={len(ks)}, dnum={d}, K={K}, "
+                f"n={self.n}), got {tuple(ksks.shape)}"
+            )
+        ext_ring = self._ext(ext)
+        dig = self._decompose(x, qs_ext, d, correction)
+        dnt = ext_ring.ntt(dig.movedim(0, 1).to(torch.uint32)).to(torch.int64)
+        kt = ksks.movedim(2, 0)  # (K, nk, d, n)
+        knt = kt if ksk_domain == "ntt" else ext_ring.ntt(kt)
+        knt = knt.to(torch.int64)
+        mid = dnt.dim() - 3  # x's lead dims after the channel
+        outs = []
+        for j, k in enumerate(ks):
+            perm = ext_ring.rings[0]._auto_tables(k)[2]
+            pd = dnt.index_select(-1, perm)
+            kj = knt[:, j].reshape((K, d) + (1,) * mid + (self.n,))
+            prod = self._evaldot_intt(ext_ring, pd, kj, d)
+            outs.append(self._down(prod, qs_ext, plain_mod))
+        return torch.stack(outs).to(torch.uint32)
+
+    def __repr__(self):
+        return (
+            f"RNSRing(n={self.n}, qs={self.qs}, device={str(self.device)!r})"
+        )

@@ -1,11 +1,21 @@
-// Hopper (sm_90a) kernels of the single-prime negacyclic NTT.
+// Hopper (sm_90a) kernels of the negacyclic NTT, single- and multi-prime.
 //
-// Replaces four Pallas TPU kernels of agilex_ntt_tpu/ops/ntt_kernel.py:
+// Replaces eight Pallas TPU kernels of agilex_ntt_tpu/ops/ntt_kernel.py:
 //   fwd_kernel      <- _fwd_kernel      (K1, forward Cooley-Tukey NTT)
 //   inv_kernel      <- _inv_kernel      (K2, Gentleman-Sande inverse, scale
 //                                        folded into the last stage)
 //   polydot_kernel  <- _polymul_kernel  (K3, k = 1)
 //                   and _polydot_kernel (K6a, sum of k products)
+//   fwd_rns_kernel  <- _fwd_rns_kernel  (K4a, K1 over L primes)
+//   inv_rns_kernel  <- _inv_rns_kernel  (K4b, K2 over L primes, a scale
+//                                        per channel)
+//   polydot_rns_kernel <- _polymul_rns_kernel (K5, k = 1)
+//                   and _polydot_rns_kernel   (K6b, K6a over L primes)
+// The multi-prime kernels run the single-prime bodies with the channel on
+// blockIdx.y: each block reads its channel's q, -q^-1 and inverse-scale
+// constants from (L,) and (L, 4) arrays and its twiddles from row l of the
+// (L, n) tables, where the TPU kernels take q from SMEM and (L, log n, n)
+// positional tables per grid step.
 // They compute what the TPU kernels compute, not the TPU's layout: each
 // butterfly is computed once (the TPU computes it at both slots of a pair
 // and finds partners by lane rolls), on the compact HEXL twiddle tables
@@ -13,7 +23,9 @@
 //
 // Bound on this card: memory for fwd/inv, int32 issue for the fused ones.
 // A call must move 2 B n 4 bytes for fwd/inv, 3 B n 4 for the polymul and
-// (2k + 1) B n 4 for the polydot.  A transform also does (n/2) log2(n)
+// (2k + 1) B n 4 for the polydot; a multi-prime call L times that (B
+// polynomials in each of L channels) plus its L 4 n table words, and does L
+// times the operations.  A transform also does (n/2) log2(n)
 // butterflies of 3 multiplies (FMA pipe only), one unsigned min (ALU pipe
 // only) and 3 adds (either pipe).  An H100 SM runs 64 lanes of each pipe
 // and issues 128 lane-operations a clock: 16.75 T multiplies/s and 33.5 T
@@ -54,6 +66,8 @@ constexpr int kMinBlockWords = 1024;
 constexpr size_t kMaxSmemBytes = 232448;
 // Above this a kernel needs cudaFuncAttributeMaxDynamicSharedMemorySize.
 constexpr size_t kDefaultSmemBytes = 48 * 1024;
+// Most channels a multi-prime launch takes: gridDim.y.
+constexpr int kMaxChannels = 65535;
 
 struct Plan {
   int polys;      // polynomials per block
@@ -164,11 +178,12 @@ __device__ void inv_stages(uint32_t* tile, int logn, int polys,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-           const uint32_t* __restrict__ roots,
-           const uint32_t* __restrict__ precon, long long batch, int logn,
-           int polys, uint32_t q) {
+// One tile's forward transform: blocks along x cover the batch.
+__device__ void fwd_body(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ y,
+                         const uint32_t* __restrict__ roots,
+                         const uint32_t* __restrict__ precon, long long batch,
+                         int logn, int polys, uint32_t q) {
   extern __shared__ uint32_t smem[];
   const long long first = (long long)blockIdx.x * polys;
   load_tile(smem, x, first, polys, batch, logn, 1, 0);
@@ -177,12 +192,12 @@ fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   store_tile(y, smem, first, polys, batch, logn);
 }
 
-__global__ void __launch_bounds__(kThreads)
-inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-           const uint32_t* __restrict__ iroots,
-           const uint32_t* __restrict__ iprecon, long long batch, int logn,
-           int polys, uint32_t q, uint32_t su, uint32_t sup, uint32_t sv,
-           uint32_t svp) {
+__device__ void inv_body(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ y,
+                         const uint32_t* __restrict__ iroots,
+                         const uint32_t* __restrict__ iprecon, long long batch,
+                         int logn, int polys, uint32_t q, uint32_t su,
+                         uint32_t sup, uint32_t sv, uint32_t svp) {
   extern __shared__ uint32_t smem[];
   const long long first = (long long)blockIdx.x * polys;
   load_tile(smem, x, first, polys, batch, logn, 1, 0);
@@ -196,17 +211,18 @@ inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 // Montgomery product, accumulated lazily in [0, 2q) in the same order as
 // the TPU kernel (acc = t_0, then cond_sub(acc + t_i, 2q)); the last term
 // lands in the working tile, which the scaled inverse then transforms.
-// `fa` and `acc` are shared memory after the working tile, or this block's
+// `fa` and `acc` are shared memory after the working tile, or block x's
 // slice of `scratch` when that is not null.
-__global__ void __launch_bounds__(kThreads)
-polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, uint32_t* scratch,
-               const uint32_t* __restrict__ roots,
-               const uint32_t* __restrict__ precon,
-               const uint32_t* __restrict__ iroots,
-               const uint32_t* __restrict__ iprecon, long long batch, int k,
-               int logn, int polys, uint32_t q, uint32_t qinv_neg,
-               uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp) {
+__device__ void polydot_body(const uint32_t* __restrict__ a,
+                             const uint32_t* __restrict__ b,
+                             uint32_t* __restrict__ out, uint32_t* scratch,
+                             const uint32_t* __restrict__ roots,
+                             const uint32_t* __restrict__ precon,
+                             const uint32_t* __restrict__ iroots,
+                             const uint32_t* __restrict__ iprecon,
+                             long long batch, int k, int logn, int polys,
+                             uint32_t q, uint32_t qinv_neg, uint32_t su,
+                             uint32_t sup, uint32_t sv, uint32_t svp) {
   extern __shared__ uint32_t smem[];
   const int words = polys << logn;
   uint32_t* work = smem;
@@ -239,6 +255,99 @@ polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   }
   inv_stages(work, logn, polys, iroots, iprecon, q, su, sup, sv, svp);
   store_tile(out, work, first, polys, batch, logn);
+}
+
+// -- single prime (K1, K2, K3/K6a) ------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+           const uint32_t* __restrict__ roots,
+           const uint32_t* __restrict__ precon, long long batch, int logn,
+           int polys, uint32_t q) {
+  fwd_body(x, y, roots, precon, batch, logn, polys, q);
+}
+
+__global__ void __launch_bounds__(kThreads)
+inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+           const uint32_t* __restrict__ iroots,
+           const uint32_t* __restrict__ iprecon, long long batch, int logn,
+           int polys, uint32_t q, uint32_t su, uint32_t sup, uint32_t sv,
+           uint32_t svp) {
+  inv_body(x, y, iroots, iprecon, batch, logn, polys, q, su, sup, sv, svp);
+}
+
+__global__ void __launch_bounds__(kThreads)
+polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, uint32_t* scratch,
+               const uint32_t* __restrict__ roots,
+               const uint32_t* __restrict__ precon,
+               const uint32_t* __restrict__ iroots,
+               const uint32_t* __restrict__ iprecon, long long batch, int k,
+               int logn, int polys, uint32_t q, uint32_t qinv_neg,
+               uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp) {
+  polydot_body(a, b, out, scratch, roots, precon, iroots, iprecon, batch, k,
+               logn, polys, q, qinv_neg, su, sup, sv, svp);
+}
+
+// -- L primes (K4a, K4b, K5/K6b): channel l = blockIdx.y ---------------------
+//
+// Channel l's data starts at l * batch * n (l * batch * k * n for the dot's
+// operands), its tables at row l of the (L, n) tables, and its scalars are
+// qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').
+
+__global__ void __launch_bounds__(kThreads)
+fwd_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const uint32_t* __restrict__ roots,
+               const uint32_t* __restrict__ precon,
+               const uint32_t* __restrict__ qs, long long batch, int logn,
+               int polys) {
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << logn;
+  const long long tab = (long long)l << logn;
+  fwd_body(x + data, y + data, roots + tab, precon + tab, batch, logn, polys,
+           __ldg(qs + l));
+}
+
+__global__ void __launch_bounds__(kThreads)
+inv_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const uint32_t* __restrict__ iroots,
+               const uint32_t* __restrict__ iprecon,
+               const uint32_t* __restrict__ qs,
+               const uint32_t* __restrict__ scales, long long batch, int logn,
+               int polys) {
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << logn;
+  const long long tab = (long long)l << logn;
+  const uint32_t* s = scales + 4 * l;
+  inv_body(x + data, y + data, iroots + tab, iprecon + tab, batch, logn,
+           polys, __ldg(qs + l), __ldg(s), __ldg(s + 1), __ldg(s + 2),
+           __ldg(s + 3));
+}
+
+__global__ void __launch_bounds__(kThreads)
+polydot_rns_kernel(const uint32_t* __restrict__ a,
+                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                   uint32_t* scratch, const uint32_t* __restrict__ roots,
+                   const uint32_t* __restrict__ precon,
+                   const uint32_t* __restrict__ iroots,
+                   const uint32_t* __restrict__ iprecon,
+                   const uint32_t* __restrict__ qs,
+                   const uint32_t* __restrict__ qinvs,
+                   const uint32_t* __restrict__ scales, long long batch, int k,
+                   int logn, int polys) {
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << logn;
+  const long long tab = (long long)l << logn;
+  const uint32_t* s = scales + 4 * l;
+  // this channel's blocks own the channel's slice of the scratch buffer
+  uint32_t* chan_scratch =
+      scratch != nullptr
+          ? scratch + (size_t)l * gridDim.x * (k > 1 ? 2 : 1) * (polys << logn)
+          : nullptr;
+  polydot_body(a + data * k, b + data * k, out + data, chan_scratch,
+               roots + tab, precon + tab, iroots + tab, iprecon + tab, batch,
+               k, logn, polys, __ldg(qs + l), __ldg(qinvs + l), __ldg(s),
+               __ldg(s + 1), __ldg(s + 2), __ldg(s + 3));
 }
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
@@ -311,6 +420,67 @@ int ntt_polydot(const uint32_t* a, const uint32_t* b, uint32_t* out,
   polydot_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
       a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
       batch, k, logn, p.polys, q, qinv_neg, su, sup, sv, svp);
+  return (int)cudaGetLastError();
+}
+
+int ntt_fwd_rns(const uint32_t* x, uint32_t* y, const uint32_t* roots,
+                const uint32_t* precon, const uint32_t* qs, int channels,
+                long long batch, int logn, void* stream) {
+  if (channels < 1 || channels > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(batch, logn);
+  const size_t bytes = (size_t)p.words * 4;
+  cudaError_t err = allow_smem((const void*)fwd_rns_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwd_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
+                   (cudaStream_t)stream>>>(x, y, roots, precon, qs, batch,
+                                           logn, p.polys);
+  return (int)cudaGetLastError();
+}
+
+int ntt_inv_rns(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
+                const uint32_t* iprecon, const uint32_t* qs,
+                const uint32_t* scales, int channels, long long batch,
+                int logn, void* stream) {
+  if (channels < 1 || channels > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(batch, logn);
+  const size_t bytes = (size_t)p.words * 4;
+  cudaError_t err = allow_smem((const void*)inv_rns_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  inv_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
+                   (cudaStream_t)stream>>>(x, y, iroots, iprecon, qs, scales,
+                                           batch, logn, p.polys);
+  return (int)cudaGetLastError();
+}
+
+// Words of device scratch ntt_polydot_rns needs (0: all in shared memory):
+// one slice per (channel, block).
+long long ntt_polydot_rns_scratch_words(int channels, long long batch, int k,
+                                        int logn) {
+  return (long long)channels * ntt_polydot_scratch_words(batch, k, logn);
+}
+
+int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                    uint32_t* scratch, const uint32_t* roots,
+                    const uint32_t* precon, const uint32_t* iroots,
+                    const uint32_t* iprecon, const uint32_t* qs,
+                    const uint32_t* qinvs, const uint32_t* scales,
+                    int channels, long long batch, int k, int logn,
+                    void* stream) {
+  if (channels < 1 || channels > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(batch, logn);
+  const bool in_smem = polydot_fits_smem(k, p.words);
+  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      (size_t)(in_smem ? 1 + polydot_extra_tiles(k) : 1) * p.words * 4;
+  cudaError_t err = allow_smem((const void*)polydot_rns_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  polydot_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
+                       (cudaStream_t)stream>>>(
+      a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
+      qs, qinvs, scales, batch, k, logn, p.polys);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,15 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
         _U, _U, _U, _U, _U, _U, _P,
     ),
+    # x, y, roots, precon, qs, channels, batch, logn, stream
+    "ntt_fwd_rns": (_P, _P, _P, _P, _P, _I, _LL, _I, _P),
+    # x, y, iroots, iprecon, qs, scales, channels, batch, logn, stream
+    "ntt_inv_rns": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P),
+    # a, b, out, scratch, roots, precon, iroots, iprecon, qs, qinvs, scales,
+    # channels, batch, k, logn, stream
+    "ntt_polydot_rns": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P,
+    ),
 }
 
 
@@ -102,6 +111,8 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ntt_polydot_scratch_words.argtypes = [_LL, _I, _I]
     lib.ntt_polydot_scratch_words.restype = _LL
+    lib.ntt_polydot_rns_scratch_words.argtypes = [_I, _LL, _I, _I]
+    lib.ntt_polydot_rns_scratch_words.restype = _LL
     lib.ntt_error_string.argtypes = [_I]
     lib.ntt_error_string.restype = ctypes.c_char_p
     return lib

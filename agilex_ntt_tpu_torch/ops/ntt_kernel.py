@@ -1,12 +1,16 @@
-"""Wrappers of the four Hopper kernels of the single-prime ring.
+"""Wrappers of the Hopper kernels of the single- and multi-prime rings.
 
-Counterpart of the single-prime entry points of
-``agilex_ntt_tpu/ops/ntt_kernel.py`` (``fwd_ntt``, ``inv_ntt``,
-``polymul_fused``, ``polydot_fused``).  The kernels are hand-written CUDA in
-``csrc/ntt_kernels.cu``, built for ``sm_90a`` at first use (``_build.py``).
+Counterpart of the entry points of ``agilex_ntt_tpu/ops/ntt_kernel.py``:
+``fwd_ntt``, ``inv_ntt``, ``polymul_fused`` and ``polydot_fused`` on (B, n)
+and (B, k, n) operands of one prime, and ``fwd_ntt_rns``, ``inv_ntt_rns``,
+``polymul_rns_fused`` and ``polydot_rns_fused`` on (L, B, n) and
+(L, B, k, n) operands of L primes, one launch for all channels.  The
+kernels are hand-written CUDA in ``csrc/ntt_kernels.cu``, built for
+``sm_90a`` at first use (``_build.py``).
 
 Every wrapper takes contiguous ``torch.uint32`` tensors on the device of the
-ring's tables and returns a new ``torch.uint32`` tensor reduced to [0, q):
+ring's tables and returns a new ``torch.uint32`` tensor reduced to [0, q)
+(to [0, q_l) in channel l):
 
   * on a CUDA tensor it launches its kernel on the current stream, raises if
     the launch returns a CUDA error, and adds one to ``LAUNCHES[name]``;
@@ -17,19 +21,25 @@ There is no fallback: a CUDA tensor is never handed to the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from . import _build
 from . import plain_ntt as plain
-from .plain_ntt import RingTables
+from .plain_ntt import RingTables, RNSTables, inv_scale_words
 
 # Kernel launches per wrapper since the count was last set to 0.
-LAUNCHES = {"fwd": 0, "inv": 0, "polymul": 0, "polydot": 0}
+LAUNCHES = {
+    "fwd": 0, "inv": 0, "polymul": 0, "polydot": 0,
+    "fwd_rns": 0, "inv_rns": 0, "polymul_rns": 0, "polydot_rns": 0,
+}
 
 
-def _check(x: torch.Tensor, tables: RingTables, name: str, ndim: int) -> None:
+def _check(x: torch.Tensor, tables, name: str, ndim: int) -> None:
+    """Raise unless x is what the kernel takes: a contiguous uint32 tensor
+    of ``ndim`` dims on the tables' device, ending in n, with a non-empty
+    batch (and, for multi-prime tables, L channels first)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(x).__name__}")
     if x.dtype != torch.uint32:
@@ -43,19 +53,22 @@ def _check(x: torch.Tensor, tables: RingTables, name: str, ndim: int) -> None:
             f"{name}: expected {ndim} dims ending in n={tables.n}, got "
             f"{tuple(x.shape)}"
         )
-    if x.shape[0] == 0:
+    rns = isinstance(tables, RNSTables)
+    if rns and x.shape[0] != tables.L:
+        raise ValueError(
+            f"{name}: expected L={tables.L} channels first, got {tuple(x.shape)}"
+        )
+    if x.shape[int(rns)] == 0:
         raise ValueError(f"{name}: empty batch")
     if not x.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def _inv_scale_args(tables: RingTables, scale: Optional[int]):
-    """(su, su', sv, sv'): the last inverse stage's two Shoup constants,
-    scale and scale * inv_roots[1], with their precons."""
-    q = tables.q
-    su = (tables.n_inv if scale is None else scale) % q
-    sv = su * tables.inv_root1 % q
-    return su, (su << 32) // q, sv, (sv << 32) // q
+def _check_pair(a, b, tables, name: str, ndim: int) -> None:
+    _check(a, tables, name, ndim)
+    _check(b, tables, name, ndim)
+    if a.shape != b.shape:
+        raise ValueError(f"{name}: shapes {a.shape} and {b.shape} differ")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -100,7 +113,7 @@ def inv_ntt(
             x.data_ptr(), y.data_ptr(),
             tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
             x.shape[0], tables.log_n, tables.q,
-            *_inv_scale_args(tables, scale), _stream(x),
+            *inv_scale_words(tables, scale), _stream(x),
         )
     _build.check(lib, rc, "inv_ntt")
     LAUNCHES["inv"] += 1
@@ -123,7 +136,7 @@ def _polydot_launch(a, b, tables: RingTables, what: str) -> torch.Tensor:
             tables.roots.data_ptr(), tables.precon.data_ptr(),
             tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
             batch, k, tables.log_n, tables.q, tables.qinv_neg,
-            *_inv_scale_args(tables, tables.polymul_scale), _stream(a),
+            *inv_scale_words(tables, tables.polymul_scale), _stream(a),
         )
     _build.check(lib, rc, what)
     return out
@@ -132,10 +145,7 @@ def _polydot_launch(a, b, tables: RingTables, what: str) -> torch.Tensor:
 def polymul_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch.Tensor:
     """Negacyclic a * b mod (X^n + 1, q) of (B, n) operands in one kernel:
     two forward transforms, the Montgomery product, the scaled inverse."""
-    _check(a, tables, "polymul_fused", 2)
-    _check(b, tables, "polymul_fused", 2)
-    if a.shape != b.shape:
-        raise ValueError(f"polymul_fused: shapes {a.shape} and {b.shape} differ")
+    _check_pair(a, b, tables, "polymul_fused", 2)
     if a.device.type == "cpu":
         return _u32(
             plain.polymul_plain(a.to(torch.int64), b.to(torch.int64), tables)
@@ -148,10 +158,7 @@ def polymul_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch
 def polydot_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch.Tensor:
     """sum_i a_i * b_i mod (X^n + 1, q) of (B, k, n) operands -> (B, n) in
     one kernel: 2k forward transforms, lazy accumulation, one inverse."""
-    _check(a, tables, "polydot_fused", 3)
-    _check(b, tables, "polydot_fused", 3)
-    if a.shape != b.shape:
-        raise ValueError(f"polydot_fused: shapes {a.shape} and {b.shape} differ")
+    _check_pair(a, b, tables, "polydot_fused", 3)
     if a.shape[1] == 0:
         raise ValueError("polydot_fused: k must be at least 1")
     if a.device.type == "cpu":
@@ -160,4 +167,105 @@ def polydot_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch
         )
     out = _polydot_launch(a, b, tables, "polydot_fused")
     LAUNCHES["polydot"] += 1
+    return out
+
+
+# -- L primes: one launch for every channel -----------------------------------
+
+
+def fwd_ntt_rns(x: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """Forward NTT of (L, B, n), channel l in [0, 4 q_l) -> [0, q_l)."""
+    _check(x, tables, "fwd_ntt_rns", 3)
+    if x.device.type == "cpu":
+        return _u32(plain.fwd_ntt_rns_plain(x.to(torch.int64), tables))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_fwd_rns(
+            x.data_ptr(), y.data_ptr(),
+            tables.roots.data_ptr(), tables.precon.data_ptr(),
+            tables.q_words.data_ptr(), tables.L, x.shape[1], tables.log_n,
+            _stream(x),
+        )
+    _build.check(lib, rc, "fwd_ntt_rns")
+    LAUNCHES["fwd_rns"] += 1
+    return y
+
+
+def inv_ntt_rns(
+    x: torch.Tensor, tables: RNSTables, *, scales: Optional[Sequence[int]] = None
+) -> torch.Tensor:
+    """Inverse NTT of (L, B, n), channel l in [0, 2 q_l) -> [0, q_l).
+    ``scales[l]`` replaces channel l's final n^-1 (for example
+    ``tables.polymul_scale`` to absorb a Montgomery factor)."""
+    _check(x, tables, "inv_ntt_rns", 3)
+    if x.device.type == "cpu":
+        return _u32(plain.inv_ntt_rns_plain(x.to(torch.int64), tables, scales))
+    words = tables.scale_words(scales)
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_inv_rns(
+            x.data_ptr(), y.data_ptr(),
+            tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
+            tables.q_words.data_ptr(), words.data_ptr(), tables.L, x.shape[1],
+            tables.log_n, _stream(x),
+        )
+    _build.check(lib, rc, "inv_ntt_rns")
+    LAUNCHES["inv_rns"] += 1
+    return y
+
+
+def _polydot_rns_launch(a, b, tables: RNSTables, what: str) -> torch.Tensor:
+    """One launch of the multi-prime fused kernel, (L, B, k, n) -> (L, B, n)."""
+    L, batch, k, n = a.shape
+    out = torch.empty((L, batch, n), dtype=torch.uint32, device=a.device)
+    words = tables.scale_words(tables.polymul_scale)
+    lib = _build.load()
+    need = lib.ntt_polydot_rns_scratch_words(L, batch, k, tables.log_n)
+    scratch = (
+        torch.empty(need, dtype=torch.uint32, device=a.device) if need else None
+    )
+    with torch.cuda.device(a.device):
+        rc = lib.ntt_polydot_rns(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            tables.roots.data_ptr(), tables.precon.data_ptr(),
+            tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
+            tables.q_words.data_ptr(), tables.qinv_words.data_ptr(),
+            words.data_ptr(), L, batch, k, tables.log_n, _stream(a),
+        )
+    _build.check(lib, rc, what)
+    return out
+
+
+def polymul_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """Negacyclic a * b mod (X^n + 1, q_l) of (L, B, n) operands in one
+    launch: per channel two forward transforms, the Montgomery product and
+    the inverse scaled by that channel's ``polymul_scale``."""
+    _check_pair(a, b, tables, "polymul_rns_fused", 3)
+    if a.device.type == "cpu":
+        return _u32(
+            plain.polymul_rns_plain(a.to(torch.int64), b.to(torch.int64), tables)
+        )
+    out = _polydot_rns_launch(
+        a.unsqueeze(2), b.unsqueeze(2), tables, "polymul_rns_fused"
+    )
+    LAUNCHES["polymul_rns"] += 1
+    return out
+
+
+def polydot_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """sum_i a_i * b_i mod (X^n + 1, q_l) of (L, B, k, n) operands ->
+    (L, B, n) in one launch: 2k forward transforms, lazy accumulation and
+    one scaled inverse per polynomial of every channel."""
+    _check_pair(a, b, tables, "polydot_rns_fused", 4)
+    if a.shape[2] == 0:
+        raise ValueError("polydot_rns_fused: k must be at least 1")
+    if a.device.type == "cpu":
+        return _u32(
+            plain.polydot_rns_plain(a.to(torch.int64), b.to(torch.int64), tables)
+        )
+    out = _polydot_rns_launch(a, b, tables, "polydot_rns_fused")
+    LAUNCHES["polydot_rns"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels, and the tables they share.
+"""Plain PyTorch versions of the kernels, and the tables they share.
 
 Counterpart of ``agilex_ntt_tpu/ops/stage_tables.py``, ``stage_math.py`` and
 ``xla_ntt.py``, rewritten for PyTorch: no positional (log n, n) tables and no
@@ -10,6 +10,10 @@ on int64: q < 2**30 keeps every product below 2**62.
 Inputs may be lazy ([0, 4q) forward, [0, 2q) inverse); outputs are reduced
 to [0, q), so they equal the JAX package's lazy-Harvey outputs bit for bit.
 
+The multi-prime versions (``*_rns_plain``) loop over the channels of an
+``RNSTables`` bundle and call the single-prime ones: they are the oracle of
+the multi-prime kernels, not a path of their own.
+
 These run on the CPU (the tests, and the wrappers in ``ntt_kernel.py`` when
 given a CPU tensor) and on the card only in ``chip_smoke.py``, which holds
 each CUDA kernel against them.  They are never the main path on a card.
@@ -18,8 +22,9 @@ each CUDA kernel against them.  They are never the main path on a card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..params import NTTParams
@@ -70,6 +75,99 @@ def make_tables(params: NTTParams, device) -> RingTables:
         precon=u32(params.precon32),
         inv_roots=u32(params.inv_roots32),
         inv_precon=u32(params.inv_precon32),
+    )
+
+
+def inv_scale_words(tables: RingTables, scale: Optional[int]) -> Tuple[int, ...]:
+    """(su, su', sv, sv'): the last inverse stage's two Shoup constants,
+    scale (default n^-1) and scale * inv_roots[1], with their precons."""
+    q = tables.q
+    su = (tables.n_inv if scale is None else scale) % q
+    sv = su * tables.inv_root1 % q
+    return su, (su << 32) // q, sv, (sv << 32) // q
+
+
+@dataclasses.dataclass(frozen=True)
+class RNSTables:
+    """L rings of one n stacked for the multi-prime kernels, on one device.
+
+    ``channels`` holds each prime's ``RingTables``; ``roots``/``precon``/
+    ``inv_roots``/``inv_precon`` are their tables stacked to (L, n) and
+    ``q_words``/``qinv_words`` the (L,) moduli and -q^-1 mod 2**32, all
+    ``torch.uint32``.  ``scale_words(scales)`` gives the (L, 4) inverse-scale
+    constants (``inv_scale_words`` per channel), cached per scales tuple.
+    """
+
+    n: int
+    log_n: int
+    channels: Tuple[RingTables, ...]
+    q_words: torch.Tensor
+    qinv_words: torch.Tensor
+    roots: torch.Tensor
+    precon: torch.Tensor
+    inv_roots: torch.Tensor
+    inv_precon: torch.Tensor
+    _scales: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def L(self) -> int:
+        return len(self.channels)
+
+    @property
+    def qs(self) -> Tuple[int, ...]:
+        return tuple(t.q for t in self.channels)
+
+    @property
+    def n_inv(self) -> Tuple[int, ...]:
+        return tuple(t.n_inv for t in self.channels)
+
+    @property
+    def polymul_scale(self) -> Tuple[int, ...]:
+        return tuple(t.polymul_scale for t in self.channels)
+
+    @property
+    def device(self) -> torch.device:
+        return self.roots.device
+
+    def scale_words(self, scales: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """(L, 4) uint32 constants of the last inverse stage for per-channel
+        ``scales`` (default n^-1 in every channel)."""
+        key = self.n_inv if scales is None else tuple(int(s) for s in scales)
+        if len(key) != self.L:
+            raise ValueError(f"expected {self.L} scales, got {len(key)}")
+        hit = self._scales.get(key)
+        if hit is None:
+            rows = [inv_scale_words(t, s) for t, s in zip(self.channels, key)]
+            hit = _u32_tensor(rows, self.device)
+            self._scales[key] = hit
+        return hit
+
+
+def _u32_tensor(values, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(values, dtype=np.uint32)).to(device)
+
+
+def make_rns_tables(channels: Sequence[RingTables]) -> RNSTables:
+    """Stack L single-prime table sets of one n and one device."""
+    channels = tuple(channels)
+    if not channels:
+        raise ValueError("an RNS table bundle needs at least one prime")
+    n, device = channels[0].n, channels[0].device
+    for t in channels:
+        if t.n != n or t.device != device:
+            raise ValueError("all channels must share n and the device")
+    return RNSTables(
+        n=n,
+        log_n=channels[0].log_n,
+        channels=channels,
+        q_words=_u32_tensor([t.q for t in channels], device),
+        qinv_words=_u32_tensor([t.qinv_neg for t in channels], device),
+        roots=torch.stack([t.roots for t in channels]),
+        precon=torch.stack([t.precon for t in channels]),
+        inv_roots=torch.stack([t.inv_roots for t in channels]),
+        inv_precon=torch.stack([t.inv_precon for t in channels]),
     )
 
 
@@ -128,3 +226,38 @@ def polydot_plain(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch
     fb = fwd_ntt_plain(b.reshape(bb * k, n), tables).view(bb, k, n)
     acc = (fa * fb % q).sum(dim=1) % q
     return inv_ntt_plain(acc, tables)
+
+
+def fwd_ntt_rns_plain(x: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """Forward NTT of int64 (L, B, n), channel l mod q_l, -> [0, q_l)."""
+    return torch.stack(
+        [fwd_ntt_plain(x[l], t) for l, t in enumerate(tables.channels)]
+    )
+
+
+def inv_ntt_rns_plain(
+    x: torch.Tensor, tables: RNSTables, scales: Optional[Sequence[int]] = None
+) -> torch.Tensor:
+    """Inverse NTT of int64 (L, B, n); channel l is multiplied by
+    ``scales[l]`` (default n^-1 mod q_l)."""
+    if scales is None:
+        scales = tables.n_inv
+    return torch.stack([
+        inv_ntt_plain(x[l], t, s)
+        for l, (t, s) in enumerate(zip(tables.channels, scales))
+    ])
+
+
+def polymul_rns_plain(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """a * b mod (X^n + 1, q_l) for int64 (L, B, n) operands."""
+    return torch.stack(
+        [polymul_plain(a[l], b[l], t) for l, t in enumerate(tables.channels)]
+    )
+
+
+def polydot_rns_plain(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
+    """sum_i a_i * b_i mod (X^n + 1, q_l) for int64 (L, B, k, n) operands,
+    -> (L, B, n)."""
+    return torch.stack(
+        [polydot_plain(a[l], b[l], t) for l, t in enumerate(tables.channels)]
+    )

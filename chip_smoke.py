@@ -10,18 +10,31 @@ fails the run (non-zero exit, no result line) when it goes wrong:
 
 1. Build: ``nvcc`` compiles the kernels from ``agilex_ntt_tpu_torch/csrc``
    for ``sm_90a`` (``ops/_build.py``).
-2. Kernels: each of the four kernels against its plain PyTorch version on
+2. Kernels: each of the eight kernels against its plain PyTorch version on
    the same inputs on the card, bit for bit over the whole output
-   (tolerance 0: integer arithmetic), at the main path's shapes (n=4096,
-   batch 8192; polydot k=3, batch 2048), at n=32768 and n=32, and at two
-   shapes that reach the kernels' other branches.  The first rows are also
-   held against the package's numpy golden model.
-3. Main path: ``Ring(4096)`` ntt -> intt -> polymul -> polydot at the
-   main shapes, with the launch counters set to 0 just before and read just
-   after; every kernel must have launched, and the outputs must agree with
-   the golden model.
-4. Timing at the main shapes: each kernel and its plain version (CUDA
-   events), beside the least time the card could take (``bound_ms``).
+   (tolerance 0: integer arithmetic).  Single prime: at the main path's
+   shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
+   n=32, and at two shapes that reach the kernels' other branches.  L
+   primes: the "n4096" chain (L=3, batch 2048), the key-switch dot of the
+   "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=32768 (L=4, the
+   fused kernels' scratch path), n=32 (L=3, batch 4096) and a ragged
+   batch.  The first rows are also held against the package's numpy golden
+   model, channel by channel.
+3. Main paths, each with the launch counters set to 0 just before and read
+   just after; every kernel of the path must have launched:
+   a. ``Ring(4096)`` ntt -> intt -> polymul -> polydot at the main shapes,
+      outputs against the golden model;
+   b. the key switch of the "n16384" CKKS chain (4 primes and the largest
+      of ``find_primes(16384, 5)`` as the special prime, dnum = 4):
+      ``RNSRing.keyswitch`` of (4, 64, 16384) residues with coefficient-
+      and evaluation-domain keys, ``hoisted_keyswitch`` over 3 Galois
+      steps, then ``RNSRing(4096, 3)`` ntt -> intt -> polymul -> polydot at
+      batch 2048.  The first rows must equal the port's own CPU plain
+      composition, the two key domains each other, and the 4096 outputs
+      the golden model.
+4. Timing: each kernel and its plain version (CUDA events) at its main
+   path's shape, beside the least time the card could take
+   (``bound_ms``), and the key switch end to end.
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -69,13 +82,31 @@ CHECK_SHAPES = (
 GOLDEN_ROWS = 8
 DEVICE = "cuda"
 
+# (n, L, batch, polydot k, polydot batch) of the multi-prime checks
+RNS_N, RNS_L, RNS_BATCH, RNS_K = 4096, 3, 2048, 3
+KS_N, KS_L, KS_BATCH = 16384, 4, 64  # the key switch: dnum = L, K = L + 1
+KS_STEPS = (5, 25, 2 * KS_N - 1)  # rotations by 1 and 2 slots, conjugation
+RNS_CHECK_SHAPES = (
+    (RNS_N, RNS_L, RNS_BATCH, 4, 256),  # the "n4096" chain, 96 MiB an operand
+    (KS_N, KS_L + 1, KS_BATCH, KS_L, KS_BATCH),  # the key-switch dot, 80 MiB
+    (32768, 4, 64, 2, 64),  # the fused kernels' scratch path
+    (32, 3, 4096, 3, 4096),  # 32 polynomials a block
+    (256, 3, 1001, 2, 333),  # a ragged last block
+)
+
 KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
 KERNELS = {  # wrapper counter -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
     "inv": ("inv_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:110"),
     "polymul": ("polymul_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:241"),
     "polydot": ("polydot_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:760"),
+    "fwd_rns": ("fwd_ntt_rns", "agilex_ntt_tpu/ops/ntt_kernel.py:340"),
+    "inv_rns": ("inv_ntt_rns", "agilex_ntt_tpu/ops/ntt_kernel.py:350"),
+    "polymul_rns": ("polymul_rns_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:360"),
+    "polydot_rns": ("polydot_rns_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:646"),
 }
+SINGLE = ("fwd", "inv", "polymul", "polydot")
+MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 
 
 def log(msg: str) -> None:
@@ -115,6 +146,11 @@ def dot_ops(batch: int, k: int, n: int):
                    (1, inv_ops(batch, n)))
 
 
+def scaled(L: int, ops):
+    """The operations of L channels."""
+    return tuple(L * v for v in ops)
+
+
 def bound(words_moved: int, ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     the int32 operations over the rate of the pipes they need."""
@@ -123,6 +159,43 @@ def bound(words_moved: int, ops):
     t_ops = max(mul / INT32_PIPE_PER_S, cmp / INT32_PIPE_PER_S,
                 (mul + cmp + add) / INT32_ISSUE_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# names of ntt_kernels.cu's kernels, demangled or not
+OUR_KERNEL = re.compile(r"(?<![A-Za-z_])(fwd|inv|polydot)(_rns)?_kernel")
+
+
+def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> None:
+    """Where one call's device time goes, from ``torch.profiler``: the
+    kernels' device time (each kernel counted once, by its own event),
+    split into this repository's NTT kernels and the PyTorch operations
+    around them, against ``call_ms``, the call's unprofiled time on CUDA
+    events; and the PyTorch operations that launched the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"  {what}: the profiler recorded no device time")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    ntt = sum(e.self_device_time_total for e in kernels
+              if OUR_KERNEL.search(e.key)) / 1e3
+    launches = sum(e.count for e in kernels)
+    log(f"  {what}: {launches} kernel launches, device busy {busy:.4f} ms of "
+        f"{call_ms:.4f} ms a call ({1 - busy / call_ms:.1%} idle): NTT "
+        f"kernels {ntt:.4f} ms, PyTorch ops {busy - ntt:.4f} ms")
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.key.startswith("aten::")]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"    {e.key:24s} {e.count:5d} calls, {e.self_device_time_total / 1e3:.4f} "
+            f"ms on the device")
 
 
 def main() -> int:
@@ -135,12 +208,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
-    from agilex_ntt_tpu_torch import Ring, golden as G
+    from agilex_ntt_tpu_torch import RNSRing, Ring, find_primes, golden as G
     from agilex_ntt_tpu_torch.ops import _build
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.ops import plain_ntt as P
     from agilex_ntt_tpu_torch.utils.profiling import cuda_time_ms
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     card = card_line()
     log(card)
@@ -165,15 +239,15 @@ def main() -> int:
         return torch.randint(0, bound_, shape, generator=gen,
                              dtype=torch.int64, device=dev)
 
-    worst = {name: 0 for name in KERNELS}
-    mismatched = {name: 0 for name in KERNELS}
+    worst = {key: 0 for key in KERNELS}
+    mismatched = {key: 0 for key in KERNELS}
 
     def compare(name, got, want, shape_note):
         diff = (got.to(torch.int64) - want).abs()
         err, bad = int(diff.max()), int((diff != 0).sum())
         worst[name] = max(worst[name], err)
         mismatched[name] += bad
-        log(f"  {name:8s} {shape_note:28s} max_abs_err={err} mismatches={bad}")
+        log(f"  {name:11s} {shape_note:34s} max_abs_err={err} mismatches={bad}")
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {shape_note}")
@@ -233,7 +307,62 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    # -- 3. the main path, counted -------------------------------------------
+    def channels(gen, qs, mult, shape):
+        """(L, *shape) int64, channel l uniform in [0, mult * q_l)."""
+        return torch.stack([rand(gen, mult * q, shape) for q in qs])
+
+    def golden_channels(got, want_fn, rings, what):
+        """Each channel's first rows against the golden model of its prime."""
+        for l, r in enumerate(rings):
+            same_as_golden(got[l, :GOLDEN_ROWS], want_fn(l, r.params),
+                           f"{what} channel {l}")
+
+    g = GOLDEN_ROWS
+    for n, L, batch, k, dot_batch in RNS_CHECK_SHAPES:
+        ring = RNSRing(n, L, device=dev)
+        tabs, qs = ring.tables, ring.qs
+        gen = torch.Generator(dev).manual_seed(n + L)
+        note = f"n={n} L={L} B={batch}"
+
+        x = channels(gen, qs, 4, (batch, n))
+        got = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
+        compare("fwd_rns", got, P.fwd_ntt_rns_plain(x, tabs), note)
+        golden_channels(got, lambda l, p: golden_fwd(x[l, :g], p), ring.rings,
+                        "fwd_ntt_rns")
+        del x, got
+
+        y = channels(gen, qs, 2, (batch, n))
+        got = K.inv_ntt_rns(y.to(torch.uint32), tabs)
+        compare("inv_rns", got, P.inv_ntt_rns_plain(y, tabs), note)
+        golden_channels(
+            got, lambda l, p: G.inv_ntt_u64(y[l, :g].cpu().numpy(), p),
+            ring.rings, "inv_ntt_rns")
+        got = K.inv_ntt_rns(y.to(torch.uint32), tabs, scales=tabs.polymul_scale)
+        compare("inv_rns", got, P.inv_ntt_rns_plain(y, tabs, tabs.polymul_scale),
+                note + " polymul_scale")
+        del y, got
+
+        a, b = channels(gen, qs, 1, (batch, n)), channels(gen, qs, 1, (batch, n))
+        got = K.polymul_rns_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
+        compare("polymul_rns", got, P.polymul_rns_plain(a, b, tabs), note)
+        golden_channels(
+            got, lambda l, p: golden_dot(a[l, :g, None], b[l, :g, None], p),
+            ring.rings, "polymul_rns_fused")
+        del a, b, got
+
+        a = channels(gen, qs, 1, (dot_batch, k, n))
+        b = channels(gen, qs, 1, (dot_batch, k, n))
+        got = K.polydot_rns_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
+        compare("polydot_rns", got, P.polydot_rns_plain(a, b, tabs),
+                f"n={n} L={L} B={dot_batch} k={k}")
+        golden_channels(got, lambda l, p: golden_dot(a[l, :g], b[l, :g], p),
+                        ring.rings, "polydot_rns_fused")
+        del a, b, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 3a. the single-prime main path, counted ------------------------------
     ring = Ring(MAIN_N, device=dev)
     gen = torch.Generator(dev).manual_seed(20261016)
     x = ring.random_coeffs(gen, (MAIN_BATCH,))
@@ -255,7 +384,7 @@ def main() -> int:
     log(f"main path: Ring({MAIN_N}) ntt+intt+polymul (B={MAIN_BATCH}) + "
         f"polydot (B={MAIN_DOT_BATCH}, k={MAIN_K}) in {main_s * 1e3:.3f} ms "
         f"(host clock); launches {launches}")
-    missing = [key for key, count in launches.items() if count < 1]
+    missing = [key for key in SINGLE if launches[key] < 1]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
     params, g = ring.params, GOLDEN_ROWS
@@ -274,6 +403,92 @@ def main() -> int:
     same_as_golden(d[:g], golden_dot(da[:g], db[:g], params),
                    "main path polydot")
     log("main path: outputs agree with the golden model")
+
+    # -- 3b. the key switch of the n16384 chain, and RNSRing(4096), counted ----
+    primes = find_primes(KS_N, KS_L + 1)
+    special, ks_qs = primes[0], primes[1:]  # the largest is the special prime
+    ext_qs = ks_qs + [special]
+    dnum, ext_k = KS_L, KS_L + 1
+    ks_ring = RNSRing(KS_N, qs=ks_qs, device=dev)
+    ext_ring = RNSRing(KS_N, qs=ext_qs, device=dev)
+    rns = RNSRing(RNS_N, RNS_L, device=dev)
+    gen = torch.Generator(dev).manual_seed(20261017)
+    ks_x = channels(gen, ks_qs, 1, (KS_BATCH, KS_N)).to(torch.uint32)
+    ksk = channels(gen, ext_qs, 1, (dnum, KS_N)).movedim(0, 1)
+    ksk = ksk.to(torch.uint32).contiguous()  # (dnum, K, n), shared
+    ksks = channels(gen, ext_qs, 1, (len(KS_STEPS), dnum, KS_N)).movedim(0, 2)
+    ksks = ksks.to(torch.uint32).contiguous()  # (steps, dnum, K, n)
+    rx = channels(gen, rns.qs, 1, (RNS_BATCH, RNS_N)).to(torch.uint32)
+    ra = channels(gen, rns.qs, 1, (RNS_BATCH, RNS_N)).to(torch.uint32)
+    rb = channels(gen, rns.qs, 1, (RNS_BATCH, RNS_N)).to(torch.uint32)
+    rda = channels(gen, rns.qs, 1, (RNS_BATCH, RNS_K, RNS_N)).to(torch.uint32)
+    rdb = channels(gen, rns.qs, 1, (RNS_BATCH, RNS_K, RNS_N)).to(torch.uint32)
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    ks_coeff = ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum)
+    ksk_ntt = ks_ring.ksk_to_ntt(ksk, ext_ring)
+    ks_ntt = ks_ring.keyswitch(ks_x, ksk_ntt, ext_ring, dnum, ksk_domain="ntt")
+    ksks_ntt = ks_ring.ksk_to_ntt(ksks, ext_ring, ch_axis=2)
+    hoisted = ks_ring.hoisted_keyswitch(ks_x, ksks_ntt, KS_STEPS, ext_ring, dnum,
+                                        ksk_domain="ntt")
+    ry = rns.ntt(rx)
+    rz = rns.intt(ry)
+    rc = rns.polymul(ra, rb)
+    rd = rns.polydot(rda, rdb)
+    torch.cuda.synchronize()
+    rns_s = time.perf_counter() - t0
+    rns_launches = dict(K.LAUNCHES)
+    log(f"main path: RNSRing({KS_N}, L={KS_L}) keyswitch coeff + ntt keys "
+        f"(B={KS_BATCH}, dnum={dnum}, K={ext_k}) + hoisted over {len(KS_STEPS)} "
+        f"steps, RNSRing({RNS_N}, L={RNS_L}) ntt+intt+polymul+polydot "
+        f"(B={RNS_BATCH}, k={RNS_K}) in {rns_s * 1e3:.3f} ms (host clock); "
+        f"launches {rns_launches}")
+    missing = [key for key in MULTI if rns_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"key-switch path launched no {missing} kernel")
+    for out, shape, qs in (
+        (ks_coeff, (KS_L, KS_BATCH, KS_N), ks_qs),
+        (ks_ntt, (KS_L, KS_BATCH, KS_N), ks_qs),
+        (hoisted[0], (KS_L, KS_BATCH, KS_N), ks_qs),
+        (ry, (RNS_L, RNS_BATCH, RNS_N), rns.qs),
+        (rz, (RNS_L, RNS_BATCH, RNS_N), rns.qs),
+        (rc, (RNS_L, RNS_BATCH, RNS_N), rns.qs),
+        (rd, (RNS_L, RNS_BATCH, RNS_N), rns.qs),
+    ):
+        if out.dtype != torch.uint32 or tuple(out.shape) != shape:
+            raise AssertionError(f"key-switch path output {out.dtype} "
+                                 f"{tuple(out.shape)}, expected {shape}")
+        top = out.to(torch.int64).amax(dim=tuple(range(1, out.dim())))
+        if any(int(t) >= q for t, q in zip(top.tolist(), qs)):
+            raise AssertionError("key-switch path output not reduced below q")
+    if tuple(hoisted.shape) != (len(KS_STEPS), KS_L, KS_BATCH, KS_N):
+        raise AssertionError(f"hoisted_keyswitch shape {tuple(hoisted.shape)}")
+    if not torch.equal(ks_coeff, ks_ntt):
+        raise AssertionError("keyswitch: the two key domains disagree")
+    if not torch.equal(rz, rx):
+        raise AssertionError("RNSRing intt(ntt(x)) != x")
+    # the first rows through the port's own CPU plain composition
+    cpu_ring = RNSRing(KS_N, qs=ks_qs, device="cpu")
+    rows = ks_x[:, :2].cpu()
+    want = cpu_ring.keyswitch(rows, ksk.cpu(), ext_qs, dnum)
+    if not torch.equal(ks_coeff[:, :2].cpu(), want):
+        raise AssertionError("keyswitch disagrees with the CPU plain composition")
+    want = cpu_ring.hoisted_keyswitch(rows, ksks.cpu(), KS_STEPS, ext_qs, dnum)
+    if not torch.equal(hoisted[:, :, :2].cpu(), want):
+        raise AssertionError("hoisted_keyswitch disagrees with the CPU plain "
+                             "composition")
+    golden_channels(ry, lambda l, p: golden_fwd(rx[l, :g], p), rns.rings,
+                    "RNSRing.ntt")
+    golden_channels(rc, lambda l, p: golden_dot(ra[l, :g, None],
+                                                rb[l, :g, None], p),
+                    rns.rings, "RNSRing.polymul")
+    golden_channels(rd, lambda l, p: golden_dot(rda[l, :g], rdb[l, :g], p),
+                    rns.rings, "RNSRing.polydot")
+    log("key-switch path: both key domains agree, the first rows equal the "
+        "CPU plain composition, RNSRing outputs agree with the golden model")
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
     tabs = ring.tables
@@ -296,6 +511,36 @@ def main() -> int:
                     (2 * k + 1) * dbsz * n, dot_ops(dbsz, k, n),
                     f"(B={dbsz}, k={k}, n={n}) x2"),
     }
+    rtabs, etabs = rns.tables, ext_ring.tables
+    rx64, rc64 = rx.to(torch.int64), rc.to(torch.int64)
+    ra64, rb64 = ra.to(torch.int64), rb.to(torch.int64)
+    # the key-switch dot's operands: (K, B, dnum, n) digits against the key
+    dig = channels(gen, ext_qs, 1, (KS_BATCH, dnum, KS_N))
+    kdot = ksk.to(torch.int64).movedim(0, -2)[:, None].expand(
+        ext_k, KS_BATCH, dnum, KS_N).contiguous()
+    dig32, kdot32 = dig.to(torch.uint32), kdot.to(torch.uint32)
+    L, rb_, rn = RNS_L, RNS_BATCH, RNS_N
+    tab_words = 4 * rn  # four twiddle tables of n words a channel
+    timed.update({
+        "fwd_rns": (lambda: K.fwd_ntt_rns(rx, rtabs),
+                    lambda: P.fwd_ntt_rns_plain(rx64, rtabs),
+                    L * (2 * rb_ * rn + tab_words), scaled(L, fwd_ops(rb_, rn)),
+                    f"(L={L}, B={rb_}, n={rn})"),
+        "inv_rns": (lambda: K.inv_ntt_rns(rc, rtabs),
+                    lambda: P.inv_ntt_rns_plain(rc64, rtabs),
+                    L * (2 * rb_ * rn + tab_words), scaled(L, inv_ops(rb_, rn)),
+                    f"(L={L}, B={rb_}, n={rn})"),
+        "polymul_rns": (lambda: K.polymul_rns_fused(ra, rb, rtabs),
+                        lambda: P.polymul_rns_plain(ra64, rb64, rtabs),
+                        L * (3 * rb_ * rn + tab_words),
+                        scaled(L, dot_ops(rb_, 1, rn)),
+                        f"(L={L}, B={rb_}, n={rn}) x2"),
+        "polydot_rns": (lambda: K.polydot_rns_fused(dig32, kdot32, etabs),
+                        lambda: P.polydot_rns_plain(dig, kdot, etabs),
+                        ext_k * ((2 * dnum + 1) * KS_BATCH * KS_N + 4 * KS_N),
+                        scaled(ext_k, dot_ops(KS_BATCH, dnum, KS_N)),
+                        f"(K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N}) x2"),
+    })
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -303,13 +548,14 @@ def main() -> int:
         plain_ms = cuda_time_ms(plain, warmup=1, reps=3, inner=2)
         bound_ms, bound_by = bound(words, ops)
         name, replaces = KERNELS[key]
-        log(f"  {name:14s} {shape:26s} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"  {name:17s} {shape:36s} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}; {words * 4} bytes, int32 "
             f"{ops[0]} multiplies, {ops[1]} compares, {ops[2]} adds), "
             f"{bound_ms / ms:.1%} of bound")
+        path_launches = launches if key in SINGLE else rns_launches
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": path_launches[key],
             "max_abs_err": worst[key], "mismatches": mismatched[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": shape,
@@ -326,8 +572,44 @@ def main() -> int:
         ms = cuda_time_ms(call)
         log(f"  {what:14s} {ms:.4f} ms per call of {polys} polynomials: "
             f"{polys / ms / 1e3:.3f} M per second")
+    for what, call, polys in (
+        ("RNSRing.ntt", lambda: rns.ntt(rx), RNS_L * rb_),
+        ("RNSRing.intt", lambda: rns.intt(ry), RNS_L * rb_),
+        ("RNSRing.polymul", lambda: rns.polymul(ra, rb), RNS_L * rb_),
+        ("RNSRing.polydot", lambda: rns.polydot(rda, rdb), RNS_L * rb_),
+    ):
+        ms = cuda_time_ms(call)
+        log(f"  {what:16s} {ms:.4f} ms per call of {polys} channel "
+            f"polynomials: {polys / ms / 1e3:.3f} M per second")
+    # the key switch end to end, host work (checks, table uploads) included
+    log(f"key switch end to end on {card} (n={KS_N}, L={KS_L}, dnum={dnum}, "
+        f"K={ext_k}, batch {KS_BATCH}; CUDA events, median of 3 runs of 2 "
+        f"calls):")
+    call_ms = {}
+    for what, call, per in (
+        ("keyswitch coeff keys",
+         lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum), KS_BATCH),
+        ("keyswitch ntt keys",
+         lambda: ks_ring.keyswitch(ks_x, ksk_ntt, ext_ring, dnum,
+                                   ksk_domain="ntt"), KS_BATCH),
+        (f"hoisted x{len(KS_STEPS)}",
+         lambda: ks_ring.hoisted_keyswitch(ks_x, ksks_ntt, KS_STEPS, ext_ring,
+                                           dnum, ksk_domain="ntt"),
+         KS_BATCH * len(KS_STEPS)),
+    ):
+        ms = cuda_time_ms(call, warmup=1, reps=3, inner=2)
+        call_ms[what] = ms
+        log(f"  {what:22s} {ms:.4f} ms per call, {ms / per * 1e3:.3f} us per "
+            f"ciphertext{' step' if 'hoisted' in what else ''}")
+    log("where the key switch's device time goes (torch.profiler, one call):")
+    device_breakdown(torch, lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
+                     "keyswitch coeff keys", call_ms["keyswitch coeff keys"])
+    device_breakdown(torch, lambda: ks_ring.keyswitch(
+        ks_x, ksk_ntt, ext_ring, dnum, ksk_domain="ntt"), "keyswitch ntt keys",
+        call_ms["keyswitch ntt keys"])
     torch.cuda.synchronize()
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

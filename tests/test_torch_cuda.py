@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from agilex_ntt_tpu_torch import Ring, golden as G
+from agilex_ntt_tpu_torch import Ring, RNSRing, find_primes, golden as G
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
 
@@ -74,3 +74,72 @@ def test_wrappers_refuse_mixed_devices(cuda):
     ring = Ring(64, device=cuda)
     with pytest.raises(ValueError, match="ring tables"):
         K.fwd_ntt(torch.zeros((2, 64), dtype=torch.uint32), ring.tables)
+
+
+def _channels(gen, qs, mult, shape, device):
+    """(L, *shape) int64, channel l uniform in [0, mult * q_l)."""
+    return torch.stack([_rand(gen, mult * q, shape, device) for q in qs])
+
+
+@pytest.mark.parametrize("n,L,batch", [(8, 2, 5), (32, 3, 1000), (256, 3, 333),
+                                       (4096, 3, 16), (16384, 4, 3),
+                                       (32768, 4, 2)])
+def test_rns_transforms_match_plain(cuda, n, L, batch):
+    ring = RNSRing(n, L, device=cuda)
+    tabs = ring.tables
+    gen = torch.Generator(cuda).manual_seed(n + L)
+    x = _channels(gen, ring.qs, 4, (batch, n), cuda)
+    y = _channels(gen, ring.qs, 2, (batch, n), cuda)
+    before = dict(K.LAUNCHES)
+    got_f = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
+    got_i = K.inv_ntt_rns(y.to(torch.uint32), tabs, scales=tabs.polymul_scale)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fwd_rns"] == before["fwd_rns"] + 1
+    assert K.LAUNCHES["inv_rns"] == before["inv_rns"] + 1
+    assert torch.equal(got_f.to(torch.int64), P.fwd_ntt_rns_plain(x, tabs))
+    want_i = P.inv_ntt_rns_plain(y, tabs, tabs.polymul_scale)
+    assert torch.equal(got_i.to(torch.int64), want_i)
+    for l, r in enumerate(ring.rings):  # channel l used its own prime
+        golden = G.fwd_ntt_u32(x[l, :2].cpu().numpy().astype(np.uint32), r.params)
+        assert np.array_equal(got_f[l, :2].cpu().numpy(), golden)
+
+
+@pytest.mark.parametrize("n,L,batch,k", [(32, 3, 999, 1), (32, 3, 999, 3),
+                                         (4096, 3, 16, 1), (4096, 5, 8, 4),
+                                         (16384, 5, 2, 4), (32768, 4, 3, 1),
+                                         (32768, 3, 2, 2)])
+def test_rns_fused_match_plain(cuda, n, L, batch, k):
+    ring = RNSRing(n, L, device=cuda)
+    tabs = ring.tables
+    gen = torch.Generator(cuda).manual_seed(n + L + k)
+    a = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
+    b = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
+    a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
+    if k == 1:
+        got = K.polymul_rns_fused(a32[:, :, 0].contiguous(),
+                                  b32[:, :, 0].contiguous(), tabs)
+        want = P.polymul_rns_plain(a[:, :, 0], b[:, :, 0], tabs)
+    else:
+        got = K.polydot_rns_fused(a32, b32, tabs)
+        want = P.polydot_rns_plain(a, b, tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int64), want)
+
+
+def test_rns_keyswitch_on_the_card_matches_the_cpu(cuda):
+    n = 1024
+    primes = find_primes(n, 5)
+    qs, ext = primes[:3], primes[:5]
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, q, size=(4, n), dtype=np.uint32) for q in qs])
+    ksk = np.stack([rng.integers(0, q, size=(3, n), dtype=np.uint32) for q in ext],
+                   axis=1)
+    outs = []
+    for dev in ("cpu", cuda):
+        ring = RNSRing(n, qs=qs, device=dev)
+        kn = ring.ksk_to_ntt(ksk, ext)
+        outs.append([ring.keyswitch(x, ksk, ext, 3).cpu(),
+                     ring.keyswitch(x, kn, ext, 3, ksk_domain="ntt").cpu(),
+                     ring.hoisted_keyswitch(x, ksk[None], (5,), ext, 3).cpu()])
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it and running its command-line check
-loads neither JAX nor the JAX package."""
+"""The port stands alone: importing every module of it and running its
+command-line check, single- and multi-prime, loads neither JAX nor the JAX
+package."""
 
 import subprocess
 import sys
@@ -10,8 +11,20 @@ ROOT = Path(__file__).resolve().parents[1]
 PROBE = """
 import sys
 import agilex_ntt_tpu_torch
+from agilex_ntt_tpu_torch import RNSRing, Ring
+from agilex_ntt_tpu_torch.ops import basechange, gadget, ntt_kernel, plain_ntt
+from agilex_ntt_tpu_torch.utils import crt, profiling
 from agilex_ntt_tpu_torch.__main__ import main
 main(["256", "4", "--device", "cpu"])
+main(["256", "4", "--rns", "3", "--device", "cpu"])
+import numpy as np
+ring = RNSRing(256, 3, device="cpu")
+ext = RNSRing(256, 4, device="cpu")
+x = ring.to_rns(np.arange(2 * 256).reshape(2, 256))
+ksk = np.ones((3, 4, 256), dtype=np.uint32)
+ring.keyswitch(x, ring.ksk_to_ntt(ksk, ext), ext, 3, ksk_domain="ntt")
+ring.hoisted_keyswitch(x, ksk[None], (3,), ext, 3)
+ring.mod_down_bgv(ring.base_convert(x, ring.qs), 17)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)
@@ -24,5 +37,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "all checks passed (n=256" in proc.stdout
+    assert "all checks passed (n=256, q=" in proc.stdout
+    assert "all checks passed (n=256, L=3 primes" in proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout

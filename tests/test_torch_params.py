@@ -33,6 +33,17 @@ def test_params_match_jax(n):
         assert np.array_equal(a, b), name
 
 
+@pytest.mark.parametrize("n", [32, 1024, 4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+def test_prime_chains_match_jax(n, k):
+    """The RNS chains of every reference size, up to 6 primes: the presets
+    (n4096: 3 primes, n16384 and n32768: 4) and the extended bases of
+    their key switches."""
+    chain = tp.find_primes(n, k)
+    assert chain == jp.find_primes(n, k)
+    assert len(set(chain)) == k and all(q % (2 * n) == 1 for q in chain)
+
+
 @pytest.mark.parametrize("n", [32, 4096])
 def test_params_from_numpy_round_trips_a_jax_ring(n):
     ref = jp.make_params(n, jp.find_primes(n, 1)[0])
