@@ -5,13 +5,14 @@ same rings, tables and outputs, with hand-written Hopper kernels in place of
 the Pallas ones.  It imports neither JAX nor the JAX package.
 """
 
-from .api import Ring, RNSRing
+from .api import CyclicRing, Ring, RNSRing
 from .config import NTTConfig, REFERENCE_SIZES
 from .params import NTTParams, find_primes, find_psi, make_params, params_from_numpy
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "CyclicRing",
     "Ring",
     "RNSRing",
     "NTTConfig",

@@ -1,11 +1,11 @@
 """Command-line check:
 ``python -m agilex_ntt_tpu_torch [n] [batch] [--rns L] [--device cpu|cuda]``.
 
-Builds a ring (an ``RNSRing`` of L primes with ``--rns L``), runs the
-forward and inverse NTT and a negacyclic polymul on the chosen device
-(default the GPU), and checks them, channel by channel, against the
-package's own numpy golden model before printing a summary.  Exits 1 if a
-check fails.
+Builds a ring (an ``RNSRing`` of L primes with ``--rns L``; four-step above
+n = 32768), runs the forward and inverse NTT and a negacyclic polymul on
+the chosen device (default the GPU), and checks them, channel by channel,
+against the package's own numpy golden model before printing a summary.
+Exits 1 if a check fails.
 """
 
 import argparse

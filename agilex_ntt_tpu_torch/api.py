@@ -1,9 +1,12 @@
-"""Public API: the negacyclic rings on an NVIDIA GPU.
+"""Public API: the negacyclic and cyclic rings on an NVIDIA GPU.
 
-Counterpart of ``agilex_ntt_tpu/api.py::Ring`` and ``RNSRing`` for radix-2
-sizes (n <= 32768), with the same public layout: (..., n) in, (..., n) out,
-and (..., k, n) for ``polydot``; an ``RNSRing`` puts its L prime channels
-first, (L, ..., n).  Values are ``torch.uint32``.
+Counterpart of ``agilex_ntt_tpu/api.py::Ring``, ``CyclicRing`` and
+``RNSRing``, with the same public layout: (..., n) in, (..., n) out, and
+(..., k, n) for ``polydot``; an ``RNSRing`` puts its L prime channels
+first, (L, ..., n).  Values are ``torch.uint32``.  Sizes up to 32768 run the
+radix-2 kernels; larger ones (and ``method="fourstep"`` at any size) the
+four-step kernels of ``ops/fourstep.py``, with the tiled (..., n1, n2) API
+beside the flat one.
 
 Typical use::
 
@@ -13,11 +16,12 @@ Typical use::
     c = ring.polymul(a, b)                 # negacyclic convolution mod q
 
 The transforms, the polymul and the polydot run the hand-written CUDA
-kernels of ``ops/ntt_kernel.py`` (one launch for all channels of an
-``RNSRing``).  The elementwise ring operations are plain
-PyTorch on int64, as the JAX package leaves them to XLA.  ``Ring(n)`` and
-``RNSRing(n, L)`` run on the GPU and raise when there is none;
-``device="cpu"`` selects the plain CPU versions (the tests use it).
+kernels of ``ops/ntt_kernel.py`` (one launch for all channels of a radix-2
+``RNSRing``; a four-step ``RNSRing`` loops over its channels' rings).  The
+elementwise ring operations are plain PyTorch on int64, as the JAX package
+leaves them to XLA.  ``Ring(n)``, ``CyclicRing(n)`` and ``RNSRing(n, L)``
+run on the GPU and raise when there is none; ``device="cpu"`` selects the
+plain CPU versions (the tests use it).
 """
 
 from __future__ import annotations
@@ -27,17 +31,31 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import NTTConfig, is_power_of_two
+from .config import NTTConfig
 from .ops import basechange, gadget
+from .ops import fourstep
 from .ops import modmul as mm
 from .ops import ntt_kernel
-from .ops.plain_ntt import make_rns_tables, make_tables
-from .params import NTTParams, bit_reverse, find_primes, make_params
+from .ops.plain_ntt import make_fourstep_tables, make_rns_tables, make_tables
+from .params import (
+    CyclicParams,
+    NTTParams,
+    bit_reverse_array,
+    find_primes,
+    is_prime,
+    make_cyclic_params,
+    make_params,
+    primitive_root,
+)
 from .utils.crt import crt_compose
 
-# Largest size of the radix-2 transforms; larger rings need the four-step
-# decomposition, which is not ported yet.
+# Largest size of the radix-2 transforms; larger rings use the four-step
+# decomposition.
 MAX_RADIX2_N = 32768
+# Largest n of fourstep_kernel="flat", the JAX package's bound
+# (agilex_ntt_tpu/ops/flat_fuse.py).  On the card the flat and the tiled
+# layouts are the same bytes and run the same kernels.
+FLAT_FUSE_MAX_N = 1 << 17
 
 
 def _resolve_device(device) -> torch.device:
@@ -52,49 +70,31 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-class Ring:
-    """The negacyclic polynomial ring R_q = Z_q[X] / (X^n + 1).
+def _resolve_method(n: int, method: Optional[str]) -> str:
+    """"radix2" or "fourstep"; default four-step above ``MAX_RADIX2_N``."""
+    if method is None:
+        method = "fourstep" if n > MAX_RADIX2_N else "radix2"
+    if method not in ("radix2", "fourstep"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "radix2" and n > MAX_RADIX2_N:
+        raise ValueError(
+            f"radix2 supports n <= {MAX_RADIX2_N}; use method='fourstep'"
+        )
+    return method
 
-    Args:
-      n: a power of two, 8 <= n <= 32768.
-      q: a prime q ≡ 1 (mod 2n), q < 2**30; default the largest such prime.
-      psi: a primitive 2n-th root of unity mod q; default the one
-        ``find_psi`` picks (the JAX package's choice).
-      device: ``None`` for the current CUDA device, or ``"cpu"``.
-    """
 
-    def __init__(
-        self,
-        n: int,
-        q: Optional[int] = None,
-        *,
-        psi: Optional[int] = None,
-        device=None,
-    ):
-        if is_power_of_two(n) and n > MAX_RADIX2_N:
-            raise NotImplementedError(
-                f"n={n} > {MAX_RADIX2_N} needs the four-step transforms, "
-                "which come with the four-step slice of the port"
-            )
-        if q is None:
-            q = find_primes(n, 1)[0]
-        self.config = NTTConfig(n=n, q=q)
-        self.n = n
-        self.q = q
-        self.device = _resolve_device(device)
-        self._params = make_params(n, q, psi)
-        self.tables = make_tables(self._params, self.device)
-        # Montgomery constants for pointwise products (R = 2**32)
-        self.qinv_neg = self.tables.qinv_neg
-        self.r2_mod_q = pow(1 << 32, 2, q)
-        self.n_inv = self.tables.n_inv
-        # folds R out of the Montgomery pointwise product, and n^-1
-        self.polymul_scale = self.tables.polymul_scale
-        self._cache = {}
+class _TransformRing:
+    """The transforms and the fused product shared by ``Ring`` and
+    ``CyclicRing``: a subclass sets ``n``, ``device``, ``method`` and either
+    ``tables`` (radix-2) or ``plan`` and ``fourstep`` (four-step), and the
+    twiddles in those tables make the ring negacyclic or cyclic."""
 
-    @property
-    def params(self) -> NTTParams:
-        return self._params
+    n: int
+    device: torch.device
+    method: str
+    tables: Optional[object]
+    plan: Optional[fourstep.FourStepPlan]
+    fourstep: Optional[object]
 
     # -- shape plumbing ------------------------------------------------------
 
@@ -113,6 +113,142 @@ class Ring:
             raise ValueError(f"empty batch: shape {tuple(x.shape)}")
         return x.reshape(-1, self.n).contiguous(), lead
 
+    @property
+    def tile_shape(self) -> Tuple[int, int]:
+        """(n1, n2) of the four-step decomposition."""
+        self._require_fourstep("tile_shape")
+        return (self.plan.n1, self.plan.n2)
+
+    def _require_fourstep(self, what: str) -> None:
+        if self.method != "fourstep":
+            raise ValueError(
+                f"{what} is only available on four-step rings "
+                f"(method='fourstep'); this ring is method={self.method!r}"
+            )
+
+    def _tile(self, flat: torch.Tensor) -> torch.Tensor:
+        """(B, n) -> (B, n1, n2), a view of the same bytes."""
+        return flat.view((flat.shape[0],) + self.tile_shape)
+
+    # -- transforms ----------------------------------------------------------
+
+    def ntt(self, x) -> torch.Tensor:
+        """Forward NTT, (..., n) in [0, 4q) -> (..., n) in [0, q):
+        negacyclic on a ``Ring``, cyclic (out[bitrev(k)] = A(omega^k)) on a
+        ``CyclicRing``."""
+        flat, lead = self._flatten(self._as_u32(x))
+        if self.fourstep is not None:
+            y = fourstep.fwd_ntt_fourstep_tiled(self._tile(flat), self.fourstep)
+        else:
+            y = ntt_kernel.fwd_ntt(flat, self.tables)
+        return y.view(lead + (self.n,))
+
+    def intt(self, x, *, scale: Optional[int] = None) -> torch.Tensor:
+        """Inverse NTT, (..., n) in [0, 2q) -> (..., n) in [0, q).
+
+        ``scale`` replaces the final n^-1 factor."""
+        flat, lead = self._flatten(self._as_u32(x))
+        if self.fourstep is not None:
+            y = fourstep.inv_ntt_fourstep_tiled(
+                self._tile(flat), self.fourstep, scale=scale
+            )
+        else:
+            y = ntt_kernel.inv_ntt(flat, self.tables, scale=scale)
+        return y.view(lead + (self.n,))
+
+    def polymul(self, a, b) -> torch.Tensor:
+        """Product a*b in the ring (mod X^n + 1 on a ``Ring``, X^n - 1 on a
+        ``CyclicRing``), coefficients in and out, in one fused kernel (K3;
+        K8 on a four-step ring up to n = 2^19, the composed transforms
+        beyond).  Leading dimensions broadcast."""
+        a, b = torch.broadcast_tensors(self._as_u32(a), self._as_u32(b))
+        af, lead = self._flatten(a)
+        bf, _ = self._flatten(b)
+        if self.fourstep is not None:
+            out = fourstep.polymul_fourstep_tiled(
+                self._tile(af), self._tile(bf), self.fourstep
+            )
+        else:
+            out = ntt_kernel.polymul_fused(af, bf, self.tables)
+        return out.view(lead + (self.n,))
+
+
+class Ring(_TransformRing):
+    """The negacyclic polynomial ring R_q = Z_q[X] / (X^n + 1).
+
+    Args:
+      n: a power of two >= 8.
+      q: a prime q ≡ 1 (mod 2n), q < 2**30; default the largest such prime.
+      psi: a primitive 2n-th root of unity mod q; default the one
+        ``find_psi`` picks (the JAX package's choice).
+      method: "radix2" (n <= 32768) or "fourstep"; default four-step above
+        32768.
+      fourstep_kernel: "tiled" (the default of a four-step ring) or "flat"
+        (n <= ``FLAT_FUSE_MAX_N``).  "flat" is an alias kept for parity with
+        the JAX package's API: on the card (B, n) and (B, n1, n2) are the
+        same bytes, so both values run the same kernels.
+      device: ``None`` for the current CUDA device, or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        n: int,
+        q: Optional[int] = None,
+        *,
+        psi: Optional[int] = None,
+        method: Optional[str] = None,
+        fourstep_kernel: Optional[str] = None,
+        device=None,
+    ):
+        if q is None:
+            q = find_primes(n, 1)[0]
+        self.config = NTTConfig(n=n, q=q)
+        self.n = n
+        self.q = q
+        self.method = _resolve_method(n, method)
+        if fourstep_kernel not in (None, "tiled", "flat"):
+            raise ValueError(
+                f"unknown fourstep_kernel {fourstep_kernel!r}; "
+                "expected 'tiled' or 'flat'"
+            )
+        if fourstep_kernel is not None and self.method != "fourstep":
+            raise ValueError("fourstep_kernel requires method='fourstep'")
+        if fourstep_kernel == "flat" and n > FLAT_FUSE_MAX_N:
+            raise ValueError(
+                f"fourstep_kernel='flat' supports n <= {FLAT_FUSE_MAX_N} "
+                "(the JAX package's bound)"
+            )
+        self.fourstep_kernel = fourstep_kernel or (
+            "tiled" if self.method == "fourstep" else None
+        )
+        self.device = _resolve_device(device)
+        if self.method == "fourstep":
+            # O(sqrt n) bignum work; the full-size NTTParams (O(n) pows) is
+            # built only if .params is touched
+            self.plan: Optional[fourstep.FourStepPlan] = fourstep.make_plan(
+                n, q, psi
+            )
+            self._psi = self.plan.psi
+            self.fourstep = make_fourstep_tables(self.plan, self.device)
+            self.tables = None
+        else:
+            params = make_params(n, q, psi)
+            self.plan, self._psi, self.fourstep = None, params.psi, None
+            self.tables = make_tables(params, self.device)
+        # Montgomery constants for pointwise products (R = 2**32)
+        self.qinv_neg = mm.mont_qinv_neg(q)
+        self.r2_mod_q = pow(1 << 32, 2, q)
+        self.n_inv = pow(n, q - 2, q)
+        # folds R out of the Montgomery pointwise product, and n^-1
+        self.polymul_scale = self.n_inv * ((1 << 32) % q) % q
+        self._cache = {}
+
+    @property
+    def params(self) -> NTTParams:
+        """The full-size tables (lazy for a four-step ring: O(n) bignum
+        work, used by the golden model)."""
+        return make_params(self.n, self.q, self._psi)
+
     def _i64(self, x) -> torch.Tensor:
         return self._as_u32(x).to(torch.int64)
 
@@ -120,36 +256,76 @@ class Ring:
     def _u32(x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.uint32)
 
-    # -- transforms ----------------------------------------------------------
+    # -- tiled-domain API (four-step rings) ----------------------------------
+    #
+    # (..., n) and (..., n1, n2) are the same bytes on the card, so to_tiled
+    # and from_tiled are views of contiguous input; the tiled calls exist so
+    # that code written for the JAX package's tiled API runs unchanged.
 
-    def ntt(self, x) -> torch.Tensor:
-        """Forward negacyclic NTT, (..., n) in [0, 4q) -> (..., n) in [0, q)."""
-        flat, lead = self._flatten(self._as_u32(x))
-        return ntt_kernel.fwd_ntt(flat, self.tables).view(lead + (self.n,))
+    def _tiled_batch(self, x: torch.Tensor) -> Tuple[torch.Tensor, tuple]:
+        n1, n2 = self.tile_shape
+        if x.dim() < 2 or tuple(x.shape[-2:]) != (n1, n2):
+            raise ValueError(
+                f"tiled operands must end in (n1, n2)=({n1}, {n2}), "
+                f"got {tuple(x.shape)}"
+            )
+        if x.numel() == 0:
+            raise ValueError(f"empty batch: shape {tuple(x.shape)}")
+        lead = tuple(x.shape[:-2])
+        return x.reshape((-1, n1, n2)).contiguous(), lead
 
-    def intt(self, x, *, scale: Optional[int] = None) -> torch.Tensor:
-        """Inverse negacyclic NTT, (..., n) in [0, 2q) -> (..., n) in [0, q).
+    def to_tiled(self, x) -> torch.Tensor:
+        """(..., n) -> (..., n1, n2)."""
+        self._require_fourstep("to_tiled")
+        x = self._as_u32(x)
+        if x.dim() == 0 or x.shape[-1] != self.n:
+            raise ValueError(f"last dim must be n={self.n}, got {tuple(x.shape)}")
+        return x.reshape(tuple(x.shape[:-1]) + self.tile_shape)
 
-        ``scale`` replaces the final n^-1 factor."""
-        flat, lead = self._flatten(self._as_u32(x))
-        y = ntt_kernel.inv_ntt(flat, self.tables, scale=scale)
-        return y.view(lead + (self.n,))
+    def from_tiled(self, xt) -> torch.Tensor:
+        """(..., n1, n2) -> (..., n)."""
+        self._require_fourstep("from_tiled")
+        xt = self._as_u32(xt)
+        n1, n2 = self.tile_shape
+        if xt.dim() < 2 or tuple(xt.shape[-2:]) != (n1, n2):
+            raise ValueError(
+                f"expected trailing (n1, n2)=({n1}, {n2}), got {tuple(xt.shape)}"
+            )
+        return xt.reshape(tuple(xt.shape[:-2]) + (self.n,))
+
+    def ntt_tiled(self, xt) -> torch.Tensor:
+        """Forward NTT on the tiled layout, (..., n1, n2) -> (..., n1, n2),
+        equal to ``to_tiled(ntt(from_tiled(xt)))``."""
+        self._require_fourstep("ntt_tiled")
+        x3, lead = self._tiled_batch(self._as_u32(xt))
+        y = fourstep.fwd_ntt_fourstep_tiled(x3, self.fourstep)
+        return y.view(lead + self.tile_shape)
+
+    def intt_tiled(self, xt, *, scale: Optional[int] = None) -> torch.Tensor:
+        """Inverse NTT on the tiled layout (lazy [0, 2q) input)."""
+        self._require_fourstep("intt_tiled")
+        x3, lead = self._tiled_batch(self._as_u32(xt))
+        y = fourstep.inv_ntt_fourstep_tiled(x3, self.fourstep, scale=scale)
+        return y.view(lead + self.tile_shape)
+
+    def polymul_tiled(self, a, b) -> torch.Tensor:
+        """Negacyclic product on the tiled layout, (..., n1, n2) in and out;
+        the same kernels as ``polymul``.  Leading dimensions broadcast."""
+        self._require_fourstep("polymul_tiled")
+        a, b = torch.broadcast_tensors(self._as_u32(a), self._as_u32(b))
+        a3, lead = self._tiled_batch(a)
+        b3, _ = self._tiled_batch(b)
+        out = fourstep.polymul_fourstep_tiled(a3, b3, self.fourstep)
+        return out.view(lead + self.tile_shape)
 
     # -- ring arithmetic -----------------------------------------------------
-
-    def polymul(self, a, b) -> torch.Tensor:
-        """Negacyclic product a*b mod (X^n + 1, q), coefficients in and out,
-        in one fused kernel.  Leading dimensions broadcast."""
-        a, b = torch.broadcast_tensors(self._as_u32(a), self._as_u32(b))
-        af, lead = self._flatten(a)
-        bf, _ = self._flatten(b)
-        out = ntt_kernel.polymul_fused(af, bf, self.tables)
-        return out.view(lead + (self.n,))
 
     def polydot(self, a, b) -> torch.Tensor:
         """Inner product sum_i a_i * b_i mod (X^n + 1, q) of (..., k, n)
         vectors -> (..., n), in one fused kernel: 2k forward transforms, the
-        lazy sum of the Montgomery products, one inverse."""
+        lazy sum of the Montgomery products, one inverse.  A four-step ring
+        composes the same steps from its transforms, as the JAX package
+        does."""
         a, b = self._as_u32(a), self._as_u32(b)
         if a.shape != b.shape or a.dim() < 2 or a.shape[-1] != self.n:
             raise ValueError(
@@ -161,7 +337,16 @@ class Ring:
             raise ValueError(f"empty operands: shape {tuple(a.shape)}")
         af = a.reshape(-1, k, self.n).contiguous()
         bf = b.reshape(-1, k, self.n).contiguous()
-        out = ntt_kernel.polydot_fused(af, bf, self.tables)
+        if self.fourstep is not None:
+            terms = self._mont_lazy(
+                self.ntt(af).to(torch.int64), self.ntt(bf).to(torch.int64)
+            )
+            acc = terms[:, 0]
+            for i in range(1, k):  # lazy in [0, 2q), the fused kernel's order
+                acc = mm.cond_sub(acc + terms[:, i], 2 * self.q)
+            out = self.intt(self._u32(acc), scale=self.polymul_scale)
+        else:
+            out = ntt_kernel.polydot_fused(af, bf, self.tables)
         return out.view(lead + (self.n,))
 
     def _mont_lazy(self, a: torch.Tensor, b) -> torch.Tensor:
@@ -261,12 +446,11 @@ class Ring:
         2 br(p') + 1 = (2 br(p) + 1) k mod 2n.
         """
         n = self.n
-        logn = n.bit_length() - 1
 
         def build():
             j = np.arange(n) * pow(k, -1, 2 * n) % (2 * n)
             neg = j >= n
-            br = np.array([bit_reverse(i, logn) for i in range(n)])
+            br = bit_reverse_array(n)
             e = (2 * br + 1) * k % (2 * n)
             ntt_src = br[(e - 1) // 2]
             return np.where(neg, j - n, j).astype(np.int64), neg, ntt_src
@@ -331,7 +515,73 @@ class Ring:
         return self._u32(x)
 
     def __repr__(self):
-        return f"Ring(n={self.n}, q={self.q}, device={str(self.device)!r})"
+        return (
+            f"Ring(n={self.n}, q={self.q}, method={self.method!r}, "
+            f"device={str(self.device)!r})"
+        )
+
+
+class CyclicRing(_TransformRing):
+    """The cyclic ring Z_q[X] / (X^n - 1): plain cyclic convolution.
+
+    Counterpart of ``agilex_ntt_tpu/api.py::CyclicRing``: the same kernels
+    as ``Ring`` with cyclic twiddle tables (radix-2: K1, K2 and the fused
+    polymul K3), and above 32768 the all-cyclic four-step plan.  Requires
+    q ≡ 1 (mod n).
+
+    Args:
+      n: a power of two >= 2.
+      q: a prime q ≡ 1 (mod n), q < 2**30; default the largest q ≡ 1
+        (mod 2n).
+      omega: a primitive n-th root of unity mod q; default g^((q-1)/n) for
+        the smallest generator g.
+      method: "radix2" (n <= 32768) or "fourstep"; default four-step above
+        32768.
+      device: ``None`` for the current CUDA device, or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        n: int,
+        q: Optional[int] = None,
+        *,
+        omega: Optional[int] = None,
+        method: Optional[str] = None,
+        device=None,
+    ):
+        if q is None:
+            q = find_primes(n, 1)[0]
+        if q % n != 1:
+            raise ValueError(f"q ≡ 1 (mod n) required: q={q} n={n}")
+        if q >= (1 << 30):
+            raise ValueError(
+                f"q must be < 2**30 for uint32 lazy arithmetic, got {q}"
+            )
+        if not is_prime(q):
+            raise ValueError(f"q={q} is not prime")
+        if omega is None:
+            omega = pow(primitive_root(q), (q - 1) // n, q)
+        self.method = _resolve_method(n, method)
+        self.device = _resolve_device(device)
+        self.n, self.q, self.omega = n, q, omega
+        if self.method == "fourstep":
+            self.plan = fourstep.make_cyclic_plan(n, q, omega)
+            self.params: Optional[CyclicParams] = None
+            self.fourstep = make_fourstep_tables(self.plan, self.device)
+            self.tables = None
+        else:
+            self.plan, self.fourstep = None, None
+            self.params = make_cyclic_params(n, q, omega)
+            self.tables = make_tables(self.params, self.device)
+        self.qinv_neg = mm.mont_qinv_neg(q)
+        self.n_inv = pow(n, q - 2, q)
+        self.polymul_scale = self.n_inv * ((1 << 32) % q) % q
+
+    def __repr__(self):
+        return (
+            f"CyclicRing(n={self.n}, q={self.q}, method={self.method!r}, "
+            f"device={str(self.device)!r})"
+        )
 
 
 def _prime_tuple(basis) -> Tuple[int, ...]:
@@ -346,15 +596,17 @@ class RNSRing:
 
     Counterpart of ``agilex_ntt_tpu/api.py::RNSRing``: data is (L, ..., n)
     with the prime channel first, values ``torch.uint32`` below each
-    channel's q.  The transforms, polymul and polydot run one multi-prime
-    kernel launch for all channels (``ops/ntt_kernel.py``: ``fwd_ntt_rns``,
-    ``inv_ntt_rns``, ``polymul_rns_fused``, ``polydot_rns_fused``); the
+    channel's q.  Up to n = 32768 the transforms, polymul and polydot run
+    one multi-prime kernel launch for all channels (``ops/ntt_kernel.py``:
+    ``fwd_ntt_rns``, ``inv_ntt_rns``, ``polymul_rns_fused``,
+    ``polydot_rns_fused``); above it each channel's four-step ``Ring`` runs
+    them in turn, as the JAX package maps its per-channel rings.  The
     elementwise, channel-mixing and permutation steps (base conversion,
     rescaling, Montgomery products, automorphisms) are plain PyTorch on
     int64, as the JAX package leaves them to XLA.
 
     Args:
-      n: a power of two, 8 <= n <= 32768.
+      n: a power of two >= 8.
       num_primes: L, when ``qs`` is not given: ``find_primes(n, L)``.
       qs: the primes, each ≡ 1 (mod 2n) and below 2**30.
       device: ``None`` for the current CUDA device, or ``"cpu"``.
@@ -379,7 +631,12 @@ class RNSRing:
         self.modulus = 1
         for q in self.qs:
             self.modulus *= q
-        self.tables = make_rns_tables([r.tables for r in self.rings])
+        # the multi-prime kernels' tables; None for four-step channels
+        self.tables = (
+            make_rns_tables([r.tables for r in self.rings])
+            if self.rings[0].tables is not None else None
+        )
+        self.polymul_scale = tuple(r.polymul_scale for r in self.rings)
         # per-channel q and -q^-1 mod 2**32 as int64, for the PyTorch steps
         self._q64 = torch.tensor(self.qs, dtype=torch.int64, device=self.device)
         self._qinv64 = torch.tensor(
@@ -432,6 +689,8 @@ class RNSRing:
         [0, q_l), in one launch."""
         x = self._as_u32(x)
         self._check(x)
+        if self.tables is None:
+            return torch.stack([r.ntt(x[l]) for l, r in enumerate(self.rings)])
         return ntt_kernel.fwd_ntt_rns(self._flat(x), self.tables).view(x.shape)
 
     def intt(self, x) -> torch.Tensor:
@@ -442,6 +701,12 @@ class RNSRing:
     def _intt_scaled(self, x: torch.Tensor, scales) -> torch.Tensor:
         """Inverse NTT with channel l's n^-1 replaced by ``scales[l]``."""
         self._check(x)
+        if self.tables is None:
+            scales = (None,) * self.L if scales is None else scales
+            return torch.stack([
+                r.intt(x[l], scale=s)
+                for l, (r, s) in enumerate(zip(self.rings, scales))
+            ])
         y = ntt_kernel.inv_ntt_rns(self._flat(x), self.tables, scales=scales)
         return y.view(x.shape)
 
@@ -463,9 +728,13 @@ class RNSRing:
             pad = (1,) * (len(lead) - (v.dim() - 2))
             return v.reshape(v.shape[:1] + pad + v.shape[1:]).expand(full)
 
-        out = ntt_kernel.polymul_rns_fused(
-            self._flat(spread(a)), self._flat(spread(b)), self.tables
-        )
+        af, bf = self._flat(spread(a)), self._flat(spread(b))
+        if self.tables is None:
+            out = torch.stack([
+                r.polymul(af[l], bf[l]) for l, r in enumerate(self.rings)
+            ])
+        else:
+            out = ntt_kernel.polymul_rns_fused(af, bf, self.tables)
         return out.view(full)
 
     def polydot(self, a, b) -> torch.Tensor:
@@ -481,7 +750,12 @@ class RNSRing:
         k = a.shape[-2]
         af = a.reshape(self.L, -1, k, self.n).contiguous()
         bf = b.reshape(self.L, -1, k, self.n).contiguous()
-        out = ntt_kernel.polydot_rns_fused(af, bf, self.tables)
+        if self.tables is None:
+            out = torch.stack([
+                r.polydot(af[l], bf[l]) for l, r in enumerate(self.rings)
+            ])
+        else:
+            out = ntt_kernel.polydot_rns_fused(af, bf, self.tables)
         return out.view(a.shape[:-2] + (self.n,))
 
     def _i64(self, x) -> torch.Tensor:
@@ -505,7 +779,7 @@ class RNSRing:
         """One scaled inverse launch for several (L, ...) NTT-domain products,
         each carrying one stray R^-1: polymul_scale folds it out."""
         stacked = torch.stack(terms, dim=1).to(torch.uint32)
-        out = self._intt_scaled(stacked, self.tables.polymul_scale)
+        out = self._intt_scaled(stacked, self.polymul_scale)
         return tuple(out.unbind(1))
 
     def tensor(self, a0, a1, b0, b1):
@@ -688,7 +962,7 @@ class RNSRing:
         for dd in range(1, d):
             acc = mm.cond_sub(acc + t[:, dd], two_q)
         out = ext_ring._intt_scaled(
-            acc.to(torch.uint32), ext_ring.tables.polymul_scale
+            acc.to(torch.uint32), ext_ring.polymul_scale
         )
         return out.to(torch.int64)
 

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels of the negacyclic NTT, single- and multi-prime.
+// Hopper (sm_90a) kernels of the negacyclic NTT, single- and multi-prime,
+// radix-2 and four-step.
 //
 // Replaces eight Pallas TPU kernels of agilex_ntt_tpu/ops/ntt_kernel.py:
 //   fwd_kernel      <- _fwd_kernel      (K1, forward Cooley-Tukey NTT)
@@ -11,6 +12,13 @@
 //                                        per channel)
 //   polydot_rns_kernel <- _polymul_rns_kernel (K5, k = 1)
 //                   and _polydot_rns_kernel   (K6b, K6a over L primes)
+// and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
+// four-step section below for their design):
+//   fwd4_kernel     <- _full_fwd_kernel     (K7a)
+//   inv4_kernel     <- _full_inv_kernel     (K7b)
+//   polymul4_kernel <- _full_polymul_kernel (K8)
+//   col_fwd4_kernel <- _col_fwd_kernel      (K9a)
+//   col_inv4_kernel <- _col_inv_kernel      (K9b)
 // The multi-prime kernels run the single-prime bodies with the channel on
 // blockIdx.y: each block reads its channel's q, -q^-1 and inverse-scale
 // constants from (L,) and (L, 4) arrays and its twiddles from row l of the
@@ -108,10 +116,14 @@ __device__ void store_tile(uint32_t* __restrict__ g, const uint32_t* tile,
 }
 
 // Forward stages m = 1, 2, ..., n/2 (stride t = n/2m) on every polynomial of
-// the tile.  In [0, 4q), out [0, q).  Ends on a __syncthreads().
+// the tile; polynomial p starts at word p * pitch (pitch >= n: the
+// four-step column tiles pad each column to n1 + 1 words, so that a warp
+// storing one row of a transposed tile hits 32 different banks).  In
+// [0, 4q), out [0, q).  Ends on a __syncthreads().
 __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
                            const uint32_t* __restrict__ roots,
-                           const uint32_t* __restrict__ precon, uint32_t q) {
+                           const uint32_t* __restrict__ precon, uint32_t q,
+                           int pitch) {
   const int half = 1 << (logn - 1);
   const int butterflies = polys * half;
   const uint32_t two_q = 2u * q;
@@ -123,7 +135,7 @@ __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
     for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
       const int b = j & (half - 1);
       const int i = b >> logt;
-      uint32_t* u = tile + ((j >> (logn - 1)) << logn) + (i << (logt + 1)) +
+      uint32_t* u = tile + (j >> (logn - 1)) * pitch + (i << (logt + 1)) +
                     (b & (t - 1));
       uint32_t x = u[0];
       uint32_t y = u[t];
@@ -142,12 +154,13 @@ __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
 // Inverse stages m = n/2, ..., 1 (stride t = n/2m).  In [0, 2q), out [0, q).
 // The last stage (m = 1) multiplies the sum by `su` and the difference by
 // `sv` = scale * inv_roots[1] instead of a separate scaling pass, as the
-// TPU kernel's last twiddle row does.  Ends on a __syncthreads().
+// TPU kernel's last twiddle row does.  Polynomial p starts at word
+// p * pitch, as in fwd_stages.  Ends on a __syncthreads().
 __device__ void inv_stages(uint32_t* tile, int logn, int polys,
                            const uint32_t* __restrict__ iroots,
                            const uint32_t* __restrict__ iprecon, uint32_t q,
                            uint32_t su, uint32_t sup, uint32_t sv,
-                           uint32_t svp) {
+                           uint32_t svp, int pitch) {
   const int half = 1 << (logn - 1);
   const int butterflies = polys * half;
   const uint32_t two_q = 2u * q;
@@ -158,7 +171,7 @@ __device__ void inv_stages(uint32_t* tile, int logn, int polys,
     for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
       const int b = j & (half - 1);
       const int i = b >> s;
-      uint32_t* u = tile + ((j >> (logn - 1)) << logn) + (i << (s + 1)) +
+      uint32_t* u = tile + (j >> (logn - 1)) * pitch + (i << (s + 1)) +
                     (b & (t - 1));
       uint32_t x = u[0];
       uint32_t y = u[t];
@@ -188,7 +201,7 @@ __device__ void fwd_body(const uint32_t* __restrict__ x,
   const long long first = (long long)blockIdx.x * polys;
   load_tile(smem, x, first, polys, batch, logn, 1, 0);
   __syncthreads();
-  fwd_stages(smem, logn, polys, roots, precon, q);
+  fwd_stages(smem, logn, polys, roots, precon, q, 1 << logn);
   store_tile(y, smem, first, polys, batch, logn);
 }
 
@@ -202,7 +215,8 @@ __device__ void inv_body(const uint32_t* __restrict__ x,
   const long long first = (long long)blockIdx.x * polys;
   load_tile(smem, x, first, polys, batch, logn, 1, 0);
   __syncthreads();
-  inv_stages(smem, logn, polys, iroots, iprecon, q, su, sup, sv, svp);
+  inv_stages(smem, logn, polys, iroots, iprecon, q, su, sup, sv, svp,
+             1 << logn);
   store_tile(y, smem, first, polys, batch, logn);
 }
 
@@ -235,12 +249,12 @@ __device__ void polydot_body(const uint32_t* __restrict__ a,
   for (int i = 0; i < k; ++i) {
     load_tile(work, a, first, polys, batch, logn, k, i);
     __syncthreads();
-    fwd_stages(work, logn, polys, roots, precon, q);
+    fwd_stages(work, logn, polys, roots, precon, q, 1 << logn);
     for (int e = threadIdx.x; e < words; e += blockDim.x) fa[e] = work[e];
     __syncthreads();
     load_tile(work, b, first, polys, batch, logn, k, i);
     __syncthreads();
-    fwd_stages(work, logn, polys, roots, precon, q);
+    fwd_stages(work, logn, polys, roots, precon, q, 1 << logn);
     const bool last = i == k - 1;
     for (int e = threadIdx.x; e < words; e += blockDim.x) {
       uint32_t term = ntt_mont_lazy(fa[e], work[e], q, qinv_neg);
@@ -253,7 +267,8 @@ __device__ void polydot_body(const uint32_t* __restrict__ a,
     }
     __syncthreads();
   }
-  inv_stages(work, logn, polys, iroots, iprecon, q, su, sup, sv, svp);
+  inv_stages(work, logn, polys, iroots, iprecon, q, su, sup, sv, svp,
+             1 << logn);
   store_tile(out, work, first, polys, batch, logn);
 }
 
@@ -349,6 +364,234 @@ polydot_rns_kernel(const uint32_t* __restrict__ a,
                k, logn, polys, __ldg(qs + l), __ldg(qinvs + l), __ldg(s),
                __ldg(s + 1), __ldg(s + 2), __ldg(s + 3));
 }
+
+// -- four-step, n = n1 * n2 (K7a, K7b, K8, K9a, K9b) ---------------------------
+//
+// A polynomial is an (n1, n2) matrix, row r holding coefficients r n2 ..
+// r n2 + n2 - 1.  The forward transform runs a size-n1 NTT down every
+// column, multiplies by the twiddle T[r, c] (Shoup, lazy [0, 2q)), then a
+// size-n2 cyclic NTT along every row; the inverse runs the row inverse
+// (scale n2^-1), the product with T^-1 and the column inverse (scale
+// col_scale), as agilex_ntt_tpu/ops/fourstep.py does.  A polynomial of
+// 2^16 words is 256 KiB, more than the 227 KiB a block may have, so the
+// matrix cannot stay in shared memory as it stays in the TPU's VMEM.  Here
+// one block owns one polynomial (K7a, K7b, K8) and walks it in tiles:
+//   column tiles of tc consecutive columns (tc = 32: 128 contiguous bytes a
+//     row where the tile fits), stored transposed with each column padded to
+//     n1 + 1 words, so that the stage loop sees tc length-n1 polynomials;
+//   the block's own slice of the output, in device memory (mostly L2 at
+//     n = 2^16 .. 2^18), between the column pass and the row pass, ordered
+//     by __syncthreads() since no other block touches it;
+//   row tiles of whole rows.
+// K9a/K9b are the column pass alone, one block a column tile; their row
+// pass is fwd_kernel/inv_kernel on (B n1, n2) rows with the cyclic tables.
+// K8 keeps the first operand's transform in a scratch buffer in device
+// memory (B n words) and multiplies (Montgomery) while loading the inverse's
+// row tiles.  A cluster of blocks with distributed shared memory would keep
+// 2^16 .. 2^19 on chip; that is later work.
+
+constexpr int k4Threads = 1024;
+// Words of one tile: 128 KiB, one block an SM.
+constexpr int k4TileWords = 32768;
+// Most columns a column tile takes: 128 bytes of a row.
+constexpr int k4MaxCols = 32;
+constexpr int k4MaxLogSide = 15;
+
+struct Tabs4 {
+  const uint32_t* col;        // column transform's roots (or inverse roots)
+  const uint32_t* col_precon;
+  const uint32_t* row;        // row transform's roots (or inverse roots)
+  const uint32_t* row_precon;
+  const uint32_t* tw;         // (n1, n2) twiddles T (or T^-1)
+  const uint32_t* tw_precon;
+};
+
+struct Scale4 {
+  uint32_t su, sup, sv, svp;  // the last inverse stage's constants
+};
+
+struct Shape4 {
+  int logn1, logn2;
+  int logtc;  // log2 of the columns of a column tile
+  int rows;   // rows of a row tile
+};
+
+Shape4 make_shape4(int logn1, int logn2) {
+  Shape4 s;
+  s.logn1 = logn1;
+  s.logn2 = logn2;
+  int logtc = 5;  // log2(k4MaxCols)
+  while (logtc > 0 && ((1 << logtc) > (1 << logn2) ||
+                       (1 << (logtc + logn1)) > k4TileWords))
+    --logtc;
+  s.logtc = logtc;
+  const int fit = k4TileWords >> logn2;
+  s.rows = fit < (1 << logn1) ? fit : 1 << logn1;
+  return s;
+}
+
+size_t smem4_bytes(const Shape4& s, bool rows) {
+  const size_t col = (size_t)(1 << s.logtc) * ((1 << s.logn1) + 1);
+  const size_t row = rows ? (size_t)s.rows << s.logn2 : 0;
+  return 4 * (col > row ? col : row);
+}
+
+bool shape4_ok(int logn1, int logn2, long long batch) {
+  return logn1 >= 1 && logn2 >= 1 && logn1 <= k4MaxLogSide &&
+         logn2 <= k4MaxLogSide && batch >= 1;
+}
+
+// Column tile c0 .. c0 + tc - 1 of one polynomial: load x transposed, the
+// size-n1 forward stages, y = T x (lazy [0, 2q)).  x in [0, 4q).
+__device__ void col_fwd_tile(const uint32_t* x, uint32_t* y, uint32_t* tile,
+                             int c0, const Shape4& s, const Tabs4& t,
+                             uint32_t q) {
+  const int pitch = (1 << s.logn1) + 1;
+  const int words = 1 << (s.logtc + s.logn1);
+  const int cmask = (1 << s.logtc) - 1;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int r = e >> s.logtc, c = e & cmask;
+    tile[c * pitch + r] = x[((size_t)r << s.logn2) + c0 + c];
+  }
+  __syncthreads();
+  fwd_stages(tile, s.logn1, 1 << s.logtc, t.col, t.col_precon, q, pitch);
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int r = e >> s.logtc, c = e & cmask;
+    const size_t g = ((size_t)r << s.logn2) + c0 + c;
+    y[g] = ntt_shoup_lazy(tile[c * pitch + r], __ldg(t.tw + g),
+                          __ldg(t.tw_precon + g), q);
+  }
+  __syncthreads();
+}
+
+// Column tile of the inverse: load T^-1 x transposed (x any word), the
+// size-n1 inverse stages scaled by cs, store.  Out [0, q).  x may be y.
+__device__ void col_inv_tile(const uint32_t* x, uint32_t* y, uint32_t* tile,
+                             int c0, const Shape4& s, const Tabs4& t,
+                             const Scale4& cs, uint32_t q) {
+  const int pitch = (1 << s.logn1) + 1;
+  const int words = 1 << (s.logtc + s.logn1);
+  const int cmask = (1 << s.logtc) - 1;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int r = e >> s.logtc, c = e & cmask;
+    const size_t g = ((size_t)r << s.logn2) + c0 + c;
+    tile[c * pitch + r] =
+        ntt_shoup_lazy(x[g], __ldg(t.tw + g), __ldg(t.tw_precon + g), q);
+  }
+  __syncthreads();
+  inv_stages(tile, s.logn1, 1 << s.logtc, t.col, t.col_precon, q, cs.su,
+             cs.sup, cs.sv, cs.svp, pitch);
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int r = e >> s.logtc, c = e & cmask;
+    y[((size_t)r << s.logn2) + c0 + c] = tile[c * pitch + r];
+  }
+  __syncthreads();
+}
+
+// The forward transform of one polynomial, x -> y (x is not written).
+__device__ void fwd4_poly(const uint32_t* x, uint32_t* y, uint32_t* tile,
+                          const Shape4& s, const Tabs4& t, uint32_t q) {
+  const int n2 = 1 << s.logn2;
+  for (int c0 = 0; c0 < n2; c0 += 1 << s.logtc)
+    col_fwd_tile(x, y, tile, c0, s, t, q);
+  const int words = s.rows << s.logn2;
+  for (int r0 = 0; r0 < (1 << s.logn1); r0 += s.rows) {
+    uint32_t* g = y + ((size_t)r0 << s.logn2);
+    for (int e = threadIdx.x; e < words; e += blockDim.x) tile[e] = g[e];
+    __syncthreads();
+    fwd_stages(tile, s.logn2, s.rows, t.row, t.row_precon, q, n2);
+    for (int e = threadIdx.x; e < words; e += blockDim.x) g[e] = tile[e];
+    __syncthreads();
+  }
+}
+
+// The inverse transform of one polynomial, x -> y; with x2 it transforms
+// the Montgomery product x2 x 2^-32 (lazy [0, 2q)) instead.  x may be y.
+__device__ void inv4_poly(const uint32_t* x, const uint32_t* x2, uint32_t* y,
+                          uint32_t* tile, const Shape4& s, const Tabs4& t,
+                          const Scale4& rs, const Scale4& cs, uint32_t q,
+                          uint32_t qinv_neg) {
+  const int n2 = 1 << s.logn2;
+  const int words = s.rows << s.logn2;
+  for (int r0 = 0; r0 < (1 << s.logn1); r0 += s.rows) {
+    const size_t off = (size_t)r0 << s.logn2;
+    for (int e = threadIdx.x; e < words; e += blockDim.x) {
+      const uint32_t v = x[off + e];
+      tile[e] = x2 != nullptr ? ntt_mont_lazy(x2[off + e], v, q, qinv_neg) : v;
+    }
+    __syncthreads();
+    inv_stages(tile, s.logn2, s.rows, t.row, t.row_precon, q, rs.su, rs.sup,
+               rs.sv, rs.svp, n2);
+    for (int e = threadIdx.x; e < words; e += blockDim.x) y[off + e] = tile[e];
+    __syncthreads();
+  }
+  for (int c0 = 0; c0 < n2; c0 += 1 << s.logtc)
+    col_inv_tile(y, y, tile, c0, s, t, cs, q);
+}
+
+// K7a: blockIdx.x is the polynomial.
+__global__ void __launch_bounds__(k4Threads)
+fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t, Shape4 s,
+            uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (s.logn1 + s.logn2);
+  fwd4_poly(x + off, y + off, smem, s, t, q);
+}
+
+// K7b.
+__global__ void __launch_bounds__(k4Threads)
+inv4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t, Shape4 s,
+            Scale4 rs, Scale4 cs, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (s.logn1 + s.logn2);
+  inv4_poly(x + off, nullptr, y + off, smem, s, t, rs, cs, q, 0u);
+}
+
+// K8: fa -> scratch, fb -> out, then the scaled inverse of their
+// Montgomery product in place in out.
+__global__ void __launch_bounds__(k4Threads)
+polymul4_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                uint32_t* out, uint32_t* scratch, Tabs4 f, Tabs4 i, Shape4 s,
+                Scale4 rs, Scale4 cs, uint32_t q, uint32_t qinv_neg) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (s.logn1 + s.logn2);
+  fwd4_poly(a + off, scratch + off, smem, s, f, q);
+  fwd4_poly(b + off, out + off, smem, s, f, q);
+  inv4_poly(out + off, scratch + off, out + off, smem, s, i, rs, cs, q,
+            qinv_neg);
+}
+
+// K9a: blockIdx.x is the polynomial, blockIdx.y the column tile.
+__global__ void __launch_bounds__(k4Threads)
+col_fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
+                Shape4 s, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (s.logn1 + s.logn2);
+  col_fwd_tile(x + off, y + off, smem, blockIdx.y << s.logtc, s, t, q);
+}
+
+// K9b.
+__global__ void __launch_bounds__(k4Threads)
+col_inv4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
+                Shape4 s, Scale4 cs, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (s.logn1 + s.logn2);
+  col_inv_tile(x + off, y + off, smem, blockIdx.y << s.logtc, s, t, cs, q);
+}
+
+Tabs4 tabs4(const void* const* p) {
+  Tabs4 t;
+  t.col = (const uint32_t*)p[0];
+  t.col_precon = (const uint32_t*)p[1];
+  t.row = (const uint32_t*)p[2];
+  t.row_precon = (const uint32_t*)p[3];
+  t.tw = (const uint32_t*)p[4];
+  t.tw_precon = (const uint32_t*)p[5];
+  return t;
+}
+
+Scale4 scale4(const uint32_t* w) { return Scale4{w[0], w[1], w[2], w[3]}; }
+
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= kDefaultSmemBytes) return cudaSuccess;
@@ -481,6 +724,85 @@ int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
                        (cudaStream_t)stream>>>(
       a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
       qs, qinvs, scales, batch, k, logn, p.polys);
+  return (int)cudaGetLastError();
+}
+
+// -- four-step (K7a, K7b, K8, K9a, K9b) ----------------------------------------
+//
+// tabs: host arrays of six device pointers, in Tabs4's order; row_scale and
+// col_scale: host arrays of the four words (su, su', sv, sv') of the row and
+// column inverses' last stages.  Operands are (batch, n1, n2), contiguous.
+
+int ntt_fwd4(const uint32_t* x, uint32_t* y, const void* const* tabs,
+             long long batch, int logn1, int logn2, uint32_t q, void* stream) {
+  if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const Shape4 s = make_shape4(logn1, logn2);
+  const size_t bytes = smem4_bytes(s, true);
+  cudaError_t err = allow_smem((const void*)fwd4_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwd4_kernel<<<(unsigned)batch, k4Threads, bytes, (cudaStream_t)stream>>>(
+      x, y, tabs4(tabs), s, q);
+  return (int)cudaGetLastError();
+}
+
+int ntt_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
+             const uint32_t* row_scale, const uint32_t* col_scale,
+             long long batch, int logn1, int logn2, uint32_t q, void* stream) {
+  if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const Shape4 s = make_shape4(logn1, logn2);
+  const size_t bytes = smem4_bytes(s, true);
+  cudaError_t err = allow_smem((const void*)inv4_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  inv4_kernel<<<(unsigned)batch, k4Threads, bytes, (cudaStream_t)stream>>>(
+      x, y, tabs4(tabs), s, scale4(row_scale), scale4(col_scale), q);
+  return (int)cudaGetLastError();
+}
+
+// scratch: batch * n words of device memory for the first operand's
+// transform.
+int ntt_polymul4(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                 uint32_t* scratch, const void* const* fwd_tabs,
+                 const void* const* inv_tabs, const uint32_t* row_scale,
+                 const uint32_t* col_scale, long long batch, int logn1,
+                 int logn2, uint32_t q, uint32_t qinv_neg, void* stream) {
+  if (!shape4_ok(logn1, logn2, batch) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Shape4 s = make_shape4(logn1, logn2);
+  const size_t bytes = smem4_bytes(s, true);
+  cudaError_t err = allow_smem((const void*)polymul4_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  polymul4_kernel<<<(unsigned)batch, k4Threads, bytes,
+                    (cudaStream_t)stream>>>(
+      a, b, out, scratch, tabs4(fwd_tabs), tabs4(inv_tabs), s,
+      scale4(row_scale), scale4(col_scale), q, qinv_neg);
+  return (int)cudaGetLastError();
+}
+
+int ntt_col_fwd4(const uint32_t* x, uint32_t* y, const void* const* tabs,
+                 long long batch, int logn1, int logn2, uint32_t q,
+                 void* stream) {
+  if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const Shape4 s = make_shape4(logn1, logn2);
+  const size_t bytes = smem4_bytes(s, false);
+  cudaError_t err = allow_smem((const void*)col_fwd4_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)batch, 1u << (logn2 - s.logtc));
+  col_fwd4_kernel<<<grid, k4Threads, bytes, (cudaStream_t)stream>>>(
+      x, y, tabs4(tabs), s, q);
+  return (int)cudaGetLastError();
+}
+
+int ntt_col_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
+                 const uint32_t* col_scale, long long batch, int logn1,
+                 int logn2, uint32_t q, void* stream) {
+  if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const Shape4 s = make_shape4(logn1, logn2);
+  const size_t bytes = smem4_bytes(s, false);
+  cudaError_t err = allow_smem((const void*)col_inv4_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)batch, 1u << (logn2 - s.logtc));
+  col_inv4_kernel<<<grid, k4Threads, bytes, (cudaStream_t)stream>>>(
+      x, y, tabs4(tabs), s, scale4(col_scale), q);
   return (int)cudaGetLastError();
 }
 

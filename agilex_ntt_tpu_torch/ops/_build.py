@@ -48,6 +48,19 @@ SIGNATURES = {
     "ntt_polydot_rns": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P,
     ),
+    # four-step: tabs is a host array of six device pointers, the scales
+    # host arrays of four words.
+    # x, y, tabs, batch, logn1, logn2, q, stream
+    "ntt_fwd4": (_P, _P, _P, _LL, _I, _I, _U, _P),
+    # x, y, tabs, row_scale, col_scale, batch, logn1, logn2, q, stream
+    "ntt_inv4": (_P, _P, _P, _P, _P, _LL, _I, _I, _U, _P),
+    # a, b, out, scratch, fwd_tabs, inv_tabs, row_scale, col_scale, batch,
+    # logn1, logn2, q, qinv_neg, stream
+    "ntt_polymul4": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _P),
+    # x, y, tabs, batch, logn1, logn2, q, stream
+    "ntt_col_fwd4": (_P, _P, _P, _LL, _I, _I, _U, _P),
+    # x, y, tabs, col_scale, batch, logn1, logn2, q, stream
+    "ntt_col_inv4": (_P, _P, _P, _P, _LL, _I, _I, _U, _P),
 }
 
 

@@ -4,13 +4,19 @@ Counterpart of the entry points of ``agilex_ntt_tpu/ops/ntt_kernel.py``:
 ``fwd_ntt``, ``inv_ntt``, ``polymul_fused`` and ``polydot_fused`` on (B, n)
 and (B, k, n) operands of one prime, and ``fwd_ntt_rns``, ``inv_ntt_rns``,
 ``polymul_rns_fused`` and ``polydot_rns_fused`` on (L, B, n) and
-(L, B, k, n) operands of L primes, one launch for all channels.  The
-kernels are hand-written CUDA in ``csrc/ntt_kernels.cu``, built for
+(L, B, k, n) operands of L primes, one launch for all channels; and of the
+four-step kernels of ``agilex_ntt_tpu/ops/fourstep.py`` on (B, n1, n2)
+operands: ``fwd_ntt_fourstep``, ``inv_ntt_fourstep`` and
+``polymul_fourstep_fused`` (the whole transform in one kernel) and
+``fwd_col_fourstep``/``inv_col_fourstep`` (the column pass and the twiddle
+alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``).
+The kernels are hand-written CUDA in ``csrc/ntt_kernels.cu``, built for
 ``sm_90a`` at first use (``_build.py``).
 
 Every wrapper takes contiguous ``torch.uint32`` tensors on the device of the
 ring's tables and returns a new ``torch.uint32`` tensor reduced to [0, q)
-(to [0, q_l) in channel l):
+(to [0, q_l) in channel l; ``fwd_col_fourstep`` leaves its words lazy in
+[0, 2q), as the TPU kernel does):
 
   * on a CUDA tensor it launches its kernel on the current stream, raises if
     the launch returns a CUDA error, and adds one to ``LAUNCHES[name]``;
@@ -21,18 +27,20 @@ There is no fallback: a CUDA tensor is never handed to the plain version.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
 
 from . import _build
 from . import plain_ntt as plain
-from .plain_ntt import RingTables, RNSTables, inv_scale_words
+from .plain_ntt import FourStepTables, RingTables, RNSTables, inv_scale_words
 
 # Kernel launches per wrapper since the count was last set to 0.
 LAUNCHES = {
     "fwd": 0, "inv": 0, "polymul": 0, "polydot": 0,
     "fwd_rns": 0, "inv_rns": 0, "polymul_rns": 0, "polydot_rns": 0,
+    "fwd4": 0, "inv4": 0, "polymul4": 0, "col_fwd": 0, "col_inv": 0,
 }
 
 
@@ -269,3 +277,167 @@ def polydot_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> to
     out = _polydot_rns_launch(a, b, tables, "polydot_rns_fused")
     LAUNCHES["polydot_rns"] += 1
     return out
+
+
+# -- four-step: (B, n1, n2) operands, n = n1 * n2 ------------------------------
+
+
+def _check4(x, ft: FourStepTables, name: str) -> None:
+    """Raise unless x is a contiguous uint32 (B, n1, n2) tensor, B >= 1, on
+    the tables' device."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != torch.uint32:
+        raise TypeError(f"{name}: expected torch.uint32, got {x.dtype}")
+    if x.device != ft.device:
+        raise ValueError(
+            f"{name}: tensor on {x.device}, ring tables on {ft.device}"
+        )
+    if x.dim() != 3 or tuple(x.shape[1:]) != (ft.n1, ft.n2) or x.shape[0] == 0:
+        raise ValueError(
+            f"{name}: expected (B >= 1, n1={ft.n1}, n2={ft.n2}), got "
+            f"{tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _ptrs(*tensors: torch.Tensor):
+    """A host array of the tensors' device pointers (the kernels' Tabs4)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _fwd_tabs(ft: FourStepTables):
+    return _ptrs(ft.col.roots, ft.col.precon, ft.row.roots, ft.row.precon,
+                 ft.tw, ft.tw_precon)
+
+
+def _inv_tabs(ft: FourStepTables):
+    return _ptrs(ft.col.inv_roots, ft.col.inv_precon, ft.row.inv_roots,
+                 ft.row.inv_precon, ft.itw, ft.itw_precon)
+
+
+def _words(values) -> ctypes.Array:
+    return (ctypes.c_uint32 * 4)(*values)
+
+
+def _row_scale(ft: FourStepTables):
+    """The row inverse's last-stage words: n2^-1 (inv_roots[1] of a cyclic
+    table is 1)."""
+    return _words(inv_scale_words(ft.row, None))
+
+
+def _col_scale(ft: FourStepTables, scale: Optional[int]):
+    return _words(inv_scale_words(ft.col, ft.col_scale(scale)))
+
+
+def _logs(ft: FourStepTables):
+    return ft.n1.bit_length() - 1, ft.n2.bit_length() - 1
+
+
+def fwd_ntt_fourstep(x: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
+    """Forward four-step NTT of (B, n1, n2) in [0, 4q) -> [0, q) in one
+    kernel (K7a): the column pass, the twiddle and the row pass."""
+    _check4(x, ft, "fwd_ntt_fourstep")
+    if x.device.type == "cpu":
+        return _u32(plain.fwd_ntt_fourstep_plain(x.to(torch.int64), ft))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_fwd4(
+            x.data_ptr(), y.data_ptr(), _fwd_tabs(ft), x.shape[0], *_logs(ft),
+            ft.q, _stream(x),
+        )
+    _build.check(lib, rc, "fwd_ntt_fourstep")
+    LAUNCHES["fwd4"] += 1
+    return y
+
+
+def inv_ntt_fourstep(
+    x: torch.Tensor, ft: FourStepTables, *, scale: Optional[int] = None
+) -> torch.Tensor:
+    """Inverse four-step NTT of (B, n1, n2) in [0, 2q) -> [0, q) in one
+    kernel (K7b).  ``scale`` replaces the overall n^-1: the row pass scales
+    by n2^-1, the column pass by scale * n2."""
+    _check4(x, ft, "inv_ntt_fourstep")
+    if x.device.type == "cpu":
+        return _u32(plain.inv_ntt_fourstep_plain(x.to(torch.int64), ft, scale))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_inv4(
+            x.data_ptr(), y.data_ptr(), _inv_tabs(ft), _row_scale(ft),
+            _col_scale(ft, scale), x.shape[0], *_logs(ft), ft.q, _stream(x),
+        )
+    _build.check(lib, rc, "inv_ntt_fourstep")
+    LAUNCHES["inv4"] += 1
+    return y
+
+
+def polymul_fourstep_fused(
+    a: torch.Tensor, b: torch.Tensor, ft: FourStepTables
+) -> torch.Tensor:
+    """a * b of (B, n1, n2) operands in [0, q) in one kernel (K8): two
+    forward transforms, the Montgomery product, the inverse scaled by
+    ``ft.polymul_scale``."""
+    _check4(a, ft, "polymul_fourstep_fused")
+    _check4(b, ft, "polymul_fourstep_fused")
+    if a.shape != b.shape:
+        raise ValueError(
+            f"polymul_fourstep_fused: shapes {a.shape} and {b.shape} differ"
+        )
+    if a.device.type == "cpu":
+        return _u32(plain.polymul_fourstep_plain(
+            a.to(torch.int64), b.to(torch.int64), ft))
+    out = torch.empty_like(a)
+    scratch = torch.empty_like(a)  # the first operand's transform
+    lib = _build.load()
+    with torch.cuda.device(a.device):
+        rc = lib.ntt_polymul4(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            _fwd_tabs(ft), _inv_tabs(ft), _row_scale(ft),
+            _col_scale(ft, ft.polymul_scale), a.shape[0], *_logs(ft), ft.q,
+            ft.qinv_neg, _stream(a),
+        )
+    _build.check(lib, rc, "polymul_fourstep_fused")
+    LAUNCHES["polymul4"] += 1
+    return out
+
+
+def fwd_col_fourstep(x: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
+    """The column pass of (B, n1, n2) in [0, 4q) (K9a): the size-n1 NTT of
+    every column, then the twiddle T; out lazy in [0, 2q)."""
+    _check4(x, ft, "fwd_col_fourstep")
+    if x.device.type == "cpu":
+        return _u32(plain.fwd_col_fourstep_plain(x.to(torch.int64), ft))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_col_fwd4(
+            x.data_ptr(), y.data_ptr(), _fwd_tabs(ft), x.shape[0], *_logs(ft),
+            ft.q, _stream(x),
+        )
+    _build.check(lib, rc, "fwd_col_fourstep")
+    LAUNCHES["col_fwd"] += 1
+    return y
+
+
+def inv_col_fourstep(
+    x: torch.Tensor, ft: FourStepTables, *, scale: Optional[int] = None
+) -> torch.Tensor:
+    """The column inverse of (B, n1, n2), any words (K9b): the product with
+    T^-1, then the size-n1 inverse of every column scaled by scale * n2
+    (default n^-1 n2 = n1^-1); out [0, q)."""
+    _check4(x, ft, "inv_col_fourstep")
+    if x.device.type == "cpu":
+        return _u32(plain.inv_col_fourstep_plain(x.to(torch.int64), ft, scale))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_col_inv4(
+            x.data_ptr(), y.data_ptr(), _inv_tabs(ft), _col_scale(ft, scale),
+            x.shape[0], *_logs(ft), ft.q, _stream(x),
+        )
+    _build.check(lib, rc, "inv_col_fourstep")
+    LAUNCHES["col_inv"] += 1
+    return y

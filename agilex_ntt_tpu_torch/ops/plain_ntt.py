@@ -12,7 +12,10 @@ to [0, q), so they equal the JAX package's lazy-Harvey outputs bit for bit.
 
 The multi-prime versions (``*_rns_plain``) loop over the channels of an
 ``RNSTables`` bundle and call the single-prime ones: they are the oracle of
-the multi-prime kernels, not a path of their own.
+the multi-prime kernels, not a path of their own.  The four-step versions
+(``*_fourstep_plain``) run the same radix-2 transforms down the columns of
+the (B, n1, n2) view (on its transpose) and along its rows, with the
+inter-pass twiddle between them.
 
 These run on the CPU (the tests, and the wrappers in ``ntt_kernel.py`` when
 given a CPU tensor) and on the card only in ``chip_smoke.py``, which holds
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..params import NTTParams
+from . import modmul as mm
 from .modmul import mont_qinv_neg
 
 
@@ -59,8 +63,10 @@ class RingTables:
 
 
 def make_tables(params: NTTParams, device) -> RingTables:
+    """The tables of ``params`` (an ``NTTParams``, or a ``CyclicParams``:
+    the same layout with cyclic twiddles) on ``device``."""
     def u32(a):
-        return torch.from_numpy(a.copy()).to(device)
+        return _u32_tensor(a, device)
 
     q = params.q
     return RingTables(
@@ -146,6 +152,8 @@ class RNSTables:
 
 
 def _u32_tensor(values, device) -> torch.Tensor:
+    """A torch.uint32 copy of ``values`` on ``device`` (never a view of a
+    cached params table)."""
     return torch.from_numpy(np.array(values, dtype=np.uint32)).to(device)
 
 
@@ -261,3 +269,114 @@ def polydot_rns_plain(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> to
     return torch.stack(
         [polydot_plain(a[l], b[l], t) for l, t in enumerate(tables.channels)]
     )
+
+
+# -- four-step: n = n1 * n2 ------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FourStepTables:
+    """A four-step plan's constants with its tables on one device.
+
+    ``col`` holds the size-n1 column transform's tables (negacyclic, or
+    cyclic for a cyclic ring), ``row`` the size-n2 cyclic row transform's;
+    ``tw``/``tw_precon`` and ``itw``/``itw_precon`` are the (n1, n2)
+    inter-pass twiddles and their inverses with 32-bit Shoup precons, all
+    ``torch.uint32``.  ``polymul_scale`` folds n^-1 and the Montgomery
+    R = 2**32 of the fused polymul's pointwise product.
+    """
+
+    n: int
+    n1: int
+    n2: int
+    q: int
+    n_inv: int
+    qinv_neg: int
+    polymul_scale: int
+    col: RingTables
+    row: RingTables
+    tw: torch.Tensor
+    tw_precon: torch.Tensor
+    itw: torch.Tensor
+    itw_precon: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.tw.device
+
+    def col_scale(self, scale: Optional[int] = None) -> int:
+        """The column inverse's scale: ``scale`` (default n^-1) times n2,
+        since the row inverse already multiplied by n2^-1."""
+        s = self.n_inv if scale is None else scale
+        return s * self.n2 % self.q
+
+
+def make_fourstep_tables(plan, device) -> FourStepTables:
+    """The tables of a ``FourStepPlan`` (``ops/fourstep.py``) on ``device``."""
+    q = plan.q
+    return FourStepTables(
+        n=plan.n, n1=plan.n1, n2=plan.n2, q=q, n_inv=plan.n_inv,
+        qinv_neg=mont_qinv_neg(q),
+        polymul_scale=plan.n_inv * ((1 << 32) % q) % q,
+        col=make_tables(plan.col, device),
+        row=make_tables(plan.row, device),
+        tw=_u32_tensor(plan.tw, device),
+        tw_precon=_u32_tensor(plan.tw_precon, device),
+        itw=_u32_tensor(plan.itw, device),
+        itw_precon=_u32_tensor(plan.itw_precon, device),
+    )
+
+
+def _columns(x3: torch.Tensor) -> torch.Tensor:
+    """(B, n1, n2) -> (B n2, n1): each column as a row."""
+    b, n1, n2 = x3.shape
+    return x3.transpose(1, 2).reshape(b * n2, n1)
+
+
+def _uncolumns(y: torch.Tensor, shape) -> torch.Tensor:
+    b, n1, n2 = shape
+    return y.view(b, n2, n1).transpose(1, 2).contiguous()
+
+
+def fwd_col_fourstep_plain(x3: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
+    """The column pass of int64 (B, n1, n2), values >= 0: the size-n1 NTT
+    of every column, then the Shoup product with T, as the kernel computes
+    it: lazy, in [0, 2q)."""
+    y = _uncolumns(fwd_ntt_plain(_columns(x3), ft.col), x3.shape)
+    tw, twp = ft.tw.to(torch.int64), ft.tw_precon.to(torch.int64)
+    return mm.shoup_mulmod_lazy(y, tw, twp, ft.q)
+
+
+def inv_col_fourstep_plain(
+    x3: torch.Tensor, ft: FourStepTables, scale: Optional[int] = None
+) -> torch.Tensor:
+    """The column inverse of int64 (B, n1, n2), values < 2**32: the product
+    with T^-1, then the size-n1 inverse of every column scaled by
+    ``ft.col_scale(scale)``; -> [0, q)."""
+    m = x3 * ft.itw.to(torch.int64) % ft.q
+    y = inv_ntt_plain(_columns(m), ft.col, ft.col_scale(scale))
+    return _uncolumns(y, x3.shape)
+
+
+def fwd_ntt_fourstep_plain(x3: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
+    """Forward four-step NTT of int64 (B, n1, n2) -> [0, q)."""
+    m = fwd_col_fourstep_plain(x3, ft)
+    return fwd_ntt_plain(m.view(-1, ft.n2), ft.row).view(x3.shape)
+
+
+def inv_ntt_fourstep_plain(
+    x3: torch.Tensor, ft: FourStepTables, scale: Optional[int] = None
+) -> torch.Tensor:
+    """Inverse four-step NTT of int64 (B, n1, n2) -> [0, q), multiplied by
+    ``scale`` (default n^-1) in all."""
+    r = inv_ntt_plain(x3.reshape(-1, ft.n2), ft.row).view(x3.shape)
+    return inv_col_fourstep_plain(r, ft, scale)
+
+
+def polymul_fourstep_plain(
+    a3: torch.Tensor, b3: torch.Tensor, ft: FourStepTables
+) -> torch.Tensor:
+    """a * b of int64 (B, n1, n2) operands through the four-step
+    transforms, -> [0, q)."""
+    prod = fwd_ntt_fourstep_plain(a3, ft) * fwd_ntt_fourstep_plain(b3, ft) % ft.q
+    return inv_ntt_fourstep_plain(prod, ft)

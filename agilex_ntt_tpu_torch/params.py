@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -141,6 +141,16 @@ def bit_reverse(x: int, bits: int) -> int:
     return r
 
 
+def bit_reverse_array(n: int) -> np.ndarray:
+    """bit_reverse(i, log2 n) for every i in [0, n), as int64, vectorised."""
+    logn = log2_exact(n)
+    i = np.arange(n, dtype=np.int64)
+    out = np.zeros(n, dtype=np.int64)
+    for b in range(logn):
+        out |= ((i >> b) & 1) << (logn - 1 - b)
+    return out
+
+
 @dataclasses.dataclass(frozen=True, eq=False)  # eq=False: identity hash; instances
 # are interned by make_params's lru_cache so identity == value identity.
 class NTTParams:
@@ -250,3 +260,70 @@ def params_from_numpy(
                 f"for n={n}, q={q}, psi={psi}"
             )
     return params
+
+
+# ---------------------------------------------------------------------------
+# Cyclic tables: the row pass of the four-step transform, and CyclicRing
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)  # identity hash, interned by
+# make_cyclic_params's lru_cache as NTTParams is
+class CyclicParams:
+    """Tables for a size-n *cyclic* NTT (root omega of order n).
+
+    The same ``roots32[m + i]`` layout as ``NTTParams``, so the same stage
+    loop and kernels run it, with the cyclic twiddles
+    ``roots32[m + i] = omega^(bitrev(i, log2 m) * n / 2m)``; the forward
+    transform then gives ``out[bitrev(k)] = A(omega^k)``.
+    """
+
+    n: int
+    q: int
+    omega: int
+    roots32: np.ndarray        # uint32 [n]
+    precon32: np.ndarray       # uint32 [n]  floor(W * 2^32 / q)
+    inv_roots32: np.ndarray    # uint32 [n]
+    inv_precon32: np.ndarray   # uint32 [n]
+    n_inv: int                 # n^-1 mod q
+
+    @property
+    def log_n(self) -> int:
+        return log2_exact(self.n)
+
+
+@functools.lru_cache(maxsize=64)
+def make_cyclic_params(n: int, q: int, omega: int) -> CyclicParams:
+    """Tables for the cyclic size-n NTT with primitive n-th root ``omega``."""
+    if pow(omega, n, q) != 1:
+        raise ValueError("omega^n != 1")
+    if n > 1 and pow(omega, n // 2, q) == 1:
+        raise ValueError("omega is not a primitive n-th root")
+    logn = log2_exact(n)
+    roots_py = [1] * n
+    for s in range(logn):
+        m = 1 << s
+        stride = n // (2 * m)
+        for i in range(m):
+            roots_py[m + i] = pow(omega, bit_reverse(i, s) * stride, q)
+    inv_roots_py = [pow(w, q - 2, q) for w in roots_py]
+    return CyclicParams(
+        n=n,
+        q=q,
+        omega=omega,
+        roots32=np.array(roots_py, dtype=np.uint32),
+        precon32=np.array([(w << 32) // q for w in roots_py], dtype=np.uint32),
+        inv_roots32=np.array(inv_roots_py, dtype=np.uint32),
+        inv_precon32=np.array(
+            [(w << 32) // q for w in inv_roots_py], dtype=np.uint32
+        ),
+        n_inv=pow(n, q - 2, q),
+    )
+
+
+def fourstep_split(n: int) -> Tuple[int, int]:
+    """Balanced power-of-two split n = n1 * n2 with n1 >= n2: n1 is the
+    column (negacyclic) size, n2 the row (cyclic) size."""
+    logn = log2_exact(n)
+    l1 = (logn + 1) // 2
+    return 1 << l1, 1 << (logn - l1)

@@ -10,8 +10,8 @@ fails the run (non-zero exit, no result line) when it goes wrong:
 
 1. Build: ``nvcc`` compiles the kernels from ``agilex_ntt_tpu_torch/csrc``
    for ``sm_90a`` (``ops/_build.py``).
-2. Kernels: each of the eight kernels against its plain PyTorch version on
-   the same inputs on the card, bit for bit over the whole output
+2. Kernels: each of the thirteen kernels against its plain PyTorch version
+   on the same inputs on the card, bit for bit over the whole output
    (tolerance 0: integer arithmetic).  Single prime: at the main path's
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
    n=32, and at two shapes that reach the kernels' other branches.  L
@@ -19,7 +19,11 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=32768 (L=4, the
    fused kernels' scratch path), n=32 (L=3, batch 4096) and a ragged
    batch.  The first rows are also held against the package's numpy golden
-   model, channel by channel.
+   model, channel by channel.  Four-step (K7a, K7b, K8 where the route
+   takes them, K9a and K9b everywhere): n=2^16 (B=512), 2^18 (B=128),
+   2^20 (B=32), 2^21 (B=16; the public ``Ring`` also through the row pass
+   on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged batch
+   (2^16, B=7); the first 2 rows at n=2^16 against the golden model.
 3. Main paths, each with the launch counters set to 0 just before and read
    just after; every kernel of the path must have launched:
    a. ``Ring(4096)`` ntt -> intt -> polymul -> polydot at the main shapes,
@@ -31,10 +35,19 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       steps, then ``RNSRing(4096, 3)`` ntt -> intt -> polymul -> polydot at
       batch 2048.  The first rows must equal the port's own CPU plain
       composition, the two key domains each other, and the 4096 outputs
-      the golden model.
+      the golden model;
+   c. the four-step path: ``Ring`` at n=2^16 (B=512; polydot B=128, k=3),
+      2^18 (B=128), 2^20 (B=32) and 2^21 (B=16) ntt -> intt -> polymul,
+      ``CyclicRing(2^16)`` and ``RNSRing(2^16, 3)`` (B=64); every output
+      checked, the first rows against the plain versions (and the golden
+      model at 2^16), and ``Ring(32768, method="fourstep")`` equal word
+      for word to the radix-2 kernels at B=1024;
+   d. the flat layout, ``Ring(2^16, fourstep_kernel="flat")`` (B=512):
+      the same kernels (K10a-c on K7a, K7b, K8), equal to the tiled ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
-   (``bound_ms``), and the key switch end to end.
+   (``bound_ms``), the four-step kernels also at their other sizes, the
+   public calls' throughput, and the key switch end to end.
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -69,6 +82,7 @@ OPS_LAST_INV_BUTTERFLY = (6, 2, 4)  # two scaled products and reductions
 OPS_FINAL_REDUCE = (0, 2, 2)  # two conditional subtractions per output word
 OPS_MONT = (4, 1, 1)  # 4 multiplies, the carry test, one three-input add
 OPS_ACCUMULATE = (0, 1, 2)  # an add and a conditional subtraction
+OPS_SHOUP = (3, 0, 0)  # a lazy Shoup product, the subtract fused
 
 MAIN_N, MAIN_BATCH, MAIN_K, MAIN_DOT_BATCH = 4096, 8192, 3, 2048
 # (n, batch, polydot k, polydot batch)
@@ -94,8 +108,21 @@ RNS_CHECK_SHAPES = (
     (256, 3, 1001, 2, 333),  # a ragged last block
 )
 
+# the four-step checks: (n, batch); the split is fourstep_split(n)
+FS_CHECK_SHAPES = (
+    (1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16),
+    (1 << 17, 64),  # 512 x 256
+    (1 << 16, 7),  # a ragged batch
+)
+FS_GOLDEN_ROWS = 2
+# the four-step main path: (n, batch)
+FS_PATH = ((1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16))
+FS_DOT_BATCH, FS_DOT_K = 128, 3
+FS_RNS_L, FS_SMALL_BATCH = 3, 64
+FS_CROSS_N, FS_CROSS_BATCH = 32768, 1024
+
 KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
-KERNELS = {  # wrapper counter -> (name, TPU kernel replaced)
+KERNELS = {  # row -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
     "inv": ("inv_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:110"),
     "polymul": ("polymul_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:241"),
@@ -104,9 +131,22 @@ KERNELS = {  # wrapper counter -> (name, TPU kernel replaced)
     "inv_rns": ("inv_ntt_rns", "agilex_ntt_tpu/ops/ntt_kernel.py:350"),
     "polymul_rns": ("polymul_rns_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:360"),
     "polydot_rns": ("polydot_rns_fused", "agilex_ntt_tpu/ops/ntt_kernel.py:646"),
+    "fwd4": ("fwd_ntt_fourstep", "agilex_ntt_tpu/ops/fourstep.py:345"),
+    "inv4": ("inv_ntt_fourstep", "agilex_ntt_tpu/ops/fourstep.py:362"),
+    "polymul4": ("polymul_fourstep_fused", "agilex_ntt_tpu/ops/fourstep.py:449"),
+    "col_fwd": ("fwd_col_fourstep", "agilex_ntt_tpu/ops/fourstep.py:194"),
+    "col_inv": ("inv_col_fourstep", "agilex_ntt_tpu/ops/fourstep.py:208"),
+    # the flat layout: the same bytes, the same kernels (wrapper counters
+    # fwd4, inv4, polymul4 of the flat path)
+    "flat_fwd": ("fwd_ntt_fourstep (flat)", "agilex_ntt_tpu/ops/flat_fuse.py:196"),
+    "flat_inv": ("inv_ntt_fourstep (flat)", "agilex_ntt_tpu/ops/flat_fuse.py:209"),
+    "flat_polymul": ("polymul_fourstep_fused (flat)",
+                     "agilex_ntt_tpu/ops/flat_fuse.py:326"),
 }
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
+FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
+FLAT = {"flat_fwd": "fwd4", "flat_inv": "inv4", "flat_polymul": "polymul4"}
 
 
 def log(msg: str) -> None:
@@ -146,6 +186,41 @@ def dot_ops(batch: int, k: int, n: int):
                    (1, inv_ops(batch, n)))
 
 
+def butterflies(batch: int, n: int):
+    """log2(n) stages of plain butterflies: no final reduction and no
+    scaled last stage."""
+    return ops_sum((batch * n // 2 * (n.bit_length() - 1), OPS_BUTTERFLY))
+
+
+def fwd4_ops(batch: int, n1: int, n2: int, *, rows: bool = True):
+    """The forward four-step transform: size-n1 column transforms, the
+    twiddle product, and (with ``rows``) size-n2 row transforms.  The lazy
+    Shoup twiddle takes any 32-bit word, so the column pass needs no final
+    reduction."""
+    n = n1 * n2
+    terms = [(1, butterflies(batch * n2, n1)), (batch * n, OPS_SHOUP)]
+    if rows:
+        terms.append((1, fwd_ops(batch * n1, n2)))
+    return ops_sum(*terms)
+
+
+def inv4_ops(batch: int, n1: int, n2: int, *, rows: bool = True):
+    """The inverse: (with ``rows``) size-n2 row inverses, the inverse
+    twiddle, and size-n1 column inverses whose last stage folds the scale.
+    One scaled stage is enough for the whole transform, and the inverse
+    twiddle takes the rows' unreduced [0, 2q) output."""
+    n = n1 * n2
+    terms = [(batch * n, OPS_SHOUP), (1, inv_ops(batch * n2, n1))]
+    if rows:
+        terms.append((1, butterflies(batch * n1, n2)))
+    return ops_sum(*terms)
+
+
+def polymul4_ops(batch: int, n1: int, n2: int):
+    return ops_sum((2, fwd4_ops(batch, n1, n2)), (batch * n1 * n2, OPS_MONT),
+                   (1, inv4_ops(batch, n1, n2)))
+
+
 def scaled(L: int, ops):
     """The operations of L channels."""
     return tuple(L * v for v in ops)
@@ -162,7 +237,9 @@ def bound(words_moved: int, ops):
 
 
 # names of ntt_kernels.cu's kernels, demangled or not
-OUR_KERNEL = re.compile(r"(?<![A-Za-z_])(fwd|inv|polydot)(_rns)?_kernel")
+OUR_KERNEL = re.compile(
+    r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4)"
+    r"(_rns)?_kernel")
 
 
 def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> None:
@@ -208,8 +285,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
-    from agilex_ntt_tpu_torch import RNSRing, Ring, find_primes, golden as G
+    from agilex_ntt_tpu_torch import (
+        CyclicRing, RNSRing, Ring, find_primes, golden as G,
+    )
     from agilex_ntt_tpu_torch.ops import _build
+    from agilex_ntt_tpu_torch.ops import fourstep as FS
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.ops import plain_ntt as P
     from agilex_ntt_tpu_torch.utils.profiling import cuda_time_ms
@@ -228,7 +308,7 @@ def main() -> int:
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     kernel = "?"
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        entry = re.search(r"\d+([a-z_]+_kernel)E", line)
+        entry = re.search(r"\d+([a-z_]+\d?_kernel)E", line)
         if "Compiling entry" in line and entry:
             kernel = entry.group(1)
         elif "registers" in line or "spill" in line:
@@ -360,6 +440,57 @@ def main() -> int:
         del a, b, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+    # the four-step kernels, at the shapes of the four-step path
+    def tiled(v, ft):
+        return v.view(v.shape[0], ft.n1, ft.n2)
+
+    for n, batch in FS_CHECK_SHAPES:
+        ring = Ring(n, device=dev)
+        ft, q = ring.fourstep, ring.q
+        gen = torch.Generator(dev).manual_seed(n + batch)
+        note = f"n={n} ({ft.n1}x{ft.n2}) B={batch}"
+        shape = (batch, ft.n1, ft.n2)
+        x = rand(gen, 4 * q, shape)
+        y = rand(gen, 2 * q, shape)
+        got = K.fwd_col_fourstep(x.to(torch.uint32), ft)
+        compare("col_fwd", got, P.fwd_col_fourstep_plain(x, ft), note)
+        got = K.inv_col_fourstep(y.to(torch.uint32), ft)
+        compare("col_inv", got, P.inv_col_fourstep_plain(y, ft), note)
+        want_f = P.fwd_ntt_fourstep_plain(x, ft)
+        if FS.use_full_fuse(ft):
+            got = K.fwd_ntt_fourstep(x.to(torch.uint32), ft)
+            compare("fwd4", got, want_f, note)
+            for sc in (None, ft.polymul_scale):
+                got = K.inv_ntt_fourstep(y.to(torch.uint32), ft, scale=sc)
+                compare("inv4", got, P.inv_ntt_fourstep_plain(y, ft, sc),
+                        note + (" polymul_scale" if sc else ""))
+        else:  # the column kernels and the row pass on K1/K2
+            got = tiled(ring.ntt(x.view(batch, n).to(torch.uint32)), ft)
+            compare("col_fwd", got, want_f, note + " + rows")
+            got = tiled(ring.intt(y.view(batch, n).to(torch.uint32)), ft)
+            compare("col_inv", got, P.inv_ntt_fourstep_plain(y, ft),
+                    note + " + rows")
+        if n == 1 << 16 and batch >= FS_GOLDEN_ROWS:
+            rows_ = x[:FS_GOLDEN_ROWS].reshape(FS_GOLDEN_ROWS, n)
+            same_as_golden(want_f[:FS_GOLDEN_ROWS].reshape(FS_GOLDEN_ROWS, n),
+                           golden_fwd(rows_, ring.params), "fwd_ntt_fourstep")
+        del x, y, got, want_f
+        if FS.use_polymul_fuse(ft):
+            a, b = rand(gen, q, shape), rand(gen, q, shape)
+            got = K.polymul_fourstep_fused(a.to(torch.uint32),
+                                           b.to(torch.uint32), ft)
+            compare("polymul4", got, P.polymul_fourstep_plain(a, b, ft), note)
+            if n == 1 << 16 and batch >= FS_GOLDEN_ROWS:
+                g2 = FS_GOLDEN_ROWS
+                same_as_golden(
+                    got[:g2].reshape(g2, n),
+                    golden_dot(a[:g2].reshape(g2, 1, n),
+                               b[:g2].reshape(g2, 1, n), ring.params),
+                    "polymul_fourstep_fused")
+            del a, b, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 3a. the single-prime main path, counted ------------------------------
@@ -488,6 +619,140 @@ def main() -> int:
                     rns.rings, "RNSRing.polydot")
     log("key-switch path: both key domains agree, the first rows equal the "
         "CPU plain composition, RNSRing outputs agree with the golden model")
+
+    # -- 3c. the four-step path, counted --------------------------------------
+    gen = torch.Generator(dev).manual_seed(20261018)
+    fs_rings = [Ring(n, device=dev) for n, _ in FS_PATH]
+    fs_in = []
+    for r, (n, bsz) in zip(fs_rings, FS_PATH):
+        fs_in.append((r.random_coeffs(gen, (bsz,)), r.random_coeffs(gen, (bsz,)),
+                      r.random_coeffs(gen, (bsz,))))
+    big = fs_rings[0]
+    fda = big.random_coeffs(gen, (FS_DOT_BATCH, FS_DOT_K))
+    fdb = big.random_coeffs(gen, (FS_DOT_BATCH, FS_DOT_K))
+    cyc = CyclicRing(1 << 16, device=dev)
+    cx = rand(gen, cyc.q, (FS_SMALL_BATCH, 1 << 16)).to(torch.uint32)
+    cb = rand(gen, cyc.q, (FS_SMALL_BATCH, 1 << 16)).to(torch.uint32)
+    frns = RNSRing(1 << 16, FS_RNS_L, device=dev)
+    fr = channels(gen, frns.qs, 1, (FS_SMALL_BATCH, 1 << 16)).to(torch.uint32)
+    fr2 = channels(gen, frns.qs, 1, (FS_SMALL_BATCH, 1 << 16)).to(torch.uint32)
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    fs_out = []
+    for r, (x_, a_, b_) in zip(fs_rings, fs_in):
+        y_ = r.ntt(x_)
+        fs_out.append((y_, r.intt(y_), r.polymul(a_, b_)))
+    fdot = big.polydot(fda, fdb)
+    cy = cyc.ntt(cx)
+    cz = cyc.intt(cy)
+    cc = cyc.polymul(cx, cb)
+    ry4 = frns.ntt(fr)
+    rz4 = frns.intt(ry4)
+    rc4 = frns.polymul(fr, fr2)
+    torch.cuda.synchronize()
+    fs_s = time.perf_counter() - t0
+    fs_launches = dict(K.LAUNCHES)
+    log(f"main path: four-step Ring n=2^16..2^21 "
+        f"{[(n, b) for n, b in FS_PATH]} ntt+intt+polymul, polydot "
+        f"(B={FS_DOT_BATCH}, k={FS_DOT_K}, n=2^16), CyclicRing(2^16) and "
+        f"RNSRing(2^16, {FS_RNS_L}) (B={FS_SMALL_BATCH}) in "
+        f"{fs_s * 1e3:.3f} ms (host clock); launches "
+        f"{ {k: v for k, v in fs_launches.items() if v} }")
+    missing = [key for key in FOURSTEP + ("fwd", "inv") if fs_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"four-step path launched no {missing} kernel")
+    for r, (x_, a_, b_), outs in zip(fs_rings, fs_in, fs_out):
+        ft = r.fourstep
+        for out in outs:
+            if out.dtype != torch.uint32 or out.shape != x_.shape:
+                raise AssertionError(f"four-step output {out.dtype} "
+                                     f"{tuple(out.shape)} at n={r.n}")
+            if int(out.to(torch.int64).max()) >= r.q:
+                raise AssertionError(f"four-step output not below q at n={r.n}")
+        if not torch.equal(outs[1], x_):
+            raise AssertionError(f"intt(ntt(x)) != x at n={r.n}")
+        g2 = min(FS_GOLDEN_ROWS, x_.shape[0])
+        x2 = tiled(x_[:g2].to(torch.int64), ft)
+        if not torch.equal(outs[0][:g2], P.fwd_ntt_fourstep_plain(
+                x2, ft).view(g2, r.n).to(torch.uint32)):
+            raise AssertionError(f"four-step ntt disagrees at n={r.n}")
+        want = P.polymul_fourstep_plain(tiled(a_[:g2].to(torch.int64), ft),
+                                        tiled(b_[:g2].to(torch.int64), ft), ft)
+        if not torch.equal(outs[2][:g2], want.view(g2, r.n).to(torch.uint32)):
+            raise AssertionError(f"four-step polymul disagrees at n={r.n}")
+    x_, a_, b_ = fs_in[0]
+    same_as_golden(fs_out[0][0][:FS_GOLDEN_ROWS],
+                   golden_fwd(x_[:FS_GOLDEN_ROWS], big.params), "Ring(2^16).ntt")
+    same_as_golden(fdot[:FS_GOLDEN_ROWS],
+                   golden_dot(fda[:FS_GOLDEN_ROWS], fdb[:FS_GOLDEN_ROWS],
+                              big.params), "Ring(2^16).polydot")
+    cft = cyc.fourstep
+    if not (torch.equal(cz, cx) and torch.equal(
+            cy, P.fwd_ntt_fourstep_plain(tiled(cx.to(torch.int64), cft), cft)
+            .view(cx.shape).to(torch.uint32))):
+        raise AssertionError("CyclicRing(2^16) ntt disagrees with its plain version")
+    want = P.polymul_fourstep_plain(tiled(cx.to(torch.int64), cft),
+                                    tiled(cb.to(torch.int64), cft), cft)
+    if not torch.equal(cc, want.view(cx.shape).to(torch.uint32)):
+        raise AssertionError("CyclicRing(2^16) polymul disagrees with its plain "
+                             "version")
+    if not torch.equal(rz4, fr):
+        raise AssertionError("RNSRing(2^16) intt(ntt(x)) != x")
+    for l, r in enumerate(frns.rings):
+        ft = r.fourstep
+        if not torch.equal(ry4[l], P.fwd_ntt_fourstep_plain(
+                tiled(fr[l].to(torch.int64), ft), ft).view(fr[l].shape)
+                .to(torch.uint32)):
+            raise AssertionError(f"RNSRing(2^16).ntt channel {l} disagrees")
+        want = P.polymul_fourstep_plain(tiled(fr[l].to(torch.int64), ft),
+                                        tiled(fr2[l].to(torch.int64), ft), ft)
+        if not torch.equal(rc4[l], want.view(fr[l].shape).to(torch.uint32)):
+            raise AssertionError(f"RNSRing(2^16).polymul channel {l} disagrees")
+    # the four-step transform at n = 32768 against the radix-2 kernels
+    r2 = Ring(FS_CROSS_N, device=dev)
+    r4 = Ring(FS_CROSS_N, method="fourstep", device=dev)
+    xc = rand(gen, 4 * r2.q, (FS_CROSS_BATCH, FS_CROSS_N)).to(torch.uint32)
+    yc = rand(gen, 2 * r2.q, (FS_CROSS_BATCH, FS_CROSS_N)).to(torch.uint32)
+    if not (torch.equal(r4.ntt(xc), r2.ntt(xc))
+            and torch.equal(r4.intt(yc), r2.intt(yc))):
+        raise AssertionError("four-step n=32768 differs from the radix-2 kernels")
+    del xc, yc
+    log("four-step path: every output reduced, intt(ntt(x)) == x, the first rows "
+        "equal the plain versions and at 2^16 the golden model; n=32768 "
+        "four-step equals radix-2 at B=1024")
+
+    # -- 3d. the flat layout, counted ------------------------------------------
+    flat = Ring(1 << 16, fourstep_kernel="flat", device=dev)
+    x_, a_, b_ = fs_in[0]
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    fly = flat.ntt(x_)
+    flz = flat.intt(fly)
+    flc = flat.polymul(a_, b_)
+    torch.cuda.synchronize()
+    flat_launches = dict(K.LAUNCHES)
+    log(f"main path: Ring(2^16, fourstep_kernel='flat') ntt+intt+polymul "
+        f"(B={x_.shape[0]}); launches "
+        f"{ {k: v for k, v in flat_launches.items() if v} }")
+    missing = [key for key, c in FLAT.items() if flat_launches[c] < 1]
+    if missing:
+        raise AssertionError(f"flat path launched no {missing} kernel")
+    ft = flat.fourstep
+    x64, a64, b64 = (tiled(v.to(torch.int64), ft) for v in (x_, a_, b_))
+    for key, got, tiled_out, want in (
+        ("flat_fwd", fly, fs_out[0][0], P.fwd_ntt_fourstep_plain(x64, ft)),
+        ("flat_inv", flz, fs_out[0][1],
+         P.inv_ntt_fourstep_plain(tiled(fly.to(torch.int64), ft), ft)),
+        ("flat_polymul", flc, fs_out[0][2],
+         P.polymul_fourstep_plain(a64, b64, ft)),
+    ):
+        compare(key, tiled(got, ft), want, f"n=2^16 B={x_.shape[0]} flat")
+        if not torch.equal(got, tiled_out):
+            raise AssertionError(f"{key}: the flat ring differs from the tiled")
+    del x64, a64, b64
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -541,6 +806,65 @@ def main() -> int:
                         scaled(ext_k, dot_ops(KS_BATCH, dnum, KS_N)),
                         f"(K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N}) x2"),
     })
+
+    # the four-step kernels: K7a, K7b, K8 at n=2^16 (B=512), K9a, K9b at
+    # n=2^21 (B=16), the flat layout's calls (K10a-c) at n=2^16 through
+    # Ring(fourstep_kernel="flat"); bytes: each operand read once and
+    # written once, and the twiddle, column and row tables once a call
+    def fs_words(ft, operands: int, batch: int, tables: int = 1,
+                 rows_: bool = True):
+        tab = 2 * ft.n + 2 * ft.n1 + (2 * ft.n2 if rows_ else 0)
+        return operands * batch * ft.n + tables * tab
+
+    def fs_operands(i):
+        ft = fs_rings[i].fourstep
+        x_, a_, b_ = (tiled(v, ft) for v in fs_in[i])
+        y_ = tiled(fs_out[i][0], ft)
+        return ft, (x_, a_, b_, y_), tuple(v.to(torch.int64)
+                                           for v in (x_, a_, b_, y_))
+
+    f16, (x16, a16, b16, y16), (x16l, a16l, b16l, y16l) = fs_operands(0)
+    f21, (x21, _, _, y21), (x21l, _, _, y21l) = fs_operands(3)
+    b16n, b21n = x16.shape[0], x21.shape[0]
+    s16 = f"(B={b16n}, {f16.n1}x{f16.n2})"
+    s21 = f"(B={b21n}, {f21.n1}x{f21.n2})"
+    flat_x = [v.view(b16n, f16.n) for v in (x16, a16, b16, y16)]
+    timed.update({
+        "fwd4": (lambda: K.fwd_ntt_fourstep(x16, f16),
+                 lambda: P.fwd_ntt_fourstep_plain(x16l, f16),
+                 fs_words(f16, 2, b16n), fwd4_ops(b16n, f16.n1, f16.n2), s16),
+        "inv4": (lambda: K.inv_ntt_fourstep(y16, f16),
+                 lambda: P.inv_ntt_fourstep_plain(y16l, f16),
+                 fs_words(f16, 2, b16n), inv4_ops(b16n, f16.n1, f16.n2), s16),
+        "polymul4": (lambda: K.polymul_fourstep_fused(a16, b16, f16),
+                     lambda: P.polymul_fourstep_plain(a16l, b16l, f16),
+                     fs_words(f16, 3, b16n, 2),
+                     polymul4_ops(b16n, f16.n1, f16.n2), s16 + " x2"),
+        "col_fwd": (lambda: K.fwd_col_fourstep(x21, f21),
+                    lambda: P.fwd_col_fourstep_plain(x21l, f21),
+                    fs_words(f21, 2, b21n, rows_=False),
+                    fwd4_ops(b21n, f21.n1, f21.n2, rows=False), s21),
+        "col_inv": (lambda: K.inv_col_fourstep(y21, f21),
+                    lambda: P.inv_col_fourstep_plain(y21l, f21),
+                    fs_words(f21, 2, b21n, rows_=False),
+                    inv4_ops(b21n, f21.n1, f21.n2, rows=False), s21),
+        "flat_fwd": (lambda: flat.ntt(flat_x[0]),
+                     lambda: P.fwd_ntt_fourstep_plain(x16l, f16),
+                     fs_words(f16, 2, b16n), fwd4_ops(b16n, f16.n1, f16.n2),
+                     f"(B={b16n}, n={f16.n}) flat"),
+        "flat_inv": (lambda: flat.intt(flat_x[3]),
+                     lambda: P.inv_ntt_fourstep_plain(y16l, f16),
+                     fs_words(f16, 2, b16n), inv4_ops(b16n, f16.n1, f16.n2),
+                     f"(B={b16n}, n={f16.n}) flat"),
+        "flat_polymul": (lambda: flat.polymul(flat_x[1], flat_x[2]),
+                         lambda: P.polymul_fourstep_plain(a16l, b16l, f16),
+                         fs_words(f16, 3, b16n, 2),
+                         polymul4_ops(b16n, f16.n1, f16.n2),
+                         f"(B={b16n}, n={f16.n}) x2 flat"),
+    })
+    path_of = {key: launches for key in SINGLE}
+    path_of.update({key: rns_launches for key in MULTI})
+    path_of.update({key: fs_launches for key in FOURSTEP})
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -548,20 +872,63 @@ def main() -> int:
         plain_ms = cuda_time_ms(plain, warmup=1, reps=3, inner=2)
         bound_ms, bound_by = bound(words, ops)
         name, replaces = KERNELS[key]
-        log(f"  {name:17s} {shape:36s} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"  {name:30s} {shape:36s} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}; {words * 4} bytes, int32 "
             f"{ops[0]} multiplies, {ops[1]} compares, {ops[2]} adds), "
             f"{bound_ms / ms:.1%} of bound")
-        path_launches = launches if key in SINGLE else rns_launches
+        count = (flat_launches[FLAT[key]] if key in FLAT
+                 else path_of[key][key])
         rows.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces, "launches": path_launches[key],
+            "replaces": replaces, "launches": count,
             "max_abs_err": worst[key], "mismatches": mismatched[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": shape,
         })
     log("library_ms: null for every kernel - no PyTorch call computes a "
         "negacyclic NTT mod q")
+    del x16l, a16l, b16l, y16l, x21l, y21l
+    torch.cuda.empty_cache()
+    # the four-step kernels again at 2^16 and at the path's other sizes
+    # (not in the JSON line), each beside the two-kernel route
+    for i in (0, 1, 2):
+        ft, (xi, ai, bi, yi), _ = fs_operands(i)
+        bi_n = xi.shape[0]
+        calls = [("fwd_ntt_fourstep", lambda: K.fwd_ntt_fourstep(xi, ft),
+                  fs_words(ft, 2, bi_n), fwd4_ops(bi_n, ft.n1, ft.n2)),
+                 ("inv_ntt_fourstep", lambda: K.inv_ntt_fourstep(yi, ft),
+                  fs_words(ft, 2, bi_n), inv4_ops(bi_n, ft.n1, ft.n2))]
+        if FS.use_polymul_fuse(ft):
+            calls.append(("polymul_fourstep_fused",
+                          lambda: K.polymul_fourstep_fused(ai, bi, ft),
+                          fs_words(ft, 3, bi_n, 2),
+                          polymul4_ops(bi_n, ft.n1, ft.n2)))
+        # the two-kernel route (K9a/K9b and the row pass on K1/K2) at the
+        # same shape, beside the fused kernel it stands in for above the cap
+        calls += [
+            ("two-kernel fwd (K9a + K1)",
+             lambda: K.fwd_ntt(K.fwd_col_fourstep(xi, ft).view(-1, ft.n2),
+                               ft.row),
+             fs_words(ft, 2, bi_n), fwd4_ops(bi_n, ft.n1, ft.n2)),
+            ("two-kernel inv (K2 + K9b)",
+             lambda: K.inv_col_fourstep(
+                 K.inv_ntt(yi.view(-1, ft.n2), ft.row).view(yi.shape), ft),
+             fs_words(ft, 2, bi_n), inv4_ops(bi_n, ft.n1, ft.n2)),
+        ]
+        for name, call, words, ops in calls:
+            ms = cuda_time_ms(call)
+            bound_ms, bound_by = bound(words, ops)
+            log(f"  {name:30s} (B={bi_n}, {ft.n1}x{ft.n2}) {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    rows21 = y21.view(-1, f21.n2)
+    for name, call in (("fwd_ntt row pass", lambda: K.fwd_ntt(rows21, f21.row)),
+                       ("inv_ntt row pass", lambda: K.inv_ntt(rows21, f21.row))):
+        ms = cuda_time_ms(call)
+        bound_ms, bound_by = bound(2 * rows21.numel() + 4 * f21.n2,
+                                   (fwd_ops if "fwd" in name else inv_ops)(
+                                       rows21.shape[0], f21.n2))
+        log(f"  {name:30s} ({rows21.shape[0]}, {f21.n2}) {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     # end to end through the public API, wrapper checks and allocation included
     for what, call, polys in (
         ("Ring.ntt", lambda: ring.ntt(x), bsz),
@@ -581,6 +948,27 @@ def main() -> int:
         ms = cuda_time_ms(call)
         log(f"  {what:16s} {ms:.4f} ms per call of {polys} channel "
             f"polynomials: {polys / ms / 1e3:.3f} M per second")
+    for r, (x_, a_, b_), outs in zip(fs_rings, fs_in, fs_out):
+        bn = x_.shape[0]
+        for what, call in ((f"Ring({r.n}).ntt", lambda: r.ntt(x_)),
+                           (f"Ring({r.n}).intt", lambda: r.intt(outs[0])),
+                           (f"Ring({r.n}).polymul", lambda: r.polymul(a_, b_))):
+            ms = cuda_time_ms(call, warmup=2, reps=3, inner=4)
+            log(f"  {what:22s} {ms:.4f} ms per call of {bn} polynomials: "
+                f"{bn / ms * 1e3:.1f} per second")
+    for what, call, polys in (
+        ("Ring(65536).polydot", lambda: big.polydot(fda, fdb), FS_DOT_BATCH),
+        ("CyclicRing(65536).ntt", lambda: cyc.ntt(cx), FS_SMALL_BATCH),
+        ("CyclicRing(65536).polymul", lambda: cyc.polymul(cx, cb),
+         FS_SMALL_BATCH),
+        ("RNSRing(65536, 3).ntt", lambda: frns.ntt(fr),
+         FS_RNS_L * FS_SMALL_BATCH),
+        ("RNSRing(65536, 3).polymul", lambda: frns.polymul(fr, fr2),
+         FS_RNS_L * FS_SMALL_BATCH),
+    ):
+        ms = cuda_time_ms(call, warmup=2, reps=3, inner=4)
+        log(f"  {what:26s} {ms:.4f} ms per call of {polys} (channel) "
+            f"polynomials: {polys / ms * 1e3:.1f} per second")
     # the key switch end to end, host work (checks, table uploads) included
     log(f"key switch end to end on {card} (n={KS_N}, L={KS_L}, dnum={dnum}, "
         f"K={ext_k}, batch {KS_BATCH}; CUDA events, median of 3 runs of 2 "

@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from agilex_ntt_tpu_torch import Ring, RNSRing, find_primes, golden as G
+from agilex_ntt_tpu_torch import (
+    CyclicRing, Ring, RNSRing, find_primes, golden as G,
+)
+from agilex_ntt_tpu_torch.ops import fourstep as FS
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
 
@@ -143,3 +146,72 @@ def test_rns_keyswitch_on_the_card_matches_the_cpu(cuda):
                      ring.hoisted_keyswitch(x, ksk[None], (5,), ext, 3).cpu()])
     for got, want in zip(outs[1], outs[0]):
         assert torch.equal(got, want)
+
+
+def test_fourstep_kernels_match_plain(cuda):
+    """K7a, K7b, K8, K9a and K9b against their plain versions, bit for bit,
+    at 16 x 16 (ragged batch), the unbalanced 128 x 32 and 512 x 256,
+    256 x 256, and 2048 x 1024 (the column tile of 16 columns)."""
+    for n, n1, batch in ((256, None, 5), (4096, 128, 3), (1 << 16, None, 3),
+                         (1 << 17, None, 2), (1 << 21, None, 1)):
+        q = find_primes(n, 1)[0]
+        ft = P.make_fourstep_tables(FS.make_plan(n, q, None, n1), cuda)
+        gen = torch.Generator(cuda).manual_seed(n)
+        shape = (batch, ft.n1, ft.n2)
+        x, y = _rand(gen, 4 * q, shape, cuda), _rand(gen, 2 * q, shape, cuda)
+        a, b = _rand(gen, q, shape, cuda), _rand(gen, q, shape, cuda)
+        x32, y32 = x.to(torch.uint32), y.to(torch.uint32)
+        before = dict(K.LAUNCHES)
+        got = {
+            "fwd4": K.fwd_ntt_fourstep(x32, ft),
+            "inv4": K.inv_ntt_fourstep(y32, ft, scale=ft.polymul_scale),
+            "polymul4": K.polymul_fourstep_fused(
+                a.to(torch.uint32), b.to(torch.uint32), ft),
+            "col_fwd": K.fwd_col_fourstep(x32, ft),
+            "col_inv": K.inv_col_fourstep(y32, ft),
+        }
+        torch.cuda.synchronize()
+        want = {
+            "fwd4": P.fwd_ntt_fourstep_plain(x, ft),
+            "inv4": P.inv_ntt_fourstep_plain(y, ft, ft.polymul_scale),
+            "polymul4": P.polymul_fourstep_plain(a, b, ft),
+            "col_fwd": P.fwd_col_fourstep_plain(x, ft),
+            "col_inv": P.inv_col_fourstep_plain(y, ft),
+        }
+        for key, out in got.items():
+            assert K.LAUNCHES[key] == before[key] + 1
+            assert torch.equal(out.to(torch.int64), want[key]), (key, n)
+
+
+def test_fourstep_rings_on_the_card_match_the_cpu(cuda):
+    """Ring(65536) and its tiled, flat and two-kernel routes, CyclicRing and
+    RNSRing on the card equal the CPU rings; the four-step transform at
+    n = 32768 equals the radix-2 kernels' output."""
+    rng = np.random.default_rng(7)
+    n = 1 << 16
+    rings = [(Ring(n, device=d), Ring(n, fourstep_kernel="flat", device=d),
+              CyclicRing(n, device=d), RNSRing(n, 2, device=d))
+             for d in ("cpu", cuda)]
+    q = rings[0][0].q
+    x = rng.integers(0, q, size=(3, n), dtype=np.uint32)
+    b = rng.integers(0, q, size=(3, n), dtype=np.uint32)
+    xs = np.stack([x % p for p in rings[0][3].qs])
+    outs = []
+    for ring, flat, cyc, rns in rings:
+        outs.append([ring.ntt(x), ring.intt(x), ring.polymul(x, b),
+                     ring.polydot(x[None], b[None]), flat.ntt(x),
+                     ring.from_tiled(ring.polymul_tiled(ring.to_tiled(x),
+                                                        ring.to_tiled(b))),
+                     cyc.ntt(x), cyc.polymul(x, b), rns.ntt(xs),
+                     rns.intt(xs), rns.polymul(xs, xs)])
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got.cpu(), want)
+    assert np.array_equal(outs[1][0][:1].cpu().numpy(),
+                          G.fwd_ntt_u32(x[:1], rings[0][0].params))
+    r2, r4 = Ring(32768, device=cuda), Ring(32768, method="fourstep", device=cuda)
+    z = rng.integers(0, 4 * r2.q, size=(8, 32768), dtype=np.uint32)
+    assert torch.equal(r4.ntt(z), r2.ntt(z))
+    assert torch.equal(r4.intt(z % (2 * r2.q)), r2.intt(z % (2 * r2.q)))
+    big = Ring(1 << 21, device=cuda)  # the two-kernel route on the card
+    w = rng.integers(0, big.q, size=(1, 1 << 21), dtype=np.uint32)
+    assert torch.equal(big.intt(big.ntt(w)).cpu(), torch.from_numpy(w))

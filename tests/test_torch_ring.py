@@ -183,8 +183,8 @@ def test_ring_needs_a_card_unless_asked_for_the_cpu():
         Ring(1024)
     with pytest.raises(RuntimeError, match="CUDA"):
         Ring(1024, device="cuda")
-    with pytest.raises(NotImplementedError, match="four-step"):
-        Ring(1 << 16, device="cpu")
+    with pytest.raises(ValueError, match="method='fourstep'"):
+        Ring(1 << 16, method="radix2", device="cpu")
     with pytest.raises(ValueError):
         Ring(1000, device="cpu")
 
