@@ -353,8 +353,9 @@ class Ring(_TransformRing):
         return mm.mont_mul_lazy(a, b, self.q, self.qinv_neg)
 
     def pointwise_mul_lazy(self, a, b) -> torch.Tensor:
-        """Elementwise a*b*2^-32 mod q in [0, 2q) (NTT-domain Hadamard);
-        operands below 2**31."""
+        """Elementwise a*b*2^-32 mod q (NTT-domain Hadamard), in [0, 2q)
+        for lazy [0, 2q) operands; any uint32 words, as in the JAX
+        package."""
         return self._u32(self._mont_lazy(self._i64(a), self._i64(b)))
 
     def pointwise_mul(self, a, b) -> torch.Tensor:

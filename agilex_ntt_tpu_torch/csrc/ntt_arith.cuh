@@ -67,3 +67,35 @@ NTT_HD uint32_t ntt_mont_lazy(uint32_t a, uint32_t b, uint32_t q,
   const uint32_t m = lo * qinv_neg;
   return ntt_mulhi(a, b) + ntt_mulhi(m, q) + (lo != 0u ? 1u : 0u);
 }
+
+// Shoup product by a scale constant, then one conditional subtraction:
+// s * x mod q in [0, q) for any 32-bit x (the fused n^-1 scaling of the
+// stage-sharded inverse, and the post row of the DIT inverse).
+NTT_HD uint32_t ntt_scale_reduce(uint32_t x, uint32_t s, uint32_t sp,
+                                 uint32_t q) {
+  return ntt_cond_sub(ntt_shoup_lazy(x, s, sp, q), q);
+}
+
+// One cross-device forward stage at one word (agilex_ntt_tpu/ops/
+// stage_math.py::fwd_stage_step): this shard holds the u-half (is_u) or
+// the v-half of every butterfly it shares with its partner's shard.  x and
+// partner in [0, 4q); out in [0, 4q), or [0, q) when `last`.
+NTT_HD uint32_t ntt_xchg_fwd(uint32_t x, uint32_t partner, bool is_u,
+                             uint32_t w, uint32_t wp, uint32_t q, bool last) {
+  const uint32_t two_q = 2u * q;
+  const uint32_t tx = ntt_cond_sub(is_u ? x : partner, two_q);
+  const uint32_t t = ntt_shoup_lazy(is_u ? partner : x, w, wp, q);
+  const uint32_t out = is_u ? tx + t : tx + two_q - t;
+  return last ? ntt_cond_sub(ntt_cond_sub(out, two_q), q) : out;
+}
+
+// One cross-device inverse (Gentleman-Sande) stage at one word
+// (stage_math.py::inv_stage_step): the u-half keeps the sum, the v-half
+// the twiddled difference partner - x (the partner holds the u-value).
+// x and partner in [0, 2q); out in [0, 2q).
+NTT_HD uint32_t ntt_xchg_inv(uint32_t x, uint32_t partner, bool is_u,
+                             uint32_t w, uint32_t wp, uint32_t q) {
+  const uint32_t two_q = 2u * q;
+  return is_u ? ntt_cond_sub(x + partner, two_q)
+              : ntt_shoup_lazy(partner - x + two_q, w, wp, q);
+}

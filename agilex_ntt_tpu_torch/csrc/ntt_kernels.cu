@@ -12,6 +12,10 @@
 //                                        per channel)
 //   polydot_rns_kernel <- _polymul_rns_kernel (K5, k = 1)
 //                   and _polydot_rns_kernel   (K6b, K6a over L primes)
+// the DIT inverse of agilex_ntt_tpu/ops/dit_inv.py and the cross-device
+// stage of agilex_ntt_tpu/parallel/overlap.py (see their sections below):
+//   dit_inv_kernel  <- _dit_inv_kernel  (K12)
+//   xchg_kernel     <- kernel in _xchg_call (K11)
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
 // four-step section below for their design):
 //   fwd4_kernel     <- _full_fwd_kernel     (K7a)
@@ -119,11 +123,12 @@ __device__ void store_tile(uint32_t* __restrict__ g, const uint32_t* tile,
 // the tile; polynomial p starts at word p * pitch (pitch >= n: the
 // four-step column tiles pad each column to n1 + 1 words, so that a warp
 // storing one row of a transposed tile hits 32 different banks).  In
-// [0, 4q), out [0, q).  Ends on a __syncthreads().
+// [0, 4q), out [0, q), or lazy [0, 4q) without `reduce_last`.  Ends on a
+// __syncthreads().
 __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
                            const uint32_t* __restrict__ roots,
                            const uint32_t* __restrict__ precon, uint32_t q,
-                           int pitch) {
+                           int pitch, bool reduce_last = true) {
   const int half = 1 << (logn - 1);
   const int butterflies = polys * half;
   const uint32_t two_q = 2u * q;
@@ -131,7 +136,7 @@ __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
     const int m = 1 << s;
     const int logt = logn - 1 - s;
     const int t = 1 << logt;
-    const bool last = s == logn - 1;
+    const bool last = reduce_last && s == logn - 1;
     for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
       const int b = j & (half - 1);
       const int i = b >> logt;
@@ -363,6 +368,105 @@ polydot_rns_kernel(const uint32_t* __restrict__ a,
                roots + tab, precon + tab, iroots + tab, iprecon + tab, batch,
                k, logn, polys, __ldg(qs + l), __ldg(qinvs + l), __ldg(s),
                __ldg(s + 1), __ldg(s + 2), __ldg(s + 3));
+}
+
+// -- DIT inverse (K12) --------------------------------------------------------
+//
+// The inverse NTT as the forward network run on psi^-1 tables
+// (agilex_ntt_tpu/ops/dit_inv.py): the input is already bit-reversed
+// outside the kernel; the block multiplies it by the pre row psi^k while
+// loading, runs fwd_stages on inv_roots (forward order, lazy [0, 4q): no
+// final reduction), and multiplies by the post row n^-1 inv_roots[m] with
+// one conditional subtraction while storing (the output gather follows
+// outside).  Bound on this card as fwd_kernel: bytes, 2 B n 4 plus the
+// rows; the two rows stay in L2.  rows: (4, n) words pre, pre', post,
+// post'.
+
+__global__ void __launch_bounds__(kThreads)
+dit_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const uint32_t* __restrict__ iroots,
+               const uint32_t* __restrict__ iprecon,
+               const uint32_t* __restrict__ rows, long long batch, int logn,
+               int polys, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const int n = 1 << logn;
+  const int words = polys << logn;
+  const long long first = (long long)blockIdx.x * polys;
+  const uint32_t* pre = rows;
+  const uint32_t* pre_p = rows + n;
+  const uint32_t* post = rows + 2 * n;
+  const uint32_t* post_p = rows + 3 * n;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int k = e & (n - 1);
+    const long long poly = first + (e >> logn);
+    smem[e] = poly < batch ? ntt_shoup_lazy(x[(first << logn) + e],
+                                            __ldg(pre + k), __ldg(pre_p + k), q)
+                           : 0u;
+  }
+  __syncthreads();
+  fwd_stages(smem, logn, polys, iroots, iprecon, q, n, false);
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int k = e & (n - 1);
+    if (first + (e >> logn) < batch)
+      y[(first << logn) + e] =
+          ntt_scale_reduce(smem[e], __ldg(post + k), __ldg(post_p + k), q);
+  }
+}
+
+// -- cross-device stage (K11) --------------------------------------------------
+//
+// One butterfly stage whose partner lives on another shard
+// (agilex_ntt_tpu/parallel/overlap.py): out = step(x, partner) word by word,
+// with the shard's u/v role one scalar.  The TPU kernel pulls the partner's
+// rows into VMEM by remote DMA, one semaphore a batch chunk, and computes
+// chunk c while later chunks fly.  Here `partner` is a device pointer: a
+// buffer on the same card, or on a peer card with P2P access enabled, read
+// directly, so its loads stream behind the arithmetic by construction; the
+// host launches one kernel a batch chunk and orders the chunks across
+// cards with events (parallel/overlap.py).  Out-of-place: every shard's
+// launch must read its partner's words from before the stage.  Bound by
+// bytes: x and partner read once, out written once (12 bytes a word), the
+// positional rows w, w' stay in L2.  With `last`, the forward reduces to
+// [0, q) and the inverse multiplies by the scale s (Shoup constant sp) and
+// reduces, the stage-sharded inverse's final n^-1.
+
+constexpr int kXchgThreads = 256;
+
+template <bool kFwd>
+__global__ void __launch_bounds__(kXchgThreads)
+xchg_kernel(const uint32_t* __restrict__ x,
+            const uint32_t* __restrict__ partner,
+            const uint32_t* __restrict__ w, const uint32_t* __restrict__ wp,
+            uint32_t* __restrict__ out, long long quads, int width4,
+            uint32_t q, bool is_u, bool last, uint32_t s, uint32_t sp) {
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  const uint4* p4 = reinterpret_cast<const uint4*>(partner);
+  const uint4* w4 = reinterpret_cast<const uint4*>(w);
+  const uint4* wp4 = reinterpret_cast<const uint4*>(wp);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < quads; i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % width4);
+    const uint4 a = x4[i];
+    const uint4 b = p4[i];
+    const uint4 tw = __ldg(w4 + c);
+    const uint4 tp = __ldg(wp4 + c);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
+    const uint32_t wv[4] = {tw.x, tw.y, tw.z, tw.w};
+    const uint32_t pv[4] = {tp.x, tp.y, tp.z, tp.w};
+    uint32_t ov[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (kFwd) {
+        ov[j] = ntt_xchg_fwd(av[j], bv[j], is_u, wv[j], pv[j], q, last);
+      } else {
+        const uint32_t v = ntt_xchg_inv(av[j], bv[j], is_u, wv[j], pv[j], q);
+        ov[j] = last ? ntt_scale_reduce(v, s, sp, q) : v;
+      }
+    }
+    o4[i] = make_uint4(ov[0], ov[1], ov[2], ov[3]);
+  }
 }
 
 // -- four-step, n = n1 * n2 (K7a, K7b, K8, K9a, K9b) ---------------------------
@@ -804,6 +908,66 @@ int ntt_col_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
   col_inv4_kernel<<<grid, k4Threads, bytes, (cudaStream_t)stream>>>(
       x, y, tabs4(tabs), s, scale4(col_scale), q);
   return (int)cudaGetLastError();
+}
+
+// -- DIT inverse (K12) and cross-device stage (K11) ----------------------------
+
+int ntt_dit_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
+                const uint32_t* iprecon, const uint32_t* rows,
+                long long batch, int logn, uint32_t q, void* stream) {
+  const Plan p = make_plan(batch, logn);
+  const size_t bytes = (size_t)p.words * 4;
+  cudaError_t err = allow_smem((const void*)dit_inv_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dit_inv_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      x, y, iroots, iprecon, rows, batch, logn, p.polys, q);
+  return (int)cudaGetLastError();
+}
+
+// x, partner, out: (rows, width) words, 16-byte aligned, width % 4 == 0;
+// w, wp: (width,) rows.  partner may live on a peer card
+// (ntt_enable_peer first).
+int ntt_xchg(const uint32_t* x, const uint32_t* partner, const uint32_t* w,
+             const uint32_t* wp, uint32_t* out, long long rows, int width,
+             uint32_t q, int fwd, int is_u, int last, uint32_t s,
+             uint32_t sp, void* stream) {
+  if (rows < 1 || width < 4 || width % 4) return (int)cudaErrorInvalidValue;
+  const long long quads = rows * (width / 4);
+  long long blocks = (quads + kXchgThreads - 1) / kXchgThreads;
+  if (blocks > (1 << 20)) blocks = 1 << 20;
+  if (fwd) {
+    xchg_kernel<true><<<(unsigned)blocks, kXchgThreads, 0,
+                        (cudaStream_t)stream>>>(
+        x, partner, w, wp, out, quads, width / 4, q, is_u != 0, last != 0, s,
+        sp);
+  } else {
+    xchg_kernel<false><<<(unsigned)blocks, kXchgThreads, 0,
+                         (cudaStream_t)stream>>>(
+        x, partner, w, wp, out, quads, width / 4, q, is_u != 0, last != 0, s,
+        sp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Let `device` read `peer`'s memory (NVLink or PCIe P2P).  Returns 0, or
+// cudaErrorPeerAccessUnsupported when the two cards cannot reach each other.
+int ntt_enable_peer(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int prev = 0;
+  err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  cudaSetDevice(prev);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // not sticky: clear it
+    return 0;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -61,6 +61,13 @@ SIGNATURES = {
     "ntt_col_fwd4": (_P, _P, _P, _LL, _I, _I, _U, _P),
     # x, y, tabs, col_scale, batch, logn1, logn2, q, stream
     "ntt_col_inv4": (_P, _P, _P, _P, _LL, _I, _I, _U, _P),
+    # x, y, iroots, iprecon, rows (pre, pre', post, post'), batch, logn, q,
+    # stream
+    "ntt_dit_inv": (_P, _P, _P, _P, _P, _LL, _I, _U, _P),
+    # x, partner, w, wp, out, rows, width, q, fwd, is_u, last, s, sp, stream
+    "ntt_xchg": (_P, _P, _P, _P, _P, _LL, _I, _U, _I, _I, _I, _U, _U, _P),
+    # device, peer
+    "ntt_enable_peer": (_I, _I),
 }
 
 

@@ -7,8 +7,8 @@ value the JAX helper returns: results wrap mod 2**32 exactly as uint32 words
 do, so lazy outputs match bit for bit, not only mod q.
 
 Products stay below 2**63: a 32x32-bit product is split into 16-bit halves
-of one operand (``mulhi_u32``), and the Montgomery helpers require operands
-below 2**31 (see ``mont_mul_lazy``).
+of one operand (``mulhi_u32``, ``mullo_u32``), so every partial product is
+below 2**49 for any two uint32 operands.
 
 These are also the host oracle for the CUDA arithmetic in
 ``csrc/ntt_arith.cuh`` (``tests/test_torch_arith_host.py``).
@@ -20,8 +20,6 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
-# mont_mul_lazy's operand bound: a*b and m*q then both stay below 2**62
-MONT_OPERAND_BOUND = 1 << 31
 
 
 def mont_qinv_neg(q: int) -> int:
@@ -74,21 +72,20 @@ def gs_butterfly(x: torch.Tensor, y: torch.Tensor, w, w_precon, q: int):
 
 
 def mont_mul_lazy(a: torch.Tensor, b, q: int, qinv_neg: int) -> torch.Tensor:
-    """a * b * 2**-32 mod q in [0, 2q): Montgomery REDC with R = 2**32.
+    """a * b * 2**-32 mod q: Montgomery REDC with R = 2**32, for any uint32
+    words a and b; in [0, 2q) when a * b < 2**32 q.
 
-    Returns exactly (a*b + m*q) / 2**32 with m = (a*b mod R) * (-q^-1) mod R,
-    the value the JAX helper and the CUDA kernels compute.  Precondition:
-    0 <= a, b < 2**31, so a*b and m*q each fit below 2**62 in int64; a
-    ValueError is raised when it is broken.
+    The JAX helper's word: hi(a b) + hi(m q) + (lo(a b) != 0) wrapped to
+    32 bits, m = lo(a b) (-q^-1) mod R.  That is (a b + m q) / R mod 2**32,
+    an exact quotient (the low words cancel), computed here from the 16-bit
+    halves of b so that every int64 intermediate stays below 2**63
+    (m q < 2**62 as q < 2**30).  The CUDA kernels compute the same word.
     """
     b = torch.as_tensor(b, dtype=torch.int64, device=a.device)
-    if bool((a >= MONT_OPERAND_BOUND).any()) or bool((b >= MONT_OPERAND_BOUND).any()):
-        raise ValueError("mont_mul_lazy needs operands below 2**31")
-    if bool((a < 0).any()) or bool((b < 0).any()):
-        raise ValueError("mont_mul_lazy needs non-negative operands")
-    ab = a * b
-    m = mullo_u32(ab & MASK32, qinv_neg)
-    return (ab + m * q) >> 32
+    p_lo, p_hi = a * (b & _MASK16), a * (b >> 16)  # a b = p_lo + p_hi 2**16
+    m = mullo_u32((p_lo + ((p_hi & _MASK16) << 16)) & MASK32, qinv_neg)
+    # (a b + m q) / 2**32, the p_hi 2**16 term added after the first shift
+    return ((((p_lo + m * q) >> 16) + p_hi) >> 16) & MASK32
 
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:

@@ -9,7 +9,11 @@ four-step kernels of ``agilex_ntt_tpu/ops/fourstep.py`` on (B, n1, n2)
 operands: ``fwd_ntt_fourstep``, ``inv_ntt_fourstep`` and
 ``polymul_fourstep_fused`` (the whole transform in one kernel) and
 ``fwd_col_fourstep``/``inv_col_fourstep`` (the column pass and the twiddle
-alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``).
+alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``);
+``dit_inv_core``, the DIT inverse of ``agilex_ntt_tpu/ops/dit_inv.py``
+between its two bit-reversals (``ops/dit_inv.py``); and ``xchg_step``, one
+cross-device butterfly stage of ``agilex_ntt_tpu/parallel/overlap.py``
+(``parallel/``).
 The kernels are hand-written CUDA in ``csrc/ntt_kernels.cu``, built for
 ``sm_90a`` at first use (``_build.py``).
 
@@ -34,13 +38,20 @@ import torch
 
 from . import _build
 from . import plain_ntt as plain
-from .plain_ntt import FourStepTables, RingTables, RNSTables, inv_scale_words
+from .plain_ntt import (
+    DitTables,
+    FourStepTables,
+    RingTables,
+    RNSTables,
+    inv_scale_words,
+)
 
 # Kernel launches per wrapper since the count was last set to 0.
 LAUNCHES = {
     "fwd": 0, "inv": 0, "polymul": 0, "polydot": 0,
     "fwd_rns": 0, "inv_rns": 0, "polymul_rns": 0, "polydot_rns": 0,
     "fwd4": 0, "inv4": 0, "polymul4": 0, "col_fwd": 0, "col_inv": 0,
+    "dit_inv": 0, "xchg_fwd": 0, "xchg_inv": 0,
 }
 
 
@@ -440,4 +451,131 @@ def inv_col_fourstep(
         )
     _build.check(lib, rc, "inv_col_fourstep")
     LAUNCHES["col_inv"] += 1
+    return y
+
+
+# -- the DIT inverse (K12) and the cross-device stage (K11) ---------------------
+
+
+def dit_inv_core(x: torch.Tensor, dt: DitTables) -> torch.Tensor:
+    """The DIT inverse between its bit-reversals (K12): (B, n) already
+    bit-reversed, in [0, 2q) -> [0, q): the pre row psi^k, the forward
+    stages on the psi^-1 tables, the post row n^-1 inv_roots[m]."""
+    _check(x, dt.ring, "dit_inv_core", 2)
+    if x.device.type == "cpu":
+        return _u32(plain.dit_inv_core_plain(x.to(torch.int64), dt))
+    y = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_dit_inv(
+            x.data_ptr(), y.data_ptr(), dt.ring.roots.data_ptr(),
+            dt.ring.precon.data_ptr(), dt.rows.data_ptr(), x.shape[0],
+            dt.ring.log_n, dt.ring.q, _stream(x),
+        )
+    _build.check(lib, rc, "dit_inv_core")
+    LAUNCHES["dit_inv"] += 1
+    return y
+
+
+# (device, peer) index pairs whose P2P access is on; peer access is a state
+# of the process's CUDA context, so one record serves every caller.
+_PEERS_ENABLED = set()
+
+
+def enable_peer(device: torch.device, peer: torch.device) -> None:
+    """Let kernels on ``device`` read ``peer``'s memory; raise if the two
+    cards cannot reach each other (no copy is made in its place)."""
+    key = (device.index, peer.index)
+    if key in _PEERS_ENABLED:
+        return
+    lib = _build.load()
+    _build.check(lib, lib.ntt_enable_peer(*key), f"P2P access {device} -> {peer}")
+    _PEERS_ENABLED.add(key)
+
+
+def _check_xchg(x, partner, w, wp, out) -> None:
+    for name, t in (("x", x), ("partner", partner), ("w", w), ("wp", wp)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.uint32:
+            raise TypeError(f"xchg_step: {name} must be a torch.uint32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"xchg_step: {name} must be contiguous")
+    if x.dim() != 2 or x.shape[0] == 0 or partner.shape != x.shape:
+        raise ValueError(
+            f"xchg_step: x and partner must be one (B >= 1, S) shape, got "
+            f"{tuple(x.shape)} and {tuple(partner.shape)}"
+        )
+    if w.shape != (x.shape[1],) or wp.shape != w.shape:
+        raise ValueError(f"xchg_step: w and wp must be ({x.shape[1]},) rows")
+    if w.device != x.device or wp.device != x.device:
+        raise ValueError("xchg_step: the twiddle rows must be on x's device")
+    if partner.device.type != x.device.type:
+        raise ValueError(
+            f"xchg_step: x on {x.device}, partner on {partner.device}"
+        )
+    if out is not None and (
+        out.dtype != torch.uint32 or out.shape != x.shape
+        or out.device != x.device or not out.is_contiguous()
+    ):
+        raise ValueError("xchg_step: out must be a contiguous uint32 tensor "
+                         "of x's shape on x's device")
+
+
+def xchg_step(
+    x: torch.Tensor,
+    partner: torch.Tensor,
+    w: torch.Tensor,
+    wp: torch.Tensor,
+    *,
+    q: int,
+    fwd: bool,
+    is_u: bool,
+    last: bool = False,
+    scale: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One cross-device butterfly stage (K11) of (B, S) shards: this shard
+    ``x`` and its partner's ``partner`` (on this card or a peer card, read
+    in place), the shard's u/v role ``is_u``, the (S,) positional twiddle
+    row ``w`` and its Shoup precon ``wp``.
+
+    Forward: x, partner in [0, 4q) -> [0, 4q), or [0, q) when ``last``.
+    Inverse: x, partner in [0, 2q) -> [0, 2q); with ``last`` the result is
+    multiplied by ``scale`` and reduced to [0, q) (the final n^-1).
+    Writes ``out`` (x's shape, on x's device) when given, else a new tensor.
+    """
+    _check_xchg(x, partner, w, wp, out)
+    if last and not fwd and scale is None:
+        raise ValueError("xchg_step: the last inverse stage needs its scale")
+    s = 0 if scale is None else scale % q
+    sp = (s << 32) // q
+    if x.device.type == "cpu":
+        wi, wpi = w.to(torch.int64), wp.to(torch.int64)
+        xi, pi = x.to(torch.int64), partner.to(torch.int64)
+        if fwd:
+            y = plain.fwd_stage_step_plain(xi, pi, is_u, wi, wpi, q, last)
+        else:
+            y = plain.inv_stage_step_plain(
+                xi, pi, is_u, wi, wpi, q, (s, sp) if last else None
+            )
+        if out is None:
+            return _u32(y)
+        out.copy_(y)
+        return out
+    if partner.device != x.device:
+        enable_peer(x.device, partner.device)
+    if any(t.data_ptr() % 16 for t in (x, partner, w, wp)) or (
+        out is not None and out.data_ptr() % 16
+    ) or x.shape[1] % 4:
+        raise ValueError("xchg_step: the kernel takes 16-byte aligned rows "
+                         "of a multiple of 4 words")
+    y = torch.empty_like(x) if out is None else out
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_xchg(
+            x.data_ptr(), partner.data_ptr(), w.data_ptr(), wp.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], q, int(fwd), int(is_u),
+            int(last), s, sp, _stream(x),
+        )
+    _build.check(lib, rc, "xchg_step")
+    LAUNCHES["xchg_fwd" if fwd else "xchg_inv"] += 1
     return y

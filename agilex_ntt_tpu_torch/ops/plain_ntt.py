@@ -380,3 +380,84 @@ def polymul_fourstep_plain(
     transforms, -> [0, q)."""
     prod = fwd_ntt_fourstep_plain(a3, ft) * fwd_ntt_fourstep_plain(b3, ft) % ft.q
     return inv_ntt_fourstep_plain(prod, ft)
+
+
+# -- the DIT inverse (K12) --------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DitTables:
+    """The DIT inverse's constants on one device.
+
+    ``ring`` is the ring's ``RingTables`` with the inverse roots in the
+    forward slots (``roots``/``precon`` = ``inv_roots``/``inv_precon``): the
+    forward network on psi^-1.  ``rows`` is the (4, n) ``torch.uint32``
+    block of the two scale rows with their Shoup precons ``(v << 32) // q``:
+    pre[k] = psi^k, pre', post[m] = n^-1 inv_roots[m], post'.
+    """
+
+    ring: RingTables
+    rows: torch.Tensor
+
+
+def make_dit_tables(params: NTTParams, device) -> DitTables:
+    """The DIT inverse's tables of ``params`` on ``device``
+    (``agilex_ntt_tpu/ops/dit_inv.py::_dit_tables``, compact)."""
+    from .fourstep import _powers
+
+    q = params.q
+    base = make_tables(params, device)
+    ring = dataclasses.replace(base, roots=base.inv_roots, precon=base.inv_precon)
+    pre = _powers(params.psi, params.n, q).astype(np.uint64)
+    post = params.inv_roots.astype(np.uint64) * np.uint64(params.n_inv) % np.uint64(q)
+    q64 = np.uint64(q)
+    rows = [pre, (pre << np.uint64(32)) // q64, post, (post << np.uint64(32)) // q64]
+    return DitTables(ring=ring, rows=_u32_tensor(np.stack(rows), device))
+
+
+def dit_inv_core_plain(x: torch.Tensor, dt: DitTables) -> torch.Tensor:
+    """K12's plain version on int64 (B, n), already bit-reversed, values
+    >= 0: the pre row, the forward stages on the psi^-1 tables, the post row,
+    reduced to [0, q) (so every lazy range of the kernel gives these
+    words)."""
+    q = dt.ring.q
+    rows = dt.rows.to(torch.int64)
+    y = fwd_ntt_plain(x * rows[0] % q, dt.ring)
+    return y * rows[2] % q
+
+
+# -- one cross-device stage (K11) --------------------------------------------------
+
+
+def fwd_stage_step_plain(
+    x: torch.Tensor, partner: torch.Tensor, is_u: bool, w, wp, q: int,
+    last: bool = False,
+) -> torch.Tensor:
+    """K11's forward plain version (``stage_math.py::fwd_stage_step``) on
+    int64 words: x, partner in [0, 4q), the shard's u/v role ``is_u``, the
+    positional twiddle row ``w`` with Shoup precon ``wp``.  Out [0, 4q), or
+    [0, q) when ``last``."""
+    two_q = 2 * q
+    tx = mm.cond_sub(x if is_u else partner, two_q)
+    t = mm.shoup_mulmod_lazy(partner if is_u else x, w, wp, q)
+    out = (tx + t if is_u else tx + two_q - t) & mm.MASK32
+    return mm.cond_sub(mm.cond_sub(out, two_q), q) if last else out
+
+
+def inv_stage_step_plain(
+    x: torch.Tensor, partner: torch.Tensor, is_u: bool, w, wp, q: int,
+    scale: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """K11's inverse plain version (``stage_math.py::inv_stage_step``) on
+    int64 words in [0, 2q): the sum at the u-half, the twiddled difference
+    partner - x at the v-half; out [0, 2q).  ``scale`` = (s, s') applies
+    the final Shoup product by s and one conditional subtraction, -> [0, q)
+    (``stage_math.py::apply_scale``)."""
+    two_q = 2 * q
+    if is_u:
+        out = mm.cond_sub((x + partner) & mm.MASK32, two_q)
+    else:
+        out = mm.shoup_mulmod_lazy((partner - x + two_q) & mm.MASK32, w, wp, q)
+    if scale is not None:
+        out = mm.cond_sub(mm.shoup_mulmod_lazy(out, scale[0], scale[1], q), q)
+    return out

@@ -1,0 +1,122 @@
+"""Shard layout of a (B, n) tensor over the dp and sp axes of a mesh.
+
+The JAX package's mesh is single-controller: one process sees every device,
+and a shard is a block of one global ``jax.Array``.  The port keeps that
+model: a global (B, n) tensor is cut into a grid of blocks, ``grid[i][d]``
+holding rows block i (the dp axis) and coefficient block d (the sp axis) on
+the mesh device at dp = i, sp = d (every other mesh axis at 0).  An absent
+axis counts as size 1.  The sharded transforms take and return such grids,
+so a composition (``ShardedRing.polymul``) keeps each block on its device
+between steps; ``split`` and ``join`` are the only moves to and from the
+global tensor.
+
+Data movement runs on int32 views of the uint32 words: PyTorch's CUDA
+copies, ``cat`` and gathers cover int32 everywhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+Grid = List[List[torch.Tensor]]
+
+
+def axis_size(mesh, axis: Optional[str]) -> int:
+    return 1 if axis is None else mesh.shape[axis]
+
+
+def grid_devices(mesh, dp_axis: Optional[str], sp_axis: Optional[str]):
+    """devices[i][d]: the mesh device at dp = i, sp = d."""
+    return [
+        [
+            mesh.device(**{a: c for a, c in ((dp_axis, i), (sp_axis, d)) if a})
+            for d in range(axis_size(mesh, sp_axis))
+        ]
+        for i in range(axis_size(mesh, dp_axis))
+    ]
+
+
+def words(x: torch.Tensor) -> torch.Tensor:
+    """An int32 view of uint32 words (the same bytes)."""
+    return x.view(torch.int32)
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """A uint32 view of int32 words."""
+    return x.view(torch.uint32)
+
+
+def as_u32(x, device: torch.device) -> torch.Tensor:
+    """x as a ``torch.uint32`` tensor on ``device``: a tensor, a numpy array,
+    or a sequence of row blocks (``dp_shard_batch``), joined in order."""
+    if isinstance(x, (list, tuple)):
+        return u32(torch.cat([words(as_u32(b, device)) for b in x], dim=0))
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.uint32, copy=True))
+    return x.to(device=device, dtype=torch.uint32)
+
+
+def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """x with zero rows appended up to a multiple of ``multiple`` rows."""
+    pad = (-x.shape[0]) % multiple
+    if not pad:
+        return x
+    zeros = torch.zeros((pad,) + tuple(x.shape[1:]), dtype=torch.int32,
+                        device=x.device)
+    return u32(torch.cat([words(x), zeros], dim=0))
+
+
+def split(x: torch.Tensor, devices) -> Grid:
+    """Cut (B, ..., n) into the grid of ``devices``: B must divide by the dp
+    size, n by the sp size; each block contiguous on its device."""
+    rows = x.shape[0] // len(devices)
+    cols = x.shape[-1] // len(devices[0])
+    w = words(x)
+    return [
+        [
+            u32(w[i * rows:(i + 1) * rows, ..., d * cols:(d + 1) * cols]
+                .to(dev).contiguous())
+            for d, dev in enumerate(row)
+        ]
+        for i, row in enumerate(devices)
+    ]
+
+
+def join(grid: Grid, device: torch.device, rows: Optional[int] = None) -> torch.Tensor:
+    """The global tensor of a grid on ``device``, its first ``rows`` rows
+    (all by default)."""
+    full = torch.cat(
+        [torch.cat([words(b).to(device) for b in row], dim=-1) for row in grid],
+        dim=0,
+    )
+    return u32(full if rows is None else full[:rows])
+
+
+def map_grid(fn, *grids: Grid) -> Grid:
+    """fn applied block by block to equally laid-out grids."""
+    return [[fn(*blocks) for blocks in zip(*rows)] for rows in zip(*grids)]
+
+
+def tables_on(tables, device: torch.device):
+    """A table bundle (``RingTables``, ``FourStepTables``) with every
+    tensor copied to ``device``."""
+    if isinstance(tables, torch.Tensor):
+        return tables.to(device)
+    if dataclasses.is_dataclass(tables):
+        return dataclasses.replace(tables, **{
+            f.name: tables_on(getattr(tables, f.name), device)
+            for f in dataclasses.fields(tables) if f.init
+        })
+    return tables
+
+
+def check_batch(x: torch.Tensor, dp: int, what: str) -> None:
+    if x.shape[0] % dp:
+        raise ValueError(
+            f"{what}: batch {x.shape[0]} does not divide over {dp} dp shards"
+        )
+

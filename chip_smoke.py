@@ -10,7 +10,7 @@ fails the run (non-zero exit, no result line) when it goes wrong:
 
 1. Build: ``nvcc`` compiles the kernels from ``agilex_ntt_tpu_torch/csrc``
    for ``sm_90a`` (``ops/_build.py``).
-2. Kernels: each of the thirteen kernels against its plain PyTorch version
+2. Kernels: each of the sixteen kernels against its plain PyTorch version
    on the same inputs on the card, bit for bit over the whole output
    (tolerance 0: integer arithmetic).  Single prime: at the main path's
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
@@ -23,7 +23,11 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    takes them, K9a and K9b everywhere): n=2^16 (B=512), 2^18 (B=128),
    2^20 (B=32), 2^21 (B=16; the public ``Ring`` also through the row pass
    on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged batch
-   (2^16, B=7); the first 2 rows at n=2^16 against the golden model.
+   (2^16, B=7); the first 2 rows at n=2^16 against the golden model.  The
+   DIT inverse K12 at n=4096 (B=8192), 32 and 32768, with ``inv_ntt_dit``
+   (direct and factored) equal to K2; the cross-device stage K11 (forward
+   and inverse, each role, with and without ``last``) on one shard of the
+   sharded path, (512, 8192).
 3. Main paths, each with the launch counters set to 0 just before and read
    just after; every kernel of the path must have launched:
    a. ``Ring(4096)`` ntt -> intt -> polymul -> polydot at the main shapes,
@@ -43,11 +47,22 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       model at 2^16), and ``Ring(32768, method="fourstep")`` equal word
       for word to the radix-2 kernels at B=1024;
    d. the flat layout, ``Ring(2^16, fourstep_kernel="flat")`` (B=512):
-      the same kernels (K10a-c on K7a, K7b, K8), equal to the tiled ring.
+      the same kernels (K10a-c on K7a, K7b, K8), equal to the tiled ring;
+   e. the sharded ring on one card (``make_mesh(devices=["cuda:0"] * 8)``):
+      ``ShardedRing(Ring(32768))`` over dp=2 x sp=4 at B=1024, ntt, intt
+      and polymul with ``sp_comm`` "ppermute" and "overlap" (cross stages
+      on K11, local stages on K1/K2), ``ShardedRing(Ring(2^16))`` over sp=4
+      (four-step, B=512), the dp=8 polydot at n=4096 (K6a a shard), and
+      ``inv_ntt_dit`` (K12) direct and factored at n=4096, B=8192; each
+      equal word for word to the unsharded ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), the four-step kernels also at their other sizes, the
-   public calls' throughput, and the key switch end to end.
+   DIT inverse beside K2 and its bit-reversals, the sharded calls beside
+   the unsharded ones with K11's share of their device time, the public
+   calls' throughput, and the key switch end to end.  One card measures
+   the sharded path's correctness and its cost on one card; what the
+   overlap gains across cards needs two or more and is not measured.
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -83,6 +98,12 @@ OPS_FINAL_REDUCE = (0, 2, 2)  # two conditional subtractions per output word
 OPS_MONT = (4, 1, 1)  # 4 multiplies, the carry test, one three-input add
 OPS_ACCUMULATE = (0, 1, 2)  # an add and a conditional subtraction
 OPS_SHOUP = (3, 0, 0)  # a lazy Shoup product, the subtract fused
+OPS_SCALE_REDUCE = (3, 1, 1)  # a Shoup product and a conditional subtraction
+# K11 a word: the forward stage's lazy Shoup product, conditional
+# subtraction and add (the role is one scalar a shard: no select); the
+# inverse v-half's difference and Shoup product
+OPS_XCHG_FWD = (3, 1, 2)
+OPS_XCHG_INV = (3, 0, 1)
 
 MAIN_N, MAIN_BATCH, MAIN_K, MAIN_DOT_BATCH = 4096, 8192, 3, 2048
 # (n, batch, polydot k, polydot batch)
@@ -121,6 +142,16 @@ FS_DOT_BATCH, FS_DOT_K = 128, 3
 FS_RNS_L, FS_SMALL_BATCH = 3, 64
 FS_CROSS_N, FS_CROSS_BATCH = 32768, 1024
 
+# the DIT inverse (K12): (n, batch) of the checks; the main shape first
+DIT_CHECK_SHAPES = ((MAIN_N, MAIN_BATCH), (32, 65536), (32768, 1024))
+# the cross-device stage (K11): one shard (B_loc, S) of the sharded path
+XCHG_ROWS, XCHG_WIDTH = 512, 8192
+# the sharded path on one card: Ring(32768) over dp=2 x sp=4 (a shard is
+# (512, 8192)), Ring(65536) over sp=4 (four-step), the dp-only polydot
+SHARD_N, SHARD_BATCH, SHARD_DP, SHARD_SP = 32768, 1024, 2, 4
+SHARD_FS_N, SHARD_FS_BATCH = 1 << 16, 512
+SHARD_DOT_DP = 8
+
 KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
 KERNELS = {  # row -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
@@ -142,11 +173,15 @@ KERNELS = {  # row -> (name, TPU kernel replaced)
     "flat_inv": ("inv_ntt_fourstep (flat)", "agilex_ntt_tpu/ops/flat_fuse.py:209"),
     "flat_polymul": ("polymul_fourstep_fused (flat)",
                      "agilex_ntt_tpu/ops/flat_fuse.py:326"),
+    "dit_inv": ("dit_inv_core", "agilex_ntt_tpu/ops/dit_inv.py:121"),
+    "xchg_fwd": ("xchg_step (fwd)", "agilex_ntt_tpu/parallel/overlap.py:89"),
+    "xchg_inv": ("xchg_step (inv)", "agilex_ntt_tpu/parallel/overlap.py:89"),
 }
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
 FLAT = {"flat_fwd": "fwd4", "flat_inv": "inv4", "flat_polymul": "polymul4"}
+SLICE = ("dit_inv", "xchg_fwd", "xchg_inv")
 
 
 def log(msg: str) -> None:
@@ -238,8 +273,9 @@ def bound(words_moved: int, ops):
 
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
-    r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4)"
-    r"(_rns)?_kernel")
+    r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
+    r"|dit_inv|xchg)(_rns)?_kernel")
+XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
 def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> None:
@@ -273,6 +309,33 @@ def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> No
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.key:24s} {e.count:5d} calls, {e.self_device_time_total / 1e3:.4f} "
             f"ms on the device")
+
+
+def kernel_share(torch, call, what: str) -> None:
+    """K11's launches and share of one call's device time
+    (``torch.profiler``), beside the call's other kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"  {what}: the profiler recorded no device time")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    xchg = [e for e in kernels if XCHG_KERNEL.search(e.key)]
+    x_ms = sum(e.self_device_time_total for e in xchg) / 1e3
+    log(f"  {what}: K11 {sum(e.count for e in xchg)} launches, {x_ms:.4f} ms "
+        f"= {x_ms / busy:.1%} of {busy:.4f} ms device time "
+        f"({sum(e.count for e in kernels)} kernel launches in all)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]:
+        log(f"    {e.key[:60]:60s} {e.count:5d} x, "
+            f"{e.self_device_time_total / 1e3:.4f} ms")
 
 
 def main() -> int:
@@ -491,6 +554,53 @@ def main() -> int:
             del a, b, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # the DIT inverse (K12) and the cross-device stage (K11)
+    from agilex_ntt_tpu_torch.ops import dit_inv as D
+
+    for n, batch in DIT_CHECK_SHAPES:
+        ring = Ring(n, device=dev)
+        gen = torch.Generator(dev).manual_seed(3 * n + batch)
+        y = rand(gen, 2 * ring.q, (batch, n))  # bit-reversed, in [0, 2q)
+        dt = D._dit_tables(ring.params, dev)
+        got = K.dit_inv_core(y.to(torch.uint32), dt)
+        compare("dit_inv", got, P.dit_inv_core_plain(y, dt), f"n={n} B={batch}")
+        y32 = y.to(torch.uint32)
+        want = ring.intt(y32)
+        logn = n.bit_length() - 1
+        for fac in (False, True) if logn % 2 == 0 else (False,):
+            if not torch.equal(D.inv_ntt_dit(y32, ring.params, factored=fac), want):
+                raise AssertionError(f"inv_ntt_dit (factored={fac}) differs from "
+                                     f"K2 at n={n}")
+        same_as_golden(want[:GOLDEN_ROWS],
+                       G.inv_ntt_u64(y[:GOLDEN_ROWS].cpu().numpy(), ring.params),
+                       "inv_ntt_dit")
+        del y, y32, got, want
+    q = Ring(SHARD_N, device=dev).q
+    gen = torch.Generator(dev).manual_seed(89)
+    shape = (XCHG_ROWS, XCHG_WIDTH)
+    for fwd in (True, False):
+        key = "xchg_fwd" if fwd else "xchg_inv"
+        x = rand(gen, (4 if fwd else 2) * q, shape)
+        part = rand(gen, (4 if fwd else 2) * q, shape)
+        w = rand(gen, q, (XCHG_WIDTH,))
+        wp = (w << 32) // q
+        scale = Ring(SHARD_N, device=dev).n_inv
+        x32, p32, w32, wp32 = (t.to(torch.uint32) for t in (x, part, w, wp))
+        for last in (False, True):
+            for is_u in (True, False):
+                got = K.xchg_step(x32, p32, w32, wp32, q=q, fwd=fwd, is_u=is_u,
+                                  last=last, scale=scale)
+                if fwd:
+                    want = P.fwd_stage_step_plain(x, part, is_u, w, wp, q, last)
+                else:
+                    want = P.inv_stage_step_plain(
+                        x, part, is_u, w, wp, q,
+                        (scale, (scale << 32) // q) if last else None)
+                compare(key, got, want, f"(B={XCHG_ROWS}, S={XCHG_WIDTH}) "
+                        f"{'u' if is_u else 'v'}{' last' if last else ''}")
+    del x, part, x32, p32, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 3a. the single-prime main path, counted ------------------------------
@@ -753,6 +863,67 @@ def main() -> int:
         if not torch.equal(got, tiled_out):
             raise AssertionError(f"{key}: the flat ring differs from the tiled")
     del x64, a64, b64
+
+    # -- 3e. the sharded ring and the DIT inverse, counted ---------------------
+    from agilex_ntt_tpu_torch.parallel import ShardedRing, make_mesh
+
+    sring = Ring(SHARD_N, device=dev)
+    gen = torch.Generator(dev).manual_seed(20261019)
+    sx, sa, sb = (sring.random_coeffs(gen, (SHARD_BATCH,)) for _ in range(3))
+    # the unsharded ring's words (K1, K2, K3), before the counters start
+    s_want = (sring.ntt(sx), sring.intt(sx), sring.polymul(sa, sb))
+    one_card = [DEVICE + ":0"] * (SHARD_DP * SHARD_SP)
+    srs = {comm: ShardedRing(sring, make_mesh(dp=SHARD_DP, sp=SHARD_SP,
+                                              devices=one_card),
+                             sp_axis="sp", sp_comm=comm)
+           for comm in ("ppermute", "overlap")}
+    fs_sr = ShardedRing(big, make_mesh(sp=SHARD_SP, devices=one_card),
+                        dp_axis=None, sp_axis="sp")
+    dot_sr = ShardedRing(ring, make_mesh(dp=SHARD_DOT_DP, devices=one_card))
+    x_ = fs_in[0][0]
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    s_out = {comm: (sr.ntt(sx), sr.intt(sx), sr.polymul(sa, sb))
+             for comm, sr in srs.items()}
+    fs_sy = fs_sr.ntt(x_)
+    fs_sz = fs_sr.intt(fs_sy)
+    sdot = dot_sr.polydot(da, db)
+    dits = [D.inv_ntt_dit(y, ring.params, factored=f) for f in (False, True)]
+    torch.cuda.synchronize()
+    slice_s = time.perf_counter() - t0
+    slice_launches = dict(K.LAUNCHES)
+    log(f"main path: ShardedRing(Ring({SHARD_N}), dp={SHARD_DP} x "
+        f"sp={SHARD_SP} on one card) ntt+intt+polymul (B={SHARD_BATCH}) with "
+        f"sp_comm ppermute and overlap, ShardedRing(Ring({SHARD_FS_N}), "
+        f"sp={SHARD_SP}) ntt+intt (B={x_.shape[0]}, four-step), dp={SHARD_DOT_DP} "
+        f"polydot (B={MAIN_DOT_BATCH}, k={MAIN_K}, n={MAIN_N}), inv_ntt_dit "
+        f"direct and factored (B={MAIN_BATCH}, n={MAIN_N}) in "
+        f"{slice_s * 1e3:.3f} ms (host clock); launches "
+        f"{ {k: v for k, v in slice_launches.items() if v} }")
+    missing = [key for key in SLICE + ("fwd", "inv", "polydot")
+               if slice_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"sharded path launched no {missing} kernel")
+    for comm, outs in s_out.items():
+        for what, got, want in zip(("ntt", "intt", "polymul"), outs, s_want):
+            if not torch.equal(got, want):
+                raise AssertionError(f"ShardedRing {what} ({comm}) differs "
+                                     f"from Ring({SHARD_N})")
+    if not (torch.equal(fs_sy, fs_out[0][0]) and torch.equal(fs_sz, x_)):
+        raise AssertionError(f"four-step ShardedRing differs from "
+                             f"Ring({SHARD_FS_N})")
+    if not torch.equal(sdot, d):
+        raise AssertionError("dp ShardedRing.polydot differs from Ring.polydot")
+    for f, got in zip((False, True), dits):
+        if not torch.equal(got, z):
+            raise AssertionError(f"inv_ntt_dit (factored={f}) differs from "
+                                 f"Ring.intt")
+    del s_want, s_out, fs_sy, fs_sz, sdot, dits
+    torch.cuda.empty_cache()
+    log("sharded path: every ShardedRing output equals the unsharded ring's "
+        "words (K1, K2, K3, K7, K6a), inv_ntt_dit equals Ring.intt")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -862,7 +1033,35 @@ def main() -> int:
                          polymul4_ops(b16n, f16.n1, f16.n2),
                          f"(B={b16n}, n={f16.n}) x2 flat"),
     })
+    # K12 at the main shape on Ring.ntt's words (any words below 2q), K11
+    # on one shard of the sharded path
+    dt4 = D._dit_tables(ring.params, dev)
+    y64 = y.to(torch.int64)
+    gen = torch.Generator(dev).manual_seed(90)
+    xq = Ring(SHARD_N, device=dev).q
+    xs_ = [rand(gen, 2 * xq, (XCHG_ROWS, XCHG_WIDTH)) for _ in range(2)]
+    xw = rand(gen, xq, (XCHG_WIDTH,))
+    xw_p = (xw << 32) // xq
+    x32s = [t.to(torch.uint32) for t in xs_ + [xw, xw_p]]
+    words_x = 3 * XCHG_ROWS * XCHG_WIDTH + 2 * XCHG_WIDTH
+    xshape = f"(B={XCHG_ROWS}, S={XCHG_WIDTH})"
+    timed.update({
+        "dit_inv": (lambda: K.dit_inv_core(y, dt4),
+                    lambda: P.dit_inv_core_plain(y64, dt4),
+                    2 * bsz * n + 6 * n,
+                    ops_sum((1, butterflies(bsz, n)), (bsz * n, OPS_SHOUP),
+                            (bsz * n, OPS_SCALE_REDUCE)), f"(B={bsz}, n={n})"),
+        "xchg_fwd": (lambda: K.xchg_step(*x32s, q=xq, fwd=True, is_u=True),
+                     lambda: P.fwd_stage_step_plain(*xs_, True, xw, xw_p, xq),
+                     words_x, scaled(XCHG_ROWS * XCHG_WIDTH, OPS_XCHG_FWD),
+                     xshape + " u"),
+        "xchg_inv": (lambda: K.xchg_step(*x32s, q=xq, fwd=False, is_u=False),
+                     lambda: P.inv_stage_step_plain(*xs_, False, xw, xw_p, xq),
+                     words_x, scaled(XCHG_ROWS * XCHG_WIDTH, OPS_XCHG_INV),
+                     xshape + " v"),
+    })
     path_of = {key: launches for key in SINGLE}
+    path_of.update({key: slice_launches for key in SLICE})
     path_of.update({key: rns_launches for key in MULTI})
     path_of.update({key: fs_launches for key in FOURSTEP})
     rows = []
@@ -929,6 +1128,56 @@ def main() -> int:
                                        rows21.shape[0], f21.n2))
         log(f"  {name:30s} ({rows21.shape[0]}, {f21.n2}) {ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    # the DIT inverse beside K2 and its two bit-reversal forms
+    log(f"  DIT inverse against K2 (B={bsz}, n={n}):")
+    for what, call, words in (
+        ("inv_ntt (K2)", lambda: K.inv_ntt(y, tabs), 2 * bsz * n + 4 * n),
+        ("dit_inv_core (K12)", lambda: K.dit_inv_core(y, dt4),
+         2 * bsz * n + 6 * n),
+        ("bitrev_permute direct", lambda: D.bitrev_permute(y), 2 * bsz * n),
+        ("bitrev_permute factored",
+         lambda: D.bitrev_permute(y, factored=True), 2 * bsz * n),
+        ("inv_ntt_dit direct", lambda: D.inv_ntt_dit(y, ring.params),
+         2 * bsz * n + 6 * n),
+        ("inv_ntt_dit factored",
+         lambda: D.inv_ntt_dit(y, ring.params, factored=True),
+         2 * bsz * n + 6 * n),
+        ("Ring.intt", lambda: ring.intt(y), 2 * bsz * n + 4 * n),
+    ):
+        ms = cuda_time_ms(call)
+        bound_ms = words * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"    {what:26s} {ms:.4f} ms, bytes bound {bound_ms:.4f} ms, "
+            f"{bound_ms / ms:.1%} of it")
+    # the sharded path on one card beside the unsharded calls
+    log(f"  sharded path on one card (ShardedRing vs Ring, CUDA events, "
+        f"median of 3 runs of 4 calls):")
+    for what, sharded, plain_call, polys in (
+        (f"ntt n={SHARD_N} B={SHARD_BATCH}", "ntt", lambda: sring.ntt(sx),
+         SHARD_BATCH),
+        (f"intt n={SHARD_N} B={SHARD_BATCH}", "intt", lambda: sring.intt(sx),
+         SHARD_BATCH),
+        (f"polymul n={SHARD_N} B={SHARD_BATCH}", "polymul",
+         lambda: sring.polymul(sa, sb), SHARD_BATCH),
+    ):
+        base = cuda_time_ms(plain_call, warmup=2, reps=3, inner=4)
+        line = f"    {what:28s} Ring {base:.4f} ms"
+        for comm, sr in srs.items():
+            fn = getattr(sr, sharded)
+            args = (sa, sb) if sharded == "polymul" else (sx,)
+            ms = cuda_time_ms(lambda: fn(*args), warmup=2, reps=3, inner=4)
+            line += f", dp={SHARD_DP} x sp={SHARD_SP} {comm} {ms:.4f} ms"
+        log(line + f" ({polys} polynomials)")
+    for what, shard_call, plain_call in (
+        (f"four-step ntt n={SHARD_FS_N} B={x_.shape[0]} sp={SHARD_SP}",
+         lambda: fs_sr.ntt(x_), lambda: big.ntt(x_)),
+        (f"four-step intt n={SHARD_FS_N} B={x_.shape[0]} sp={SHARD_SP}",
+         lambda: fs_sr.intt(fs_out[0][0]), lambda: big.intt(fs_out[0][0])),
+        (f"polydot n={MAIN_N} B={MAIN_DOT_BATCH} k={MAIN_K} dp={SHARD_DOT_DP}",
+         lambda: dot_sr.polydot(da, db), lambda: ring.polydot(da, db)),
+    ):
+        base = cuda_time_ms(plain_call, warmup=2, reps=3, inner=4)
+        ms = cuda_time_ms(shard_call, warmup=2, reps=3, inner=4)
+        log(f"    {what:40s} Ring {base:.4f} ms, ShardedRing {ms:.4f} ms")
     # end to end through the public API, wrapper checks and allocation included
     for what, call, polys in (
         ("Ring.ntt", lambda: ring.ntt(x), bsz),
@@ -995,6 +1244,14 @@ def main() -> int:
     device_breakdown(torch, lambda: ks_ring.keyswitch(
         ks_x, ksk_ntt, ext_ring, dnum, ksk_domain="ntt"), "keyswitch ntt keys",
         call_ms["keyswitch ntt keys"])
+    # profiled after every timing, so that no profiler session precedes a
+    # host-bound measurement
+    log("K11's share of a sharded transform's device time (torch.profiler):")
+    for comm, sr in srs.items():
+        kernel_share(torch, lambda: sr.ntt(sx),
+                     f"ShardedRing.ntt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
+        kernel_share(torch, lambda: sr.intt(sx),
+                     f"ShardedRing.intt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
     torch.cuda.synchronize()
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -1,5 +1,7 @@
 """The CUDA kernels' arithmetic, compiled for the host and held bit for bit
-against the port's int64 helpers (``ops/modmul.py``).
+against the port's int64 helpers (``ops/modmul.py``) and the plain versions
+of the cross-device stage K11 and the DIT inverse's scale rows (K12,
+``ops/plain_ntt.py``).
 
 ``csrc/ntt_arith.cuh`` is written once for the device and the host.  Here it
 is built with plain ``g++`` (``__host__``/``__device__`` defined away, no
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from agilex_ntt_tpu_torch.ops import modmul as mm
+from agilex_ntt_tpu_torch.ops import plain_ntt as P
 from agilex_ntt_tpu_torch.params import find_primes
 
 CSRC = Path(__file__).resolve().parents[1] / "agilex_ntt_tpu_torch" / "csrc"
@@ -61,6 +64,22 @@ void h_mont(const uint32_t* a, const uint32_t* b, uint32_t q, uint32_t qinv,
             uint32_t* out, long n) {
   for (long i = 0; i < n; ++i) out[i] = ntt_mont_lazy(a[i], b[i], q, qinv);
 }
+void h_scale_reduce(const uint32_t* x, const uint32_t* s, const uint32_t* sp,
+                    uint32_t q, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = ntt_scale_reduce(x[i], s[i], sp[i], q);
+}
+void h_xchg_fwd(const uint32_t* x, const uint32_t* p, int is_u,
+                const uint32_t* w, const uint32_t* wp, uint32_t q, int last,
+                uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i)
+    out[i] = ntt_xchg_fwd(x[i], p[i], is_u != 0, w[i], wp[i], q, last != 0);
+}
+void h_xchg_inv(const uint32_t* x, const uint32_t* p, int is_u,
+                const uint32_t* w, const uint32_t* wp, uint32_t q,
+                uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i)
+    out[i] = ntt_xchg_inv(x[i], p[i], is_u != 0, w[i], wp[i], q);
+}
 }
 """
 
@@ -91,6 +110,10 @@ def lib(tmp_path_factory):
     h.h_ct.argtypes = [P, P, P, P, U, P, P, L]
     h.h_gs.argtypes = [P, P, P, P, U, P, P, L]
     h.h_mont.argtypes = [P, P, U, U, P, L]
+    I = ctypes.c_int
+    h.h_scale_reduce.argtypes = [P, P, P, U, P, L]
+    h.h_xchg_fwd.argtypes = [P, P, I, P, P, U, I, P, L]
+    h.h_xchg_inv.argtypes = [P, P, I, P, P, U, P, L]
     return h
 
 
@@ -146,6 +169,10 @@ def test_shoup_lazy(lib, q):
     assert int(got.max()) < 2 * q
     exact = (a.astype(object) * w.astype(object)) % q
     assert np.array_equal(got.astype(object) % q, exact)
+    # K12's post row and K11's last inverse scale: the product reduced
+    (got,) = _host(lib.h_scale_reduce, a, w, wp, q)
+    assert np.array_equal(got, mm.cond_sub(_t(want), q).numpy())
+    assert np.array_equal(got.astype(object), exact)
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -156,6 +183,18 @@ def test_ct_butterfly(lib, q):
     wx, wy = mm.ct_butterfly(_t(x), _t(y), _t(w), _t(wp), q)
     assert np.array_equal(gx, wx.numpy()) and np.array_equal(gy, wy.numpy())
     assert int(gx.max()) < 4 * q and int(gy.max()) < 4 * q
+    # K11's forward step: the u-half gives the butterfly's x, the v-half y
+    for is_u in (1, 0):
+        for last in (0, 1):
+            (got,) = _host(lib.h_xchg_fwd, x, y, is_u, w, wp, q, last)
+            want = P.fwd_stage_step_plain(_t(x), _t(y), bool(is_u), _t(w),
+                                          _t(wp), q, bool(last))
+            assert np.array_equal(got, want.numpy())
+            if not last:  # the partner of a u-half x is y, of a v-half x
+                assert np.array_equal(got, gx if is_u else
+                                      _host(lib.h_ct, y, x, w, wp, q, outs=2)[1])
+            else:
+                assert int(got.max()) < q
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -166,13 +205,23 @@ def test_gs_butterfly(lib, q):
     wx, wy = mm.gs_butterfly(_t(x), _t(y), _t(w), _t(wp), q)
     assert np.array_equal(gx, wx.numpy()) and np.array_equal(gy, wy.numpy())
     assert int(gx.max()) < 2 * q and int(gy.max()) < 2 * q
+    # K11's inverse step: the u-half keeps the sum, the v-half (x its own
+    # word, y the partner's u-value) the twiddled difference
+    (got_u,) = _host(lib.h_xchg_inv, x, y, 1, w, wp, q)
+    (got_v,) = _host(lib.h_xchg_inv, x, y, 0, w, wp, q)
+    for is_u, got in ((True, got_u), (False, got_v)):
+        want = P.inv_stage_step_plain(_t(x), _t(y), is_u, _t(w), _t(wp), q)
+        assert np.array_equal(got, want.numpy())
+    assert np.array_equal(got_u, gx)
+    assert np.array_equal(got_v, _host(lib.h_gs, y, x, w, wp, q, outs=2)[1])
 
 
 @pytest.mark.parametrize("q", PRIMES)
 def test_montgomery_redc(lib, q):
     qinv = mm.mont_qinv_neg(q)
-    a = _operands(q, 1 << 31, 10)
-    b = _operands(q, 1 << 31, 11)[::-1].copy()
+    # any 32-bit operands, as the JAX helper takes them
+    a = _operands(q, 1 << 32, 10)
+    b = _operands(q, 1 << 32, 11)[::-1].copy()
     (got,) = _host(lib.h_mont, a, b, q, qinv)
     want = mm.mont_mul_lazy(_t(a), _t(b), q, qinv).numpy()
     assert np.array_equal(got, want)

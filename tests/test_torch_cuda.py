@@ -215,3 +215,69 @@ def test_fourstep_rings_on_the_card_match_the_cpu(cuda):
     big = Ring(1 << 21, device=cuda)  # the two-kernel route on the card
     w = rng.integers(0, big.q, size=(1, 1 << 21), dtype=np.uint32)
     assert torch.equal(big.intt(big.ntt(w)).cpu(), torch.from_numpy(w))
+
+
+def test_exchange_and_dit_kernels_match_plain(cuda):
+    """K11 (forward, inverse, each role, with and without ``last``) and K12
+    against their plain versions; ``inv_ntt_dit`` against K2; the sharded
+    ring on ``["cuda:0"] * 4`` against ``Ring`` on the card (both
+    ``sp_comm`` forms, dp x sp, four-step sp), and, where the machine has
+    two or more cards, over distinct cards (K11 reading its partner
+    through P2P)."""
+    from agilex_ntt_tpu_torch.ops import dit_inv as D
+    from agilex_ntt_tpu_torch.parallel import ShardedRing, make_mesh
+
+    gen = torch.Generator(cuda).manual_seed(11)
+    q = find_primes(1024, 1)[0]
+    for fwd in (True, False):
+        for last in (False, True):
+            for is_u in (True, False):
+                x = _rand(gen, (4 if fwd else 2) * q, (24, 1024), cuda)
+                p = _rand(gen, (4 if fwd else 2) * q, (24, 1024), cuda)
+                w = _rand(gen, q, (1024,), cuda)
+                wp = (w << 32) // q
+                before = dict(K.LAUNCHES)
+                got = K.xchg_step(*(t.to(torch.uint32) for t in (x, p, w, wp)),
+                                  q=q, fwd=fwd, is_u=is_u, last=last, scale=777)
+                torch.cuda.synchronize()
+                key = "xchg_fwd" if fwd else "xchg_inv"
+                assert K.LAUNCHES[key] == before[key] + 1
+                if fwd:
+                    want = P.fwd_stage_step_plain(x, p, is_u, w, wp, q, last)
+                else:
+                    want = P.inv_stage_step_plain(
+                        x, p, is_u, w, wp, q,
+                        (777, (777 << 32) // q) if last else None)
+                assert torch.equal(got.to(torch.int64), want), (fwd, last, is_u)
+    for n, batch in ((32, 999), (256, 5), (4096, 16), (32768, 2)):
+        ring = Ring(n, device=cuda)
+        dt = D._dit_tables(ring.params, cuda)
+        y = _rand(gen, 2 * ring.q, (batch, n), cuda)
+        before = K.LAUNCHES["dit_inv"]
+        got = K.dit_inv_core(y.to(torch.uint32), dt)
+        assert K.LAUNCHES["dit_inv"] == before + 1
+        assert torch.equal(got.to(torch.int64), P.dit_inv_core_plain(y, dt))
+        y32 = y.to(torch.uint32)
+        for fac in (False, True) if n.bit_length() % 2 else (False,):
+            assert torch.equal(D.inv_ntt_dit(y32, ring.params, factored=fac),
+                               ring.intt(y32))
+    meshes = [["cuda:0"] * 4]
+    if torch.cuda.device_count() >= 2:
+        meshes.append([f"cuda:{i % torch.cuda.device_count()}" for i in range(4)])
+    ring, big = Ring(4096, device=cuda), Ring(1 << 16, device=cuda)
+    x = ring.random_coeffs(gen, (32,))
+    b = ring.random_coeffs(gen, (32,))
+    xb = big.random_coeffs(gen, (8,))
+    for devices in meshes:
+        for comm in ("ppermute", "overlap"):
+            for axes, kw in ((dict(sp=4), dict(dp_axis=None, sp_axis="sp")),
+                             (dict(dp=2, sp=2), dict(sp_axis="sp"))):
+                sr = ShardedRing(ring, make_mesh(devices=devices, **axes),
+                                 sp_comm=comm, **kw)
+                assert torch.equal(sr.ntt(x), ring.ntt(x)), (devices, comm)
+                assert torch.equal(sr.intt(x), ring.intt(x)), (devices, comm)
+                assert torch.equal(sr.polymul(x, b), ring.polymul(x, b))
+        sr = ShardedRing(big, make_mesh(sp=4, devices=devices), dp_axis=None,
+                         sp_axis="sp")
+        assert torch.equal(sr.ntt(xb), big.ntt(xb)), devices
+        assert torch.equal(sr.intt(xb), big.intt(xb)), devices

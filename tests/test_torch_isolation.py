@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it and running its
-command-line check, single- and multi-prime, loads neither JAX nor the JAX
-package."""
+command-line check, single- and multi-prime, the DIT inverse and the
+sharded ring, loads neither JAX nor the JAX package."""
 
 import subprocess
 import sys
@@ -12,7 +12,12 @@ PROBE = """
 import sys
 import agilex_ntt_tpu_torch
 from agilex_ntt_tpu_torch import RNSRing, Ring
-from agilex_ntt_tpu_torch.ops import basechange, gadget, ntt_kernel, plain_ntt
+from agilex_ntt_tpu_torch.ops import (
+    basechange, dit_inv, fourstep, gadget, ntt_kernel, plain_ntt,
+)
+from agilex_ntt_tpu_torch.parallel import (
+    fourstep_shard, mesh, overlap, shards, stage_shard,
+)
 from agilex_ntt_tpu_torch.utils import crt, profiling
 from agilex_ntt_tpu_torch.__main__ import main
 main(["256", "4", "--device", "cpu"])
@@ -25,6 +30,14 @@ ksk = np.ones((3, 4, 256), dtype=np.uint32)
 ring.keyswitch(x, ring.ksk_to_ntt(ksk, ext), ext, 3, ksk_domain="ntt")
 ring.hoisted_keyswitch(x, ksk[None], (3,), ext, 3)
 ring.mod_down_bgv(ring.base_convert(x, ring.qs), 17)
+r = Ring(1024, device="cpu")
+dit_inv.inv_ntt_dit(r.ntt(np.ones((2, 1024), dtype=np.uint32)), r.params)
+m = mesh.make_mesh(dp=2, sp=2, devices=["cpu"] * 4)
+for comm in ("ppermute", "overlap"):
+    mesh.ShardedRing(r, m, sp_axis="sp", sp_comm=comm).polymul(
+        np.ones((3, 1024), dtype=np.uint32), np.ones((3, 1024), dtype=np.uint32))
+mesh.ShardedRing(r, m, sp_axis="sp", sp_method="fourstep").ntt(
+    np.ones((2, 1024), dtype=np.uint32))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)

@@ -90,7 +90,7 @@ def test_polydot_matches_jax_and_fused_kernel(rings, jax_ref):
 def test_pointwise_ops_match_jax_bit_for_bit(rings):
     ring, ref = rings
     q = ring.q
-    # NTT-domain operands may be lazy: pointwise_mul_lazy takes them below 2**31
+    # NTT-domain operands may be lazy
     a = _coeffs(q, (4, N), 7, bound=2 * q)
     b = _coeffs(q, (4, N), 8, bound=2 * q)
     a[0, :4] = [0, q - 1, 2 * q - 1, (1 << 31) - 1]
@@ -98,8 +98,12 @@ def test_pointwise_ops_match_jax_bit_for_bit(rings):
     assert _same(ring.pointwise_mul_lazy(a, b), ref.pointwise_mul_lazy(a, b))
     ar, br = a % np.uint32(q), b % np.uint32(q)
     assert _same(ring.pointwise_mul(ar, br), ref.pointwise_mul(ar, br))
-    with pytest.raises(ValueError, match="2\\*\\*31"):
-        ring.pointwise_mul_lazy(np.full((1, N), 1 << 31, dtype=np.uint32), ar[:1])
+    # any uint32 word, as the JAX helper takes it: a in [2**31, 2**32)
+    big = _coeffs(1 << 31, (4, N), 11) + np.uint32(1 << 31)
+    lz = _coeffs(q, (4, N), 12, bound=2 * q)
+    big[0, :2] = [(1 << 32) - 1, 1 << 31]
+    assert _same(ring.pointwise_mul_lazy(big, lz), ref.pointwise_mul_lazy(big, lz))
+    assert _same(ring.pointwise_mul(big, lz), ref.pointwise_mul(big, lz))
 
 
 def test_add_sub_neg_match_jax(rings):

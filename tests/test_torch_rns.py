@@ -27,6 +27,16 @@ def _jax_ring():
     return JRNSRing(N, qs=QS)
 
 
+def _jax_mont_lazy(a, b):
+    """The JAX package's Montgomery product, channel l mod QS[l]."""
+    from agilex_ntt_tpu.ops.modmul import mont_mul_lazy, mont_qinv_neg
+
+    return np.stack([
+        np.asarray(mont_mul_lazy(a[l], b[l], q, mont_qinv_neg(q)))
+        for l, q in enumerate(QS)
+    ])
+
+
 def _jax_chain():
     ring = _jax_ring()
     return ring.modulus, ring.qs, ring.drop_prime().qs
@@ -115,7 +125,7 @@ def test_polydot_matches_jax(rings):
         ring.polydot(a, b[:, :, :2])
 
 
-def test_add_sub_neg_match_jax(rings):
+def test_add_sub_neg_match_jax(rings, jax_ref):
     ring, ref = rings
     a = _residues((2, N), 7)
     b = _residues((2, N), 8)
@@ -125,6 +135,14 @@ def test_add_sub_neg_match_jax(rings):
     assert _same(ring.add(a, b), ref.add(a, b))
     assert _same(ring.sub(a, b), ref.sub(a, b))
     assert _same(ring.neg(a), ref.neg(a))
+    # the pointwise Montgomery product takes any uint32 word: a in
+    # [2**31, 2**32), b lazy in [0, 2 q_l)
+    big = np.random.default_rng(11).integers(
+        1 << 31, 1 << 32, size=(3, 2, N), dtype=np.uint64).astype(np.uint32)
+    lz = _residues((2, N), 12, mult=2)
+    got = ring._mont_lazy(torch.from_numpy(big.astype(np.int64)),
+                          torch.from_numpy(lz.astype(np.int64)))
+    assert np.array_equal(got.numpy(), jax_ref.run(_jax_mont_lazy, big, lz))
 
 
 def test_tensor_and_tensor_square_match_jax(rings):
