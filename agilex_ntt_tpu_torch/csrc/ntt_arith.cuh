@@ -14,6 +14,13 @@
 #include <stdint.h>
 
 #define NTT_HD __host__ __device__ __forceinline__
+// Full unrolling of the radix groups' loops on the device, so that their
+// word arrays stay in registers.
+#ifdef __CUDA_ARCH__
+#define NTT_UNROLL _Pragma("unroll")
+#else
+#define NTT_UNROLL
+#endif
 
 // High 32 bits of a 32x32-bit product.
 NTT_HD uint32_t ntt_mulhi(uint32_t a, uint32_t b) {
@@ -56,6 +63,70 @@ NTT_HD void ntt_gs_butterfly(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
   const uint32_t d = x + two_q - y;
   x = s;
   y = ntt_shoup_lazy(d, w, wp, q);
+}
+
+// The last inverse stage with the scale folded in (inv_stages' m = 1):
+// x, y in [0, 2q) -> (su (x + y), sv (x - y)) in [0, q), where sv is the
+// scale times inv_roots[1]; sup and svp are their Shoup precons.
+NTT_HD void ntt_gs_scaled_butterfly(uint32_t& x, uint32_t& y, uint32_t su,
+                                    uint32_t sup, uint32_t sv, uint32_t svp,
+                                    uint32_t q) {
+  const uint32_t sum = x + y;
+  const uint32_t diff = x + 2u * q - y;
+  x = ntt_cond_sub(ntt_shoup_lazy(sum, su, sup, q), q);
+  y = ntt_cond_sub(ntt_shoup_lazy(diff, sv, svp, q), q);
+}
+
+// A lazy forward output [0, 4q) reduced to [0, q).
+NTT_HD uint32_t ntt_reduce_4q(uint32_t x, uint32_t q) {
+  return ntt_cond_sub(ntt_cond_sub(x, 2u * q), q);
+}
+
+// K consecutive forward stages on the 2^K words of a radix-2^K group, held
+// by one thread: the words v[j] = x[p + j u] of a transform at stages
+// [s, s + K) whose smallest stride is u.  Level l (stage s + l) pairs v[j]
+// and v[j + 2^(K-1-l)] for j with that bit clear, with the twiddle
+// w[2^l - 1 + (j >> (K - l))]: the 2^l twiddles of level l are
+// roots[2^(s+l) + B 2^l + i], i < 2^l, for the group's block B (the
+// caller loads them).  In [0, 4q), out [0, 4q).
+template <int K>
+NTT_HD void ntt_ct_radix(uint32_t* v, const uint32_t* w, const uint32_t* wp,
+                         uint32_t q) {
+  NTT_UNROLL
+  for (int l = 0; l < K; ++l) {
+    const int half = 1 << (K - 1 - l);
+    NTT_UNROLL
+    for (int j = 0; j < (1 << K); ++j) {
+      if (j & half) continue;
+      const int i = (1 << l) - 1 + (j >> (K - l));
+      ntt_ct_butterfly(v[j], v[j + half], w[i], wp[i], q);
+    }
+  }
+}
+
+// The inverse (Gentleman-Sande) stages of the same group, level K - 1
+// (stride u) first, on the inverse twiddles in the same places.  With
+// `scale` (su, su', sv, sv': the group holds the transform's last stage,
+// s = 0) level 0 is ntt_gs_scaled_butterfly.  In [0, 2q), out [0, 2q), or
+// [0, q) scaled.
+template <int K>
+NTT_HD void ntt_gs_radix(uint32_t* v, const uint32_t* w, const uint32_t* wp,
+                         uint32_t q, const uint32_t* scale) {
+  NTT_UNROLL
+  for (int l = K - 1; l >= 0; --l) {
+    const int half = 1 << (K - 1 - l);
+    NTT_UNROLL
+    for (int j = 0; j < (1 << K); ++j) {
+      if (j & half) continue;
+      if (l == 0 && scale != nullptr) {
+        ntt_gs_scaled_butterfly(v[j], v[j + half], scale[0], scale[1],
+                                scale[2], scale[3], q);
+      } else {
+        const int i = (1 << l) - 1 + (j >> (K - l));
+        ntt_gs_butterfly(v[j], v[j + half], w[i], wp[i], q);
+      }
+    }
+  }
 }
 
 // Montgomery REDC with R = 2^32: a * b * 2^-32 mod q in [0, 2q) for

@@ -17,9 +17,11 @@
 //   dit_inv_kernel  <- _dit_inv_kernel  (K12)
 //   xchg_kernel     <- kernel in _xchg_call (K11)
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
-// four-step section below for their design):
+// four-step section below and ntt_fourstep_cluster.cuh for their design):
+//   fwd4_cluster_kernel, where the matrix fits in a cluster, else
 //   fwd4_kernel     <- _full_fwd_kernel     (K7a)
 //   inv4_kernel     <- _full_inv_kernel     (K7b)
+//   polymul4_cluster_kernel, where both matrices fit in a cluster, else
 //   polymul4_kernel <- _full_polymul_kernel (K8)
 //   col_fwd4_kernel <- _col_fwd_kernel      (K9a)
 //   col_inv4_kernel <- _col_inv_kernel      (K9b)
@@ -64,10 +66,12 @@
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
 // synchronize does not report it.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ntt_arith.cuh"
+#include "ntt_fourstep_cluster.cuh"
 
 namespace {
 
@@ -491,8 +495,15 @@ xchg_kernel(const uint32_t* __restrict__ x,
 // pass is fwd_kernel/inv_kernel on (B n1, n2) rows with the cyclic tables.
 // K8 keeps the first operand's transform in a scratch buffer in device
 // memory (B n words) and multiplies (Montgomery) while loading the inverse's
-// row tiles.  A cluster of blocks with distributed shared memory would keep
-// 2^16 .. 2^19 on chip; that is later work.
+// row tiles.
+//
+// K7a and K8 run these walking bodies only where the matrix does not fit in
+// a cluster's shared memory (n >= 2^20 for K7a, n >= 2^19 for K8 with the
+// balanced split).  Below that, fwd4_cluster_kernel and
+// polymul4_cluster_kernel hold the whole matrix (both, for K8) in the
+// shared memory of a cluster of up to 16 CTAs (ntt_fourstep_cluster.cuh):
+// a choice by shape between two hand-written kernels, made in ntt_fwd4 and
+// ntt_polymul4.  A cluster launch the card refuses returns its error.
 
 constexpr int k4Threads = 1024;
 // Words of one tile: 128 KiB, one block an SM.
@@ -500,19 +511,6 @@ constexpr int k4TileWords = 32768;
 // Most columns a column tile takes: 128 bytes of a row.
 constexpr int k4MaxCols = 32;
 constexpr int k4MaxLogSide = 15;
-
-struct Tabs4 {
-  const uint32_t* col;        // column transform's roots (or inverse roots)
-  const uint32_t* col_precon;
-  const uint32_t* row;        // row transform's roots (or inverse roots)
-  const uint32_t* row_precon;
-  const uint32_t* tw;         // (n1, n2) twiddles T (or T^-1)
-  const uint32_t* tw_precon;
-};
-
-struct Scale4 {
-  uint32_t su, sup, sv, svp;  // the last inverse stage's constants
-};
 
 struct Shape4 {
   int logn1, logn2;
@@ -665,6 +663,37 @@ polymul4_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
             qinv_neg);
 }
 
+// The cluster kernels: cluster blockIdx.x >> logc holds polynomial
+// blockIdx.x >> logc.  Each comes in the two launch shapes of
+// cluster_shape: <k4SmallThreads, k4SmallCtas> and <k4LargeThreads, 1>.
+template <int kThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+fwd4_cluster_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                    Tabs4 t, Slab4 sl, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const size_t off = (size_t)(blockIdx.x >> sl.logc)
+                     << (sl.logn1 + sl.logn2);
+  fwd4_cluster_body(cl, smem, x + off, y + off, t, sl, q);
+}
+
+template <int kThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+polymul4_cluster_kernel(const uint32_t* __restrict__ a,
+                        const uint32_t* __restrict__ b,
+                        uint32_t* __restrict__ out, Tabs4 f, Tabs4 i,
+                        Slab4 sl, Scale4 rs, Scale4 cs, uint32_t q,
+                        uint32_t qinv_neg) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const size_t off = (size_t)(blockIdx.x >> sl.logc)
+                     << (sl.logn1 + sl.logn2);
+  const uint32_t rw[4] = {rs.su, rs.sup, rs.sv, rs.svp};
+  const uint32_t cw[4] = {cs.su, cs.sup, cs.sv, cs.svp};
+  polymul4_cluster_body(cl, smem, a + off, b + off, out + off, f, i, sl, rw,
+                        cw, q, qinv_neg);
+}
+
 // K9a: blockIdx.x is the polynomial, blockIdx.y the column tile.
 __global__ void __launch_bounds__(k4Threads)
 col_fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
@@ -702,6 +731,97 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// The cluster kernel's attributes for one launch shape: its shared memory
+// and, above 8 CTAs, the non-portable cluster size.
+template <typename Kernel>
+cudaError_t allow_cluster(Kernel kernel, int logc, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess || logc <= 3) return err;
+  return cudaFuncSetAttribute((const void*)kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+// A launch configuration of `clusters` clusters of 2^logc CTAs.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(long long clusters, int logc, int threads, size_t bytes,
+                void* stream) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3((unsigned)(clusters << logc));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = (cudaStream_t)stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1u << logc;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The cluster kernels' two launch shapes.  The kernels are bound by
+// latency with few warps an SM (PERF.md, measured with
+// utils/cluster_probe.py), so where slabs of a third of an SM's shared
+// memory take at most 16 CTAs, three CTAs of 256 threads share an SM (at
+// most 85 registers a thread, a few spilled; one CTA's load and store run
+// beside the others' arithmetic); else one CTA of 512 threads an SM (128
+// registers), slabs up to a block's 227 KiB.
+constexpr int k4SmallThreads = 256;
+constexpr int k4SmallCtas = 3;
+constexpr size_t k4SmallSlabBytes = 76800;  // (228 KiB - 3 x 1 KiB) / 3
+constexpr int k4LargeThreads = 512;
+
+struct ClusterShape {
+  int logc;    // -1: no cluster holds the matrices
+  bool small;  // three CTAs an SM
+  int threads;
+  size_t bytes;
+};
+
+ClusterShape cluster_shape(int mats, int logn1, int logn2) {
+  ClusterShape c;
+  c.logc = cluster_logc(mats, logn1, logn2, k4SmallSlabBytes);
+  c.small = c.logc >= 0;
+  if (!c.small) c.logc = cluster_logc(mats, logn1, logn2, kMaxSmemBytes);
+  c.threads = c.small ? k4SmallThreads : k4LargeThreads;
+  c.bytes = c.logc < 0 ? 0 : cluster_smem_bytes(mats, logn1, logn2, c.logc);
+  return c;
+}
+
+// One launch of a cluster kernel at shape c (attributes set first).
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, const ClusterShape& c,
+                           long long batch, void* stream, Args... args) {
+  cudaError_t err = allow_cluster(kernel, c.logc, c.bytes);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch launch(batch, c.logc, c.threads, c.bytes, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The kernel of `mats` matrices (1: K7a, 2: K8) at a launch shape.
+const void* cluster_kernel(int mats, bool small) {
+  if (mats == 1) {
+    return small
+               ? (const void*)fwd4_cluster_kernel<k4SmallThreads, k4SmallCtas>
+               : (const void*)fwd4_cluster_kernel<k4LargeThreads, 1>;
+  }
+  return small
+             ? (const void*)polymul4_cluster_kernel<k4SmallThreads, k4SmallCtas>
+             : (const void*)polymul4_cluster_kernel<k4LargeThreads, 1>;
+}
+
+// One cluster a polynomial: grid.x = batch << logc must fit an int.
+bool cluster_grid_ok(long long batch, int logc) {
+  return batch >= 1 && batch <= (0x7fffffffLL >> logc);
 }
 
 // Tiles the fused kernel keeps besides the working tile: fa, and acc if k > 1.
@@ -837,9 +957,46 @@ int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
 // col_scale: host arrays of the four words (su, su', sv, sv') of the row and
 // column inverses' last stages.  Operands are (batch, n1, n2), contiguous.
 
+// log2 of the cluster that holds `mats` (n1, n2) matrices (1: K7a, 2: K8),
+// or -1: the walking kernel.
+int ntt_fourstep_cluster_log(int mats, int logn1, int logn2) {
+  if (!shape4_ok(logn1, logn2, 1) || mats < 1 || mats > 2) return -1;
+  return cluster_shape(mats, logn1, logn2).logc;
+}
+
+// info = {log2 of the cluster's CTAs (-1: the walking kernel), shared memory
+// bytes a CTA, threads a CTA, the most such clusters the card runs at once
+// (cudaOccupancyMaxActiveClusters)}.
+int ntt_fourstep_cluster_info(int mats, int logn1, int logn2, int* info) {
+  info[0] = -1;
+  info[1] = info[2] = info[3] = 0;
+  if (ntt_fourstep_cluster_log(mats, logn1, logn2) < 0) return 0;
+  const ClusterShape c = cluster_shape(mats, logn1, logn2);
+  info[0] = c.logc;
+  info[1] = (int)c.bytes;
+  info[2] = c.threads;
+  const void* kernel = cluster_kernel(mats, c.small);
+  cudaError_t err = allow_cluster(kernel, c.logc, c.bytes);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(1, c.logc, c.threads, c.bytes, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(&info[3], kernel, &launch.cfg);
+}
+
 int ntt_fwd4(const uint32_t* x, uint32_t* y, const void* const* tabs,
              long long batch, int logn1, int logn2, uint32_t q, void* stream) {
   if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const ClusterShape c = cluster_shape(1, logn1, logn2);
+  if (c.logc >= 0) {
+    if (!cluster_grid_ok(batch, c.logc)) return (int)cudaErrorInvalidValue;
+    const Tabs4 t = tabs4(tabs);
+    const Slab4 sl = make_slab4(logn1, logn2, c.logc);
+    return (int)(c.small
+                     ? launch_cluster(
+                           fwd4_cluster_kernel<k4SmallThreads, k4SmallCtas>, c,
+                           batch, stream, x, y, t, sl, q)
+                     : launch_cluster(fwd4_cluster_kernel<k4LargeThreads, 1>,
+                                      c, batch, stream, x, y, t, sl, q));
+  }
   const Shape4 s = make_shape4(logn1, logn2);
   const size_t bytes = smem4_bytes(s, true);
   cudaError_t err = allow_smem((const void*)fwd4_kernel, bytes);
@@ -863,14 +1020,31 @@ int ntt_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
 }
 
 // scratch: batch * n words of device memory for the first operand's
-// transform.
+// transform, for the walking kernel only (ntt_fourstep_cluster_log(2, ...)
+// < 0); the cluster kernel takes none (null).
 int ntt_polymul4(const uint32_t* a, const uint32_t* b, uint32_t* out,
                  uint32_t* scratch, const void* const* fwd_tabs,
                  const void* const* inv_tabs, const uint32_t* row_scale,
                  const uint32_t* col_scale, long long batch, int logn1,
                  int logn2, uint32_t q, uint32_t qinv_neg, void* stream) {
-  if (!shape4_ok(logn1, logn2, batch) || scratch == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const ClusterShape c = cluster_shape(2, logn1, logn2);
+  if (c.logc >= 0) {
+    if (!cluster_grid_ok(batch, c.logc)) return (int)cudaErrorInvalidValue;
+    const Tabs4 f = tabs4(fwd_tabs), i = tabs4(inv_tabs);
+    const Slab4 sl = make_slab4(logn1, logn2, c.logc);
+    const Scale4 rs = scale4(row_scale), cs = scale4(col_scale);
+    return (int)(c.small
+                     ? launch_cluster(
+                           polymul4_cluster_kernel<k4SmallThreads, k4SmallCtas>,
+                           c, batch, stream, a, b, out, f, i, sl, rs, cs, q,
+                           qinv_neg)
+                     : launch_cluster(
+                           polymul4_cluster_kernel<k4LargeThreads, 1>, c,
+                           batch, stream, a, b, out, f, i, sl, rs, cs, q,
+                           qinv_neg));
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   const Shape4 s = make_shape4(logn1, logn2);
   const size_t bytes = smem4_bytes(s, true);
   cudaError_t err = allow_smem((const void*)polymul4_kernel, bytes);

@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ntt_arith.cuh", "ntt_kernels.cu")
+SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh", "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libntt_kernels.so"
 NVCC_FLAGS = (
@@ -68,6 +68,8 @@ SIGNATURES = {
     "ntt_xchg": (_P, _P, _P, _P, _P, _LL, _I, _U, _I, _I, _I, _U, _U, _P),
     # device, peer
     "ntt_enable_peer": (_I, _I),
+    # mats, logn1, logn2, info (4 ints)
+    "ntt_fourstep_cluster_info": (_I, _I, _I, _P),
 }
 
 
@@ -133,6 +135,8 @@ def load() -> ctypes.CDLL:
     lib.ntt_polydot_scratch_words.restype = _LL
     lib.ntt_polydot_rns_scratch_words.argtypes = [_I, _LL, _I, _I]
     lib.ntt_polydot_rns_scratch_words.restype = _LL
+    lib.ntt_fourstep_cluster_log.argtypes = [_I, _I, _I]
+    lib.ntt_fourstep_cluster_log.restype = _I
     lib.ntt_error_string.argtypes = [_I]
     lib.ntt_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,11 +17,12 @@ of ``CyclicRing``.
 On the card (B, n) and (B, n1, n2) are the same bytes, so the flat and the
 tiled layouts run the same kernels (``Ring(..., fourstep_kernel="flat")``
 exists for the JAX package's API; it has no kernel of its own here).  The
-dispatch is the JAX package's: one fused kernel while the matrix is at most
-``FULL_FUSE_BYTES`` (K7a/K7b), else the column kernel (K9a/K9b) and the row
-pass on the radix-2 kernels (K1/K2) with the cyclic row tables; the fused
-polymul (K8) while the matrix is at most ``POLYMUL_FUSE_BYTES``, else two
-forward transforms, the Montgomery product and a scaled inverse.
+dispatch has the JAX package's shape, with caps measured on the H100: one
+fused kernel while the matrix is at most ``FULL_FUSE_BYTES`` (K7a/K7b),
+else the column kernel (K9a/K9b) and the row pass on the radix-2 kernels
+(K1/K2) with the cyclic row tables; the fused polymul (K8) while the matrix
+is at most ``POLYMUL_FUSE_BYTES``, else two forward transforms, the
+Montgomery product and a scaled inverse.
 """
 
 from __future__ import annotations
@@ -48,15 +49,16 @@ from . import modmul as mm
 from . import ntt_kernel as K
 from .plain_ntt import FourStepTables
 
-# The JAX package's caps on the (n1, n2) matrix of one polynomial, in bytes:
-# the fused transform (K7) up to 4 MiB (n <= 2^20), the fused polymul (K8)
-# up to 2 MiB (n <= 2^19); beyond them the two-kernel and composed routes.
-# They were measured on a TPU's VMEM.  On the H100 every route keeps the
-# matrix in device memory between its passes, and the two-kernel route
-# measured faster at n = 2^18 (B=128) and 2^20 (B=32) (PERF.md, section 5);
-# the caps stay until a measured change replaces them, so that both routes
-# run on the main path at real sizes.
-FULL_FUSE_BYTES = 4 << 20
+# Caps on the (n1, n2) matrix of one polynomial, in bytes, set from this
+# card's crossovers (chip_smoke.py phase 4, NVIDIA H100 80GB HBM3 at
+# 700.00 W, 128 MiB an operand; PERF.md section 5).  The fused transforms
+# K7a + K7b beat the two-kernel route (K9a + K1 rows, K2 rows + K9b) up to
+# 2^18 (1 MiB) and lose from 2^19, where K7b is the walking kernel and
+# K7a needs a cluster of 16 CTAs.  The fused polymul K8 beats the composed
+# polymul (two transforms, the int64 Montgomery product, the scaled
+# inverse) up to 2^19 (2 MiB; K8 on the walking kernel there) and loses at
+# 2^20.  Every route is bit-exact, so the caps move only time.
+FULL_FUSE_BYTES = 1 << 20
 POLYMUL_FUSE_BYTES = 2 << 20
 
 

@@ -7,7 +7,9 @@ and (B, k, n) operands of one prime, and ``fwd_ntt_rns``, ``inv_ntt_rns``,
 (L, B, k, n) operands of L primes, one launch for all channels; and of the
 four-step kernels of ``agilex_ntt_tpu/ops/fourstep.py`` on (B, n1, n2)
 operands: ``fwd_ntt_fourstep``, ``inv_ntt_fourstep`` and
-``polymul_fourstep_fused`` (the whole transform in one kernel) and
+``polymul_fourstep_fused`` (the whole transform in one kernel; K7a and K8
+hold the matrix in a thread-block cluster's shared memory where it fits,
+``fourstep_cluster``) and
 ``fwd_col_fourstep``/``inv_col_fourstep`` (the column pass and the twiddle
 alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``);
 ``dit_inv_core``, the DIT inverse of ``agilex_ntt_tpu/ops/dit_inv.py``
@@ -346,9 +348,36 @@ def _logs(ft: FourStepTables):
     return ft.n1.bit_length() - 1, ft.n2.bit_length() - 1
 
 
+def fourstep_cluster(ft: FourStepTables, mats: int) -> int:
+    """log2 of the CTAs of the cluster whose shared memory holds ``mats``
+    (n1, n2) matrices (1: ``fwd_ntt_fourstep``, 2: ``polymul_fourstep_fused``),
+    or -1 where none does and the wrapper launches the walking kernel."""
+    return _build.load().ntt_fourstep_cluster_log(mats, *_logs(ft))
+
+
+def fourstep_cluster_info(ft: FourStepTables, mats: int) -> dict:
+    """The cluster kernel's launch at this shape: CTAs, shared memory and
+    threads a CTA, and the most such clusters the card runs at once
+    (``cudaOccupancyMaxActiveClusters``); ``ctas`` is 0 for the walking
+    kernel."""
+    lib = _build.load()
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, lib.ntt_fourstep_cluster_info(mats, *_logs(ft), info),
+                 "fourstep_cluster_info")
+    return {"ctas": 1 << info[0] if info[0] >= 0 else 0,
+            "smem_bytes": info[1], "threads": info[2],
+            "max_active_clusters": info[3]}
+
+
 def fwd_ntt_fourstep(x: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
     """Forward four-step NTT of (B, n1, n2) in [0, 4q) -> [0, q) in one
-    kernel (K7a): the column pass, the twiddle and the row pass."""
+    kernel (K7a): the column pass, the twiddle and the row pass.
+
+    On the card, by shape: where the matrix fits in the shared memory of a
+    cluster of at most 16 CTAs (n <= 2^19 with the balanced split) the
+    cluster kernel keeps it on chip from load to store; above that the
+    walking kernel passes it through device memory between its passes.
+    Both are hand-written CUDA; a cluster launch the card refuses raises."""
     _check4(x, ft, "fwd_ntt_fourstep")
     if x.device.type == "cpu":
         return _u32(plain.fwd_ntt_fourstep_plain(x.to(torch.int64), ft))
@@ -390,7 +419,12 @@ def polymul_fourstep_fused(
 ) -> torch.Tensor:
     """a * b of (B, n1, n2) operands in [0, q) in one kernel (K8): two
     forward transforms, the Montgomery product, the inverse scaled by
-    ``ft.polymul_scale``."""
+    ``ft.polymul_scale``.
+
+    On the card, by shape as ``fwd_ntt_fourstep``: the cluster kernel where
+    both matrices fit in a cluster's shared memory (n <= 2^18 with the
+    balanced split), with no scratch; above that the walking kernel, with a
+    scratch buffer of B n words for the first operand's transform."""
     _check4(a, ft, "polymul_fourstep_fused")
     _check4(b, ft, "polymul_fourstep_fused")
     if a.shape != b.shape:
@@ -401,11 +435,13 @@ def polymul_fourstep_fused(
         return _u32(plain.polymul_fourstep_plain(
             a.to(torch.int64), b.to(torch.int64), ft))
     out = torch.empty_like(a)
-    scratch = torch.empty_like(a)  # the first operand's transform
+    # the walking kernel's first operand's transform
+    scratch = torch.empty_like(a) if fourstep_cluster(ft, 2) < 0 else None
     lib = _build.load()
     with torch.cuda.device(a.device):
         rc = lib.ntt_polymul4(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
             _fwd_tabs(ft), _inv_tabs(ft), _row_scale(ft),
             _col_scale(ft, ft.polymul_scale), a.shape[0], *_logs(ft), ft.q,
             ft.qinv_neg, _stream(a),

@@ -19,11 +19,13 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=32768 (L=4, the
    fused kernels' scratch path), n=32 (L=3, batch 4096) and a ragged
    batch.  The first rows are also held against the package's numpy golden
-   model, channel by channel.  Four-step (K7a, K7b, K8 where the route
-   takes them, K9a and K9b everywhere): n=2^16 (B=512), 2^18 (B=128),
-   2^20 (B=32), 2^21 (B=16; the public ``Ring`` also through the row pass
-   on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged batch
-   (2^16, B=7); the first 2 rows at n=2^16 against the golden model.  The
+   model, channel by channel.  Four-step (K7a, K8, K9a and K9b everywhere,
+   K7b where the route takes it): n=2^16 (B=512), 2^18 (B=128), 2^19
+   (B=64), 2^20 (B=32), 2^21 (B=16; the public ``Ring`` also through the
+   row pass on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged
+   batch (2^16, B=7); K7a and K8 on their cluster kernels up to 2^19 and
+   2^18 (clusters of 2 to 16 CTAs) and on the walking kernels above; the
+   first 2 rows at n=2^16 against the golden model.  The
    DIT inverse K12 at n=4096 (B=8192), 32 and 32768, with ``inv_ntt_dit``
    (direct and factored) equal to K2; the cross-device stage K11 (forward
    and inverse, each role, with and without ``last``) on one shard of the
@@ -57,8 +59,13 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       equal word for word to the unsharded ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
-   (``bound_ms``), the four-step kernels also at their other sizes, the
-   DIT inverse beside K2 and its bit-reversals, the sharded calls beside
+   (``bound_ms``); the cluster kernels' launch shapes (CTAs, shared memory,
+   ``cudaOccupancyMaxActiveClusters``, registers and spills) and the
+   kernels ``torch.profiler`` sees run at 2^16 and 2^18; the fused
+   four-step kernels beside the two-kernel transforms and the composed
+   polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
+   set ``ops/fourstep.py``'s caps; the DIT inverse beside K2 and its
+   bit-reversals, the sharded calls beside
    the unsharded ones with K11's share of their device time, the public
    calls' throughput, and the key switch end to end.  One card measures
    the sharded path's correctness and its cost on one card; what the
@@ -133,11 +140,18 @@ RNS_CHECK_SHAPES = (
 FS_CHECK_SHAPES = (
     (1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16),
     (1 << 17, 64),  # 512 x 256
+    (1 << 19, 64),  # K7a on a cluster of 16 CTAs, K8 on the walking kernel
     (1 << 16, 7),  # a ragged batch
 )
 FS_GOLDEN_ROWS = 2
 # the four-step main path: (n, batch)
 FS_PATH = ((1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16))
+# the fused kernels beside the routes the caps choose between: (n, batch),
+# 128 MiB an operand
+FS_ROUTE_SHAPES = ((1 << 16, 512), (1 << 17, 256), (1 << 18, 128),
+                   (1 << 19, 64), (1 << 20, 32))
+# where torch.profiler must see the cluster kernels
+FS_PROFILE_NS = (1 << 16, 1 << 18)
 FS_DOT_BATCH, FS_DOT_K = 128, 3
 FS_RNS_L, FS_SMALL_BATCH = 3, 64
 FS_CROSS_N, FS_CROSS_BATCH = 32768, 1024
@@ -274,7 +288,8 @@ def bound(words_moved: int, ops):
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
     r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
-    r"|dit_inv|xchg)(_rns)?_kernel")
+    r"|fwd4_cluster|polymul4_cluster|dit_inv|xchg)(_rns)?_kernel")
+CLUSTER_KERNELS = {1: "fwd4_cluster_kernel", 2: "polymul4_cluster_kernel"}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
@@ -309,6 +324,22 @@ def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> No
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.key:24s} {e.count:5d} calls, {e.self_device_time_total / 1e3:.4f} "
             f"ms on the device")
+
+
+def kernels_seen(torch, call):
+    """(name, launches, device ms) of each kernel one call launched, from
+    ``torch.profiler``; empty when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
 
 
 def kernel_share(torch, call, what: str) -> None:
@@ -370,12 +401,15 @@ def main() -> int:
     _build.load()
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     kernel = "?"
+    ptxas = {}  # kernel -> its register and spill lines
     for line in (lib_path.parent / "build.log").read_text().splitlines():
-        entry = re.search(r"\d+([a-z_]+\d?_kernel)E", line)
+        # the length prefix of the mangled name, then e.g. fwd4_cluster_kernel
+        entry = re.search(r"\d+([a-z][a-z_]*\d?(?:_[a-z]+)*_kernel)[EI]", line)
         if "Compiling entry" in line and entry:
             kernel = entry.group(1)
         elif "registers" in line or "spill" in line:
-            log(f"  ptxas {kernel}: " + line.split(":", 1)[-1].strip())
+            ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+            log(f"  ptxas {kernel}: " + ptxas[kernel][-1])
 
     # -- 2. each kernel against its plain version ------------------------------
     def rand(gen, bound_, shape):
@@ -508,6 +542,11 @@ def main() -> int:
     def tiled(v, ft):
         return v.view(v.shape[0], ft.n1, ft.n2)
 
+    def body(ft, mats):
+        """Which kernel K7a (mats=1) or K8 (2) runs at this shape."""
+        logc = K.fourstep_cluster(ft, mats)
+        return f"cluster {1 << logc}" if logc >= 0 else "walking"
+
     for n, batch in FS_CHECK_SHAPES:
         ring = Ring(n, device=dev)
         ft, q = ring.fourstep, ring.q
@@ -521,9 +560,9 @@ def main() -> int:
         got = K.inv_col_fourstep(y.to(torch.uint32), ft)
         compare("col_inv", got, P.inv_col_fourstep_plain(y, ft), note)
         want_f = P.fwd_ntt_fourstep_plain(x, ft)
+        got = K.fwd_ntt_fourstep(x.to(torch.uint32), ft)
+        compare("fwd4", got, want_f, f"{note} {body(ft, 1)}")
         if FS.use_full_fuse(ft):
-            got = K.fwd_ntt_fourstep(x.to(torch.uint32), ft)
-            compare("fwd4", got, want_f, note)
             for sc in (None, ft.polymul_scale):
                 got = K.inv_ntt_fourstep(y.to(torch.uint32), ft, scale=sc)
                 compare("inv4", got, P.inv_ntt_fourstep_plain(y, ft, sc),
@@ -539,19 +578,23 @@ def main() -> int:
             same_as_golden(want_f[:FS_GOLDEN_ROWS].reshape(FS_GOLDEN_ROWS, n),
                            golden_fwd(rows_, ring.params), "fwd_ntt_fourstep")
         del x, y, got, want_f
-        if FS.use_polymul_fuse(ft):
-            a, b = rand(gen, q, shape), rand(gen, q, shape)
-            got = K.polymul_fourstep_fused(a.to(torch.uint32),
-                                           b.to(torch.uint32), ft)
-            compare("polymul4", got, P.polymul_fourstep_plain(a, b, ft), note)
-            if n == 1 << 16 and batch >= FS_GOLDEN_ROWS:
-                g2 = FS_GOLDEN_ROWS
-                same_as_golden(
-                    got[:g2].reshape(g2, n),
-                    golden_dot(a[:g2].reshape(g2, 1, n),
-                               b[:g2].reshape(g2, 1, n), ring.params),
-                    "polymul_fourstep_fused")
-            del a, b, got
+        # the edge words q - 1 and 0 in the first operands
+        a, b = rand(gen, q, shape), rand(gen, q, shape)
+        a[0].view(-1)[: n // 2] = q - 1
+        b[0].view(-1)[: n // 4] = q - 1
+        b[0].view(-1)[n // 2:] = 0
+        got = K.polymul_fourstep_fused(a.to(torch.uint32), b.to(torch.uint32),
+                                       ft)
+        compare("polymul4", got, P.polymul_fourstep_plain(a, b, ft),
+                f"{note} {body(ft, 2)}")
+        if n == 1 << 16 and batch >= FS_GOLDEN_ROWS:
+            g2 = FS_GOLDEN_ROWS
+            same_as_golden(
+                got[:g2].reshape(g2, n),
+                golden_dot(a[:g2].reshape(g2, 1, n), b[:g2].reshape(g2, 1, n),
+                           ring.params),
+                "polymul_fourstep_fused")
+        del a, b, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     # the DIT inverse (K12) and the cross-device stage (K11)
@@ -1064,6 +1107,21 @@ def main() -> int:
     path_of.update({key: slice_launches for key in SLICE})
     path_of.update({key: rns_launches for key in MULTI})
     path_of.update({key: fs_launches for key in FOURSTEP})
+    log("cluster kernels (K7a: one matrix, K8: two) by matrix, and ptxas:")
+    for n_, _ in FS_ROUTE_SHAPES:
+        ft = Ring(n_, device=dev).fourstep
+        for mats, what in ((1, "K7a"), (2, "K8")):
+            info = K.fourstep_cluster_info(ft, mats)
+            if info["ctas"]:
+                log(f"  {what} n={n_} ({ft.n1}x{ft.n2}): cluster of {info['ctas']} "
+                    f"CTAs x {info['threads']} threads, {info['smem_bytes']} bytes "
+                    f"of shared memory a CTA, at most "
+                    f"{info['max_active_clusters']} clusters at once")
+            else:
+                log(f"  {what} n={n_} ({ft.n1}x{ft.n2}): does not fit a "
+                    f"cluster; the walking kernel")
+    for name in CLUSTER_KERNELS.values():
+        log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -1088,37 +1146,56 @@ def main() -> int:
         "negacyclic NTT mod q")
     del x16l, a16l, b16l, y16l, x21l, y21l
     torch.cuda.empty_cache()
-    # the four-step kernels again at 2^16 and at the path's other sizes
-    # (not in the JSON line), each beside the two-kernel route
-    for i in (0, 1, 2):
-        ft, (xi, ai, bi, yi), _ = fs_operands(i)
-        bi_n = xi.shape[0]
-        calls = [("fwd_ntt_fourstep", lambda: K.fwd_ntt_fourstep(xi, ft),
-                  fs_words(ft, 2, bi_n), fwd4_ops(bi_n, ft.n1, ft.n2)),
-                 ("inv_ntt_fourstep", lambda: K.inv_ntt_fourstep(yi, ft),
-                  fs_words(ft, 2, bi_n), inv4_ops(bi_n, ft.n1, ft.n2))]
-        if FS.use_polymul_fuse(ft):
-            calls.append(("polymul_fourstep_fused",
-                          lambda: K.polymul_fourstep_fused(ai, bi, ft),
-                          fs_words(ft, 3, bi_n, 2),
-                          polymul4_ops(bi_n, ft.n1, ft.n2)))
-        # the two-kernel route (K9a/K9b and the row pass on K1/K2) at the
-        # same shape, beside the fused kernel it stands in for above the cap
-        calls += [
-            ("two-kernel fwd (K9a + K1)",
-             lambda: K.fwd_ntt(K.fwd_col_fourstep(xi, ft).view(-1, ft.n2),
-                               ft.row),
-             fs_words(ft, 2, bi_n), fwd4_ops(bi_n, ft.n1, ft.n2)),
-            ("two-kernel inv (K2 + K9b)",
-             lambda: K.inv_col_fourstep(
-                 K.inv_ntt(yi.view(-1, ft.n2), ft.row).view(yi.shape), ft),
-             fs_words(ft, 2, bi_n), inv4_ops(bi_n, ft.n1, ft.n2)),
-        ]
-        for name, call, words, ops in calls:
-            ms = cuda_time_ms(call)
-            bound_ms, bound_by = bound(words, ops)
-            log(f"  {name:30s} (B={bi_n}, {ft.n1}x{ft.n2}) {ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    # the fused four-step kernels beside the routes the caps of
+    # ops/fourstep.py choose between, at 128 MiB an operand: K7a against
+    # the two-kernel forward (K9a + K1 rows), K7b against K2 rows + K9b,
+    # K8 against the composed polymul (two forward transforms, the int64
+    # Montgomery product, the scaled inverse; its transforms routed by
+    # FULL_FUSE_BYTES as on the main path)
+    log(f"  fused four-step kernels beside their routes on {card}:")
+    wins = {"transform": [], "polymul": []}
+    for n_, b_ in FS_ROUTE_SHAPES:
+        r_ = Ring(n_, device=dev)
+        ft = r_.fourstep
+        gen = torch.Generator(dev).manual_seed(n_ + 7)
+        shape = (b_, ft.n1, ft.n2)
+        xi = rand(gen, 4 * r_.q, shape).to(torch.uint32)
+        ai, bi = (rand(gen, r_.q, shape).to(torch.uint32) for _ in range(2))
+        yi = K.fwd_ntt_fourstep(xi, ft)
+        b_fwd = bound(fs_words(ft, 2, b_), fwd4_ops(b_, ft.n1, ft.n2))[0]
+        b_inv = bound(fs_words(ft, 2, b_), inv4_ops(b_, ft.n1, ft.n2))[0]
+        b_mul = bound(fs_words(ft, 3, b_, 2),
+                      polymul4_ops(b_, ft.n1, ft.n2))[0]
+        calls = (  # (name, call, bound_ms)
+            ("K7a", lambda: K.fwd_ntt_fourstep(xi, ft), b_fwd),
+            ("K9a + K1", lambda: K.fwd_ntt(
+                K.fwd_col_fourstep(xi, ft).view(-1, ft.n2), ft.row), b_fwd),
+            ("K7b", lambda: K.inv_ntt_fourstep(yi, ft), b_inv),
+            ("K2 + K9b", lambda: K.inv_col_fourstep(
+                K.inv_ntt(yi.view(-1, ft.n2), ft.row).view(shape), ft), b_inv),
+            ("K8", lambda: K.polymul_fourstep_fused(ai, bi, ft), b_mul),
+            ("composed", lambda: FS.polymul_fourstep_tiled(ai, bi, ft), b_mul),
+        )
+        saved = FS.POLYMUL_FUSE_BYTES
+        FS.POLYMUL_FUSE_BYTES = 0  # the composed polymul
+        t_ = {name: cuda_time_ms(call, warmup=2, reps=5, inner=4)
+              for name, call, _ in calls}
+        FS.POLYMUL_FUSE_BYTES = saved
+        log(f"    n={n_} ({ft.n1}x{ft.n2}) B={b_}, K7a {body(ft, 1)}, "
+            f"K8 {body(ft, 2)}: " + "; ".join(
+                f"{name} {t_[name]:.4f} ms ({bnd / t_[name]:.1%} of bound)"
+                for name, _, bnd in calls))
+        if t_["K7a"] + t_["K7b"] < t_["K9a + K1"] + t_["K2 + K9b"]:
+            wins["transform"].append(4 * n_)
+        if t_["K8"] < t_["composed"]:
+            wins["polymul"].append(4 * n_)
+        del xi, ai, bi, yi
+        torch.cuda.empty_cache()
+    log(f"  fused K7 (forward + inverse) faster than the two-kernel route at "
+        f"matrices of {wins['transform']} bytes, K8 faster than the composed "
+        f"polymul at {wins['polymul']} bytes; ops/fourstep.py caps: "
+        f"FULL_FUSE_BYTES={FS.FULL_FUSE_BYTES}, "
+        f"POLYMUL_FUSE_BYTES={FS.POLYMUL_FUSE_BYTES}")
     rows21 = y21.view(-1, f21.n2)
     for name, call in (("fwd_ntt row pass", lambda: K.fwd_ntt(rows21, f21.row)),
                        ("inv_ntt row pass", lambda: K.inv_ntt(rows21, f21.row))):
@@ -1246,6 +1323,18 @@ def main() -> int:
         call_ms["keyswitch ntt keys"])
     # profiled after every timing, so that no profiler session precedes a
     # host-bound measurement
+    log("the kernels K7a and K8 launch at 2^16 and 2^18 (torch.profiler):")
+    for n_ in FS_PROFILE_NS:
+        i = [n for n, _ in FS_PATH].index(n_)
+        ft, (xi, ai, bi, _), _ = fs_operands(i)
+        for mats, call in ((1, lambda: K.fwd_ntt_fourstep(xi, ft)),
+                           (2, lambda: K.polymul_fourstep_fused(ai, bi, ft))):
+            seen = kernels_seen(torch, call)
+            log(f"  n={n_} B={xi.shape[0]} {'K7a' if mats == 1 else 'K8'}: " +
+                ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
+            if seen and not any(CLUSTER_KERNELS[mats] in k for k, _, _ in seen):
+                raise AssertionError(f"{CLUSTER_KERNELS[mats]} did not run at "
+                                     f"n={n_}")
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
         kernel_share(torch, lambda: sr.ntt(sx),

@@ -1,7 +1,15 @@
 """The CUDA kernels' arithmetic, compiled for the host and held bit for bit
 against the port's int64 helpers (``ops/modmul.py``) and the plain versions
-of the cross-device stage K11 and the DIT inverse's scale rows (K12,
-``ops/plain_ntt.py``).
+of the cross-device stage K11, the DIT inverse's scale rows (K12) and the
+radix-4 and radix-8 groups of the four-step cluster kernels (K7a, K8:
+against the int64 butterflies stage by stage, and as whole size-4 and
+size-8 transforms against ``ops/plain_ntt.py``).  The cluster kernels'
+bodies (``csrc/ntt_fourstep_cluster.cuh``) run here too: one host thread a
+GPU thread, four a CTA, ``std::barrier`` for ``__syncthreads`` and for the
+cluster's barrier, each CTA's slab a host array that the others reach as
+through ``map_shared_rank``, in a spawned child process (the pytest worker
+loads no threaded library); their output is held against the plain
+four-step versions at clusters of 1 to 16 CTAs.
 
 ``csrc/ntt_arith.cuh`` is written once for the device and the host.  Here it
 is built with plain ``g++`` (``__host__``/``__device__`` defined away, no
@@ -11,8 +19,10 @@ values 0, q-1, 2q-1 and 4q-1 of each lazy range.
 """
 
 import ctypes
+import multiprocessing
 import shutil
 import subprocess
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -21,7 +31,7 @@ import torch
 
 from agilex_ntt_tpu_torch.ops import modmul as mm
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
-from agilex_ntt_tpu_torch.params import find_primes
+from agilex_ntt_tpu_torch.params import find_primes, make_params
 
 CSRC = Path(__file__).resolve().parents[1] / "agilex_ntt_tpu_torch" / "csrc"
 COUNT = 100_000
@@ -74,11 +84,120 @@ void h_xchg_fwd(const uint32_t* x, const uint32_t* p, int is_u,
   for (long i = 0; i < n; ++i)
     out[i] = ntt_xchg_fwd(x[i], p[i], is_u != 0, w[i], wp[i], q, last != 0);
 }
+void h_reduce_4q(const uint32_t* x, uint32_t q, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = ntt_reduce_4q(x[i], q);
+}
+// radix-2^k groups in place: v holds `groups` groups of 2^k words, w and wp
+// 2^k - 1 twiddles a group; scale (4 words) or null
+void h_ct_radix(int k, uint32_t* v, const uint32_t* w, const uint32_t* wp,
+                uint32_t q, long groups) {
+  for (long g = 0; g < groups; ++g) {
+    uint32_t* x = v + (g << k);
+    const long t = g * ((1 << k) - 1);
+    if (k == 2) ntt_ct_radix<2>(x, w + t, wp + t, q);
+    else ntt_ct_radix<3>(x, w + t, wp + t, q);
+  }
+}
+void h_gs_radix(int k, uint32_t* v, const uint32_t* w, const uint32_t* wp,
+                uint32_t q, const uint32_t* scale, long groups) {
+  for (long g = 0; g < groups; ++g) {
+    uint32_t* x = v + (g << k);
+    const long t = g * ((1 << k) - 1);
+    if (k == 2) ntt_gs_radix<2>(x, w + t, wp + t, q, scale);
+    else ntt_gs_radix<3>(x, w + t, wp + t, q, scale);
+  }
+}
 void h_xchg_inv(const uint32_t* x, const uint32_t* p, int is_u,
                 const uint32_t* w, const uint32_t* wp, uint32_t q,
                 uint32_t* out, long n) {
   for (long i = 0; i < n; ++i)
     out[i] = ntt_xchg_inv(x[i], p[i], is_u != 0, w[i], wp[i], q);
+}
+}
+"""
+
+
+# The cluster kernels' bodies on host threads (one a GPU thread).
+CLUSTER_SHIM = r"""
+#include <barrier>
+#include <thread>
+#include <vector>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+struct Dim { unsigned x; };
+static thread_local Dim threadIdx = {0};
+static Dim blockDim = {4};
+static thread_local std::barrier<>* cta_barrier = nullptr;
+inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+#include "ntt_fourstep_cluster.cuh"
+
+struct HostCluster {
+  std::barrier<>* all;
+  std::vector<std::vector<uint32_t>>* slabs;
+  int rank;
+  unsigned block_rank() const { return rank; }
+  void sync() { all->arrive_and_wait(); }
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {
+    return (T*)((*slabs)[r].data() + ((uint32_t*)p - (*slabs)[rank].data()));
+  }
+};
+
+static Tabs4 tabs(const void* const* p) {
+  return Tabs4{(const uint32_t*)p[0], (const uint32_t*)p[1],
+               (const uint32_t*)p[2], (const uint32_t*)p[3],
+               (const uint32_t*)p[4], (const uint32_t*)p[5]};
+}
+
+// One cluster of 2^logc CTAs a polynomial, one after another.
+template <class Body>
+static void run(int mats, long long batch, int logn1, int logn2, int logc,
+                Body body) {
+  const int ctas = 1 << logc;
+  const size_t words = cluster_smem_bytes(mats, logn1, logn2, logc) / 4;
+  for (long long p = 0; p < batch; ++p) {
+    std::barrier<> all(ctas * blockDim.x);
+    std::vector<std::barrier<>*> cta;
+    for (int r = 0; r < ctas; ++r) cta.push_back(new std::barrier<>(blockDim.x));
+    std::vector<std::vector<uint32_t>> slabs(ctas, std::vector<uint32_t>(words));
+    std::vector<std::thread> threads;
+    const size_t off = (size_t)p << (logn1 + logn2);
+    for (int r = 0; r < ctas; ++r)
+      for (unsigned tid = 0; tid < blockDim.x; ++tid)
+        threads.emplace_back([&, r, tid] {
+          threadIdx.x = tid;
+          cta_barrier = cta[r];
+          HostCluster cl{&all, &slabs, r};
+          body(cl, slabs[r].data(), off);
+        });
+    for (auto& t : threads) t.join();
+    for (auto* b : cta) delete b;
+  }
+}
+
+extern "C" {
+void h_fwd4(const uint32_t* x, uint32_t* y, const void* const* t,
+            long long batch, int logn1, int logn2, int logc, uint32_t q) {
+  const Slab4 sl = make_slab4(logn1, logn2, logc);
+  const Tabs4 tb = tabs(t);
+  run(1, batch, logn1, logn2, logc, [&](HostCluster& cl, uint32_t* s, size_t o) {
+    fwd4_cluster_body(cl, s, x + o, y + o, tb, sl, q);
+  });
+}
+void h_polymul4(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                const void* const* f, const void* const* i,
+                const uint32_t* rs, const uint32_t* cs, long long batch,
+                int logn1, int logn2, int logc, uint32_t q, uint32_t qinv) {
+  const Slab4 sl = make_slab4(logn1, logn2, logc);
+  const Tabs4 tf = tabs(f), ti = tabs(i);
+  run(2, batch, logn1, logn2, logc, [&](HostCluster& cl, uint32_t* s, size_t o) {
+    polymul4_cluster_body(cl, s, a + o, b + o, out + o, tf, ti, sl, rs, cs, q,
+                          qinv);
+  });
+}
+int h_cluster_logc(int mats, int logn1, int logn2, long long max_bytes) {
+  return cluster_logc(mats, logn1, logn2, (size_t)max_bytes);
 }
 }
 """
@@ -114,7 +233,28 @@ def lib(tmp_path_factory):
     h.h_scale_reduce.argtypes = [P, P, P, U, P, L]
     h.h_xchg_fwd.argtypes = [P, P, I, P, P, U, I, P, L]
     h.h_xchg_inv.argtypes = [P, P, I, P, P, U, P, L]
+    h.h_reduce_4q.argtypes = [P, U, P, L]
+    h.h_ct_radix.argtypes = [I, P, P, P, U, L]
+    h.h_gs_radix.argtypes = [I, P, P, P, U, P, L]
     return h
+
+
+@pytest.fixture(scope="module")
+def cluster_so(tmp_path_factory):
+    """The cluster bodies built for the host (loaded only by a child)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = tmp_path_factory.mktemp("cluster_host")
+    src = out / "cluster.cpp"
+    src.write_text(CLUSTER_SHIM)
+    so = out / "libcluster_host.so"
+    subprocess.run(
+        [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         f"-I{CSRC}", "-o", str(so), str(src)],
+        check=True, capture_output=True,
+    )
+    return str(so)
 
 
 def _ptr(a: np.ndarray):
@@ -156,6 +296,48 @@ def test_cond_sub(lib, q):
     for bound in (q, 2 * q):
         (got,) = _host(lib.h_cond_sub, x, bound)
         assert np.array_equal(got, mm.cond_sub(_t(x), bound).numpy())
+    # the last forward stage's reduction of the cluster kernels
+    (got,) = _host(lib.h_reduce_4q, x, q)
+    want = mm.cond_sub(mm.cond_sub(_t(x), 2 * q), q).numpy()
+    assert np.array_equal(got, want) and int(got.max()) < q
+
+
+def _radix(lib, fn, k, v, w, wp, q, *scale):
+    """fn (h_ct_radix or h_gs_radix) on a copy of the (groups, 2^k) words."""
+    out = np.ascontiguousarray(v, dtype=np.uint32).copy()
+    fn(k, _ptr(out), _ptr(np.ascontiguousarray(w)), _ptr(np.ascontiguousarray(wp)),
+       q, *scale, out.shape[0])
+    return out
+
+
+def _radix_twiddles(k, w, wp):
+    """(groups, 2^k - 1) twiddles from the COUNT-long rows w, wp."""
+    groups = COUNT >> k
+    m = (1 << k) - 1
+    return (w[: groups * m].reshape(groups, m), wp[: groups * m].reshape(groups, m))
+
+
+def _group_plain(k, v, w, wp, butterfly, order, scale=None):
+    """The radix-2^k group stage by stage on the int64 butterflies: level l
+    pairs j, j + 2^(k-1-l) with twiddle 2^l - 1 + (j >> (k - l)); the
+    scaled butterfly (int64 Shoup products) at level 0 when given."""
+    v = [_t(v[:, j]) for j in range(1 << k)]
+    for lev in order:
+        half = 1 << (k - 1 - lev)
+        for j in range(1 << k):
+            if j & half:
+                continue
+            i = (1 << lev) - 1 + (j >> (k - lev))
+            if scale is not None and lev == 0:
+                su, sup, sv, svp, q = scale
+                x, y = v[j], v[j + half]
+                v[j] = mm.cond_sub(mm.shoup_mulmod_lazy(x + y, su, sup, q), q)
+                v[j + half] = mm.cond_sub(
+                    mm.shoup_mulmod_lazy(x + 2 * q - y, sv, svp, q), q)
+            else:
+                v[j], v[j + half] = butterfly(v[j], v[j + half], _t(w[:, i]),
+                                              _t(wp[:, i]))
+    return np.stack([x.numpy() for x in v], axis=1)
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -175,8 +357,62 @@ def test_shoup_lazy(lib, q):
     assert np.array_equal(got.astype(object), exact)
 
 
+def _cluster_bodies_match_plain(so):
+    """K7a's and K8's cluster bodies on host threads against the plain
+    four-step versions, at clusters of 1 to 16 CTAs (any size may take any
+    cluster here), with K8's first operands at the edge words q - 1 and 0;
+    then the cluster each balanced size takes at a block's 227 KiB.  Runs
+    in a child process: ``so`` is the library's path."""
+    from agilex_ntt_tpu_torch.ops import fourstep as FS
+    from agilex_ntt_tpu_torch.ops import ntt_kernel as K
+    from agilex_ntt_tpu_torch.params import find_psi
+
+    h = ctypes.CDLL(so)
+    P_, I, U, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
+    h.h_fwd4.argtypes = [P_, P_, P_, LL, I, I, I, U]
+    h.h_polymul4.argtypes = [P_, P_, P_, P_, P_, P_, P_, LL, I, I, I, U, U]
+    h.h_cluster_logc.argtypes = [I, I, I, LL]
+
+    # (n, n1, batch, cyclic, log2 of the cluster's CTAs)
+    for n, n1, batch, cyclic, logc in ((256, None, 2, False, 1),
+                                       (4096, 128, 1, False, 2),
+                                       (1024, 16, 1, False, 4),
+                                       (512, 256, 1, False, 0),
+                                       (4096, None, 1, True, 3)):
+        qn = find_primes(n, 1)[0]
+        if cyclic:
+            plan = FS.make_cyclic_plan(n, qn, pow(find_psi(n, qn), 2, qn), n1)
+        else:
+            plan = FS.make_plan(n, qn, None, n1)
+        ft = P.make_fourstep_tables(plan, "cpu")
+        rng = np.random.default_rng(n + logc)
+        shape = (batch, ft.n1, ft.n2)
+        x = rng.integers(0, 4 * qn, size=shape, dtype=np.int64)
+        a = rng.integers(0, qn, size=shape, dtype=np.int64)
+        b = rng.integers(0, qn, size=shape, dtype=np.int64)
+        a[0].reshape(-1)[: n // 2] = qn - 1
+        b[0].reshape(-1)[: n // 4] = qn - 1
+        b[0].reshape(-1)[n // 2:] = 0
+        x32, a32, b32 = (v.astype(np.uint32) for v in (x, a, b))
+        y, out = np.empty_like(x32), np.empty_like(x32)
+        logs = (ft.n1.bit_length() - 1, ft.n2.bit_length() - 1)
+        h.h_fwd4(_ptr(x32), _ptr(y), K._fwd_tabs(ft), batch, *logs, logc, qn)
+        want = P.fwd_ntt_fourstep_plain(_t(x), ft).numpy()
+        assert np.array_equal(y, want), ("fwd4", n, logc)
+        h.h_polymul4(_ptr(a32), _ptr(b32), _ptr(out), K._fwd_tabs(ft),
+                     K._inv_tabs(ft), K._row_scale(ft),
+                     K._col_scale(ft, ft.polymul_scale), batch, *logs, logc,
+                     qn, ft.qinv_neg)
+        want = P.polymul_fourstep_plain(_t(a), _t(b), ft).numpy()
+        assert np.array_equal(out, want), ("polymul4", n, logc)
+    got = [(h.h_cluster_logc(1, (lg + 1) // 2, lg // 2, 232448),
+            h.h_cluster_logc(2, (lg + 1) // 2, lg // 2, 232448))
+           for lg in (15, 16, 17, 18, 19, 20)]
+    assert got == [(0, 1), (1, 2), (2, 3), (3, 4), (4, -1), (-1, -1)]
+
+
 @pytest.mark.parametrize("q", PRIMES)
-def test_ct_butterfly(lib, q):
+def test_ct_butterfly(lib, cluster_so, q):
     x, y = _operands(q, 4 * q, 4), _operands(q, 4 * q, 5)[::-1].copy()
     w, wp = _twiddles(q, 6)
     gx, gy = _host(lib.h_ct, x, y, w, wp, q, outs=2)
@@ -195,6 +431,28 @@ def test_ct_butterfly(lib, q):
                                       _host(lib.h_ct, y, x, w, wp, q, outs=2)[1])
             else:
                 assert int(got.max()) < q
+    # the cluster kernels' radix-4 and radix-8 groups against the int64
+    # butterflies stage by stage, then, on the ring's own twiddles (block 0,
+    # stages 0..k-1), against the whole size-2^k transform
+    for k in (2, 3):
+        v = x[: COUNT].reshape(-1, 1 << k)
+        tw, twp = _radix_twiddles(k, w, wp)
+        got = _radix(lib, lib.h_ct_radix, k, v, tw, twp, q)
+        want = _group_plain(k, v, tw, twp, lambda a, b, c, d: mm.ct_butterfly(
+            a, b, c, d, q), range(k))
+        assert np.array_equal(got, want) and int(got.max()) < 4 * q
+        tabs = P.make_tables(make_params(1 << k, q), "cpu")
+        roots = tabs.roots.numpy()[1:].astype(np.uint32)
+        pre = tabs.precon.numpy()[1:].astype(np.uint32)
+        groups = v.shape[0]
+        got = _radix(lib, lib.h_ct_radix, k, v, np.tile(roots, (groups, 1)),
+                     np.tile(pre, (groups, 1)), q)
+        assert np.array_equal(got % np.uint32(q),
+                              P.fwd_ntt_plain(_t(v), tabs).numpy())
+    if q == PRIMES[0]:  # once: the bodies run on their rings' own primes
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as child:
+            child.submit(_cluster_bodies_match_plain, cluster_so).result()
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -214,6 +472,29 @@ def test_gs_butterfly(lib, q):
         assert np.array_equal(got, want.numpy())
     assert np.array_equal(got_u, gx)
     assert np.array_equal(got_v, _host(lib.h_gs, y, x, w, wp, q, outs=2)[1])
+    # the cluster kernels' inverse radix-4 and radix-8 groups, level k - 1
+    # first, with and without the scaled last stage; then the whole
+    # size-2^k inverse (scale n^-1) against the plain version
+    for k in (2, 3):
+        v = x[: COUNT].reshape(-1, 1 << k)
+        tw, twp = _radix_twiddles(k, w, wp)
+        gs = lambda a, b, c, d: mm.gs_butterfly(a, b, c, d, q)  # noqa: E731
+        got = _radix(lib, lib.h_gs_radix, k, v, tw, twp, q, None)
+        want = _group_plain(k, v, tw, twp, gs, range(k - 1, -1, -1))
+        assert np.array_equal(got, want) and int(got.max()) < 2 * q
+        sc = np.array([w[7], wp[7], w[8], wp[8]], dtype=np.uint32)
+        got = _radix(lib, lib.h_gs_radix, k, v, tw, twp, q, _ptr(sc))
+        want = _group_plain(k, v, tw, twp, gs, range(k - 1, -1, -1),
+                            scale=tuple(int(c) for c in sc) + (q,))
+        assert np.array_equal(got, want) and int(got.max()) < q
+        tabs = P.make_tables(make_params(1 << k, q), "cpu")
+        inv = tabs.inv_roots.numpy()[1:].astype(np.uint32)
+        ipre = tabs.inv_precon.numpy()[1:].astype(np.uint32)
+        sc = np.array(P.inv_scale_words(tabs, None), dtype=np.uint32)
+        groups = v.shape[0]
+        got = _radix(lib, lib.h_gs_radix, k, v, np.tile(inv, (groups, 1)),
+                     np.tile(ipre, (groups, 1)), q, _ptr(sc))
+        assert np.array_equal(got, P.inv_ntt_plain(_t(v), tabs).numpy())
 
 
 @pytest.mark.parametrize("q", PRIMES)

@@ -16,6 +16,7 @@ from agilex_ntt_tpu_torch import (
 from agilex_ntt_tpu_torch.ops import fourstep as FS
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
+from agilex_ntt_tpu_torch.params import find_psi
 
 pytestmark = pytest.mark.cuda
 
@@ -150,16 +151,34 @@ def test_rns_keyswitch_on_the_card_matches_the_cpu(cuda):
 
 def test_fourstep_kernels_match_plain(cuda):
     """K7a, K7b, K8, K9a and K9b against their plain versions, bit for bit,
-    at 16 x 16 (ragged batch), the unbalanced 128 x 32 and 512 x 256,
-    256 x 256, and 2048 x 1024 (the column tile of 16 columns)."""
-    for n, n1, batch in ((256, None, 5), (4096, 128, 3), (1 << 16, None, 3),
-                         (1 << 17, None, 2), (1 << 21, None, 1)):
+    at 16 x 16 and the unbalanced 128 x 32 (clusters of one CTA), 256 x 256
+    with a ragged batch of 7 (K7a on 4 CTAs, K8 on 8), 512 x 256 (8, 16),
+    512 x 512 (16, 16 of one CTA an SM), 1024 x 512 (K7a on 16 CTAs of one
+    an SM, K8 on the walking kernel), 2048 x 1024 (both walking; the column
+    tile of 16 columns) and a cyclic plan at 256 x 256.  The cluster each
+    wrapper picks is checked; K8's first operands hold the edge words q - 1
+    and 0."""
+    # (n, n1, batch, cyclic, log2 of K7a's cluster, of K8's; -1: walking)
+    for n, n1, batch, cyclic, c7, c8 in (
+            (256, None, 5, False, 0, 0), (4096, 128, 3, False, 0, 0),
+            (1 << 16, None, 7, False, 2, 3), (1 << 17, 512, 2, False, 3, 4),
+            (1 << 18, None, 1, False, 4, 4), (1 << 19, None, 1, False, 4, -1),
+            (1 << 21, None, 1, False, -1, -1), (1 << 16, None, 2, True, 2, 3)):
         q = find_primes(n, 1)[0]
-        ft = P.make_fourstep_tables(FS.make_plan(n, q, None, n1), cuda)
-        gen = torch.Generator(cuda).manual_seed(n)
+        if cyclic:
+            omega = pow(find_psi(n, q), 2, q)  # of order n
+            plan = FS.make_cyclic_plan(n, q, omega, n1)
+        else:
+            plan = FS.make_plan(n, q, None, n1)
+        ft = P.make_fourstep_tables(plan, cuda)
+        assert (K.fourstep_cluster(ft, 1), K.fourstep_cluster(ft, 2)) == (c7, c8)
+        gen = torch.Generator(cuda).manual_seed(n + batch)
         shape = (batch, ft.n1, ft.n2)
         x, y = _rand(gen, 4 * q, shape, cuda), _rand(gen, 2 * q, shape, cuda)
         a, b = _rand(gen, q, shape, cuda), _rand(gen, q, shape, cuda)
+        a[0].view(-1)[: n // 2] = q - 1
+        b[0].view(-1)[: n // 4] = q - 1
+        b[0].view(-1)[n // 2:] = 0
         x32, y32 = x.to(torch.uint32), y.to(torch.uint32)
         before = dict(K.LAUNCHES)
         got = {
@@ -180,7 +199,7 @@ def test_fourstep_kernels_match_plain(cuda):
         }
         for key, out in got.items():
             assert K.LAUNCHES[key] == before[key] + 1
-            assert torch.equal(out.to(torch.int64), want[key]), (key, n)
+            assert torch.equal(out.to(torch.int64), want[key]), (key, n, cyclic)
 
 
 def test_fourstep_rings_on_the_card_match_the_cpu(cuda):
