@@ -1,18 +1,26 @@
-// The four-step forward transform (K7a) and polymul (K8) with one
-// polynomial's whole (n1, n2) matrix on chip, in the shared memory of a
-// thread-block cluster.
+// The four-step forward transform (K7a), inverse (K7b) and polymul (K8)
+// with one polynomial's whole (n1, n2) matrix on chip, in the shared memory
+// of a thread-block cluster, and the column pass (K9a) on column slabs.
 //
 // They replace, for every matrix that fits (ntt_kernels.cu launches its
-// walking kernels fwd4_kernel and polymul4_kernel above that):
+// walking kernels fwd4_kernel, inv4_kernel, polymul4_kernel and
+// col_fwd4_kernel above that):
 //   fwd4_cluster_body     <- _full_fwd_kernel     (K7a,
 //                            agilex_ntt_tpu/ops/fourstep.py:345)
+//   inv4_cluster_body     <- _full_inv_kernel     (K7b,
+//                            agilex_ntt_tpu/ops/fourstep.py:362)
 //   polymul4_cluster_body <- _full_polymul_kernel (K8,
 //                            agilex_ntt_tpu/ops/fourstep.py:449)
+//   col_fwd_slab_body     <- _col_fwd_kernel      (K9a,
+//                            agilex_ntt_tpu/ops/fourstep.py:194)
 // The TPU kernels keep the matrix in VMEM from the column pass to the row
 // pass.  On an H100 a 2^16-word matrix (256 KiB) exceeds the 227 KiB of
 // one block; a cluster's distributed shared memory is Hopper's counterpart
 // of VMEM.  Each word then crosses device memory once in and once out, the
 // bytes the bound counts (the walking kernels move it two or three times).
+// K9a's columns are independent, so it needs no cluster: one CTA a slab of
+// w columns, as wide as three CTAs an SM allow, loaded in one burst and
+// transformed by the same register-radix column passes.
 //
 // Layout.  C = 2^logc CTAs of one cluster hold one polynomial.  CTA `rank`
 // holds the columns [rank w, rank w + w) of every row (w = n2 / C) in its
@@ -37,6 +45,8 @@
 //   3. the last log2(w) row stages, local to the slab.
 //   4. K7a: the slab to device memory, coalesced.  K8: see
 //      polymul4_cluster_body.
+// K7b runs the inverse passes in the mirror order (rows local, rows across
+// the cluster, columns storing to device memory): K8's inverse half.
 // Every local pass is a register-radix pass: a thread loads the 2^K words
 // of a group (K <= k4RadixLog), loads its 2^K - 1 twiddles once, and runs K
 // stages in registers (ntt_ct_radix / ntt_gs_radix) between two trips
@@ -117,6 +127,15 @@ inline int cluster_logc(int mats, int logn1, int logn2, size_t max_bytes) {
     if (logn1 + logn2 < 2 * logc) break;  // fewer words a CTA than CTAs
     if (cluster_smem_bytes(mats, logn1, logn2, logc) <= max_bytes) return logc;
   }
+  return -1;
+}
+
+// log2 of K9a's slab width: the widest slab of at most n2 and at least 2
+// columns that fits in `max_bytes` of shared memory, or -1 (n1 = 2^15).
+inline int slab_logw(int logn1, int logn2, size_t max_bytes) {
+  for (int logw = logn2; logw >= 1; --logw)
+    if (cluster_smem_bytes(1, logn1, logn2, logn2 - logw) <= max_bytes)
+      return logw;
   return -1;
 }
 
@@ -218,12 +237,14 @@ __device__ __forceinline__ void load_slabs(uint32_t* b0, uint32_t* b1,
 
 // Forward stages [s, s + K) of the size-n1 column transforms of slab b0
 // (and b1, when not null).  With `twiddle` (the last pass: u = 1) each
-// result is multiplied by T (lazy [0, 2q)).
+// result is multiplied by T (lazy [0, 2q)), first reduced to [0, q) with
+// `reduce` (K9a: its lazy words must be the reference's, whose column
+// transform ends reduced; the lazy Shoup product of x and x + q differ).
 template <int K>
 __device__ __forceinline__ void col_fwd_pass(uint32_t* b0, uint32_t* b1,
                                              const Slab4& sl, int rank, int s,
                                              const Tabs4& t, uint32_t q,
-                                             bool twiddle) {
+                                             bool twiddle, bool reduce) {
   const int logu = sl.logn1 - s - K;
   const int logg = sl.logn1 - K + sl.logw;  // groups of one slab
   const int count = (b1 != nullptr ? 2 : 1) << logg;
@@ -254,7 +275,8 @@ __device__ __forceinline__ void col_fwd_pass(uint32_t* b0, uint32_t* b1,
     if (twiddle) {
       NTT_UNROLL
       for (int j = 0; j < (1 << K); ++j)
-        v[j] = ntt_shoup_lazy(v[j], tw[j], twp[j], q);
+        v[j] = ntt_shoup_lazy(reduce ? ntt_reduce_4q(v[j], q) : v[j], tw[j],
+                              twp[j], q);
     }
     NTT_UNROLL
     for (int j = 0; j < (1 << K); ++j)
@@ -453,24 +475,47 @@ __device__ __forceinline__ void cross_pass(Cluster& cl, uint32_t* slab,
 // cluster.sync(), so no CTA exits while another still reads its slab.
 
 // The load and the column pass of slab b0 (and b1) from their matrices
-// in device memory, T applied; ends on a cluster-wide barrier.
+// in device memory, T applied (`reduce`: see col_fwd_pass); no barrier
+// after the last pass.
+__device__ __forceinline__ void col_fwd_slabs(uint32_t* b0, uint32_t* b1,
+                                              const uint32_t* g0,
+                                              const uint32_t* g1,
+                                              const Slab4& sl, int rank,
+                                              const Tabs4& t, uint32_t q,
+                                              bool reduce) {
+  load_slabs(b0, b1, g0, g1, sl, rank);
+  for (int s = 0; s < sl.logn1;) {
+    const int k = fwd_pass_stages(sl.logn1 - s);
+    with_radix<k4RadixLog>(k, [&](auto r) {
+      col_fwd_pass<decltype(r)::value>(b0, b1, sl, rank, s, t, q,
+                                       s + k == sl.logn1, reduce);
+    });
+    s += k;
+    if (s < sl.logn1) __syncthreads();
+  }
+}
+
+// The same for K7a and K8 (no reduction: their row pass follows), ending
+// on a cluster-wide barrier.
 template <class Cluster>
 __device__ __forceinline__ void col_fwd_all(Cluster& cl, uint32_t* b0,
                                             uint32_t* b1, const uint32_t* g0,
                                             const uint32_t* g1,
                                             const Slab4& sl, int rank,
                                             const Tabs4& t, uint32_t q) {
-  load_slabs(b0, b1, g0, g1, sl, rank);
-  for (int s = 0; s < sl.logn1;) {
-    const int k = fwd_pass_stages(sl.logn1 - s);
-    with_radix<k4RadixLog>(k, [&](auto r) {
-      col_fwd_pass<decltype(r)::value>(b0, b1, sl, rank, s, t, q,
-                                       s + k == sl.logn1);
-    });
-    s += k;
-    if (s < sl.logn1) __syncthreads();
-  }
+  col_fwd_slabs(b0, b1, g0, g1, sl, rank, t, q, false);
   cl.sync();
+}
+
+// The slab to its columns of y, a warp on consecutive columns.
+__device__ __forceinline__ void store_slab(const uint32_t* slab,
+                                           uint32_t* __restrict__ y,
+                                           const Slab4& sl, int rank) {
+  const size_t col0 = (size_t)rank << sl.logw;
+  for (int e = threadIdx.x; e < (1 << (sl.logn1 + sl.logw)); e += blockDim.x) {
+    const int r = e >> sl.logw, c = e & ((1 << sl.logw) - 1);
+    y[((size_t)r << sl.logn2) + col0 + c] = slab[r * sl.pitch + c];
+  }
 }
 
 // K7a: x in [0, 4q), y in [0, q).
@@ -496,19 +541,67 @@ __device__ __forceinline__ void fwd4_cluster_body(
     s += k;
     __syncthreads();
   }
-  const size_t col0 = (size_t)rank << sl.logw;
-  for (int e = threadIdx.x; e < (1 << (sl.logn1 + sl.logw)); e += blockDim.x) {
-    const int r = e >> sl.logw, c = e & ((1 << sl.logw) - 1);
-    y[((size_t)r << sl.logn2) + col0 + c] = slab[r * sl.pitch + c];
+  store_slab(slab, y, sl, rank);
+}
+
+// The inverse from row stage hi down, shared by K7b and K8: the local row
+// passes [logc, hi) bottom up (each after a barrier), the radix-C group
+// across the cluster (scale rs: n2^-1; on the last row stage when logc =
+// 0), then the column inverse, T^-1 first and the scale cs last, storing
+// straight to dst.  The slab's words in [0, 2q); dst in [0, q).
+template <class Cluster>
+__device__ __forceinline__ void inv_rows_cols(Cluster& cl, uint32_t* slab,
+                                              uint32_t* __restrict__ dst,
+                                              const Slab4& sl, int rank,
+                                              int hi, const Tabs4& i,
+                                              const uint32_t* rs,
+                                              const uint32_t* cs,
+                                              uint32_t q) {
+  while (hi > sl.logc) {
+    __syncthreads();
+    const int k = inv_pass_stages(hi - sl.logc);
+    hi -= k;
+    with_radix<k4RadixLog>(k, [&](auto r) {
+      row_inv_pass<decltype(r)::value>(slab, sl, rank, hi, i,
+                                       hi == 0 ? rs : nullptr, q);
+    });
   }
+  cl.sync();
+  if (sl.logc > 0) {
+    with_radix<k4MaxClusterLog>(sl.logc, [&](auto r) {
+      cross_pass<decltype(r)::value, true>(cl, slab, sl, rank, i, rs, q);
+    });
+    cl.sync();
+  }
+  for (hi = sl.logn1; hi > 0;) {
+    const int k = inv_pass_stages(hi);
+    const bool first = hi == sl.logn1;
+    hi -= k;
+    with_radix<k4RadixLog>(k, [&](auto r) {
+      col_inv_pass<decltype(r)::value>(slab, hi == 0 ? dst : nullptr, sl,
+                                       rank, hi, i, hi == 0 ? cs : nullptr, q,
+                                       first);
+    });
+    if (hi > 0) __syncthreads();
+  }
+}
+
+// K7b: x in [0, 2q), y in [0, q); the row inverse scaled by rs (n2^-1),
+// the column inverse by cs (scale n2).  Every pass is K8's inverse half.
+template <class Cluster>
+__device__ __forceinline__ void inv4_cluster_body(
+    Cluster& cl, uint32_t* slab, const uint32_t* __restrict__ x,
+    uint32_t* __restrict__ y, const Tabs4& t, const Slab4& sl,
+    const uint32_t* rs, const uint32_t* cs, uint32_t q) {
+  const int rank = (int)cl.block_rank();
+  load_slabs(slab, nullptr, x, nullptr, sl, rank);
+  inv_rows_cols(cl, slab, y, sl, rank, sl.logn2, t, rs, cs, q);
 }
 
 // K8: a, b in [0, q), out = a b in [0, q).  Both operands stay in shared
 // memory (slabs sa, sb): the column and row forward passes of both, the
-// product in the turn pass, the row inverse (scale rs: n2^-1) across the
-// cluster last, the inverse twiddle and the column inverse (scale cs)
-// storing straight to device memory.  No device scratch: 2 reads and 1
-// write of every word.
+// product in the turn pass, then inv_rows_cols on sa.  No device scratch:
+// 2 reads and 1 write of every word.
 template <class Cluster>
 __device__ __forceinline__ void polymul4_cluster_body(
     Cluster& cl, uint32_t* smem, const uint32_t* __restrict__ a,
@@ -543,34 +636,19 @@ __device__ __forceinline__ void polymul4_cluster_body(
     s += k;
     __syncthreads();
   }
-  // the inverse row passes below the product pass's stages, bottom up
-  for (int hi = s; hi > sl.logc;) {
-    __syncthreads();
-    const int k = inv_pass_stages(hi - sl.logc);
-    hi -= k;
-    with_radix<k4RadixLog>(k, [&](auto r) {
-      row_inv_pass<decltype(r)::value>(sa, sl, rank, hi, i,
-                                       hi == 0 ? rs : nullptr, q);
-    });
-  }
-  cl.sync();
-  if (sl.logc > 0) {
-    with_radix<k4MaxClusterLog>(sl.logc, [&](auto r) {
-      cross_pass<decltype(r)::value, true>(cl, sa, sl, rank, i, rs, q);
-    });
-    cl.sync();
-  }
-  for (int hi = sl.logn1; hi > 0;) {
-    const int k = inv_pass_stages(hi);
-    const bool first = hi == sl.logn1;
-    hi -= k;
-    with_radix<k4RadixLog>(k, [&](auto r) {
-      col_inv_pass<decltype(r)::value>(sa, hi == 0 ? out : nullptr, sl, rank,
-                                       hi, i, hi == 0 ? cs : nullptr, q,
-                                       first);
-    });
-    if (hi > 0) __syncthreads();
-  }
+  // the product pass ran the inverse stages [s, logn2)
+  inv_rows_cols(cl, sa, out, sl, rank, s, i, rs, cs, q);
+}
+
+// K9a on slab `rank` (w = 2^logw consecutive columns; sl.logc = logn2 -
+// logw slabs a polynomial, no cluster): x in [0, 4q), y = T (column NTT)
+// lazy in [0, 2q).
+__device__ __forceinline__ void col_fwd_slab_body(
+    uint32_t* slab, const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+    const Tabs4& t, const Slab4& sl, int rank, uint32_t q) {
+  col_fwd_slabs(slab, nullptr, x, nullptr, sl, rank, t, q, true);
+  __syncthreads();
+  store_slab(slab, y, sl, rank);
 }
 
 }  // namespace

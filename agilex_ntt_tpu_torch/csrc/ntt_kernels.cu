@@ -20,9 +20,11 @@
 // four-step section below and ntt_fourstep_cluster.cuh for their design):
 //   fwd4_cluster_kernel, where the matrix fits in a cluster, else
 //   fwd4_kernel     <- _full_fwd_kernel     (K7a)
+//   inv4_cluster_kernel, where the matrix fits in a cluster, else
 //   inv4_kernel     <- _full_inv_kernel     (K7b)
 //   polymul4_cluster_kernel, where both matrices fit in a cluster, else
 //   polymul4_kernel <- _full_polymul_kernel (K8)
+//   col_fwd4_slab_kernel, where a slab of 2 columns fits a block, else
 //   col_fwd4_kernel <- _col_fwd_kernel      (K9a)
 //   col_inv4_kernel <- _col_inv_kernel      (K9b)
 // The multi-prime kernels run the single-prime bodies with the channel on
@@ -497,13 +499,17 @@ xchg_kernel(const uint32_t* __restrict__ x,
 // memory (B n words) and multiplies (Montgomery) while loading the inverse's
 // row tiles.
 //
-// K7a and K8 run these walking bodies only where the matrix does not fit in
-// a cluster's shared memory (n >= 2^20 for K7a, n >= 2^19 for K8 with the
-// balanced split).  Below that, fwd4_cluster_kernel and
-// polymul4_cluster_kernel hold the whole matrix (both, for K8) in the
-// shared memory of a cluster of up to 16 CTAs (ntt_fourstep_cluster.cuh):
-// a choice by shape between two hand-written kernels, made in ntt_fwd4 and
-// ntt_polymul4.  A cluster launch the card refuses returns its error.
+// K7a, K7b and K8 run these walking bodies only where the matrix does not
+// fit in a cluster's shared memory (n >= 2^20 for K7a and K7b, n >= 2^19
+// for K8 with the balanced split).  Below that, fwd4_cluster_kernel,
+// inv4_cluster_kernel and polymul4_cluster_kernel hold the whole matrix
+// (both, for K8) in the shared memory of a cluster of up to 16 CTAs
+// (ntt_fourstep_cluster.cuh): a choice by shape between two hand-written
+// kernels, made in ntt_fwd4, ntt_inv4 and ntt_polymul4.  K9a runs
+// col_fwd4_slab_kernel (one CTA a slab of columns, register-radix passes)
+// wherever a slab of 2 columns fits a block, that is for n1 <= 2^14, and
+// the walking col_fwd4_kernel at n1 = 2^15.  A cluster launch the card
+// refuses returns its error.
 
 constexpr int k4Threads = 1024;
 // Words of one tile: 128 KiB, one block an SM.
@@ -640,7 +646,7 @@ fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t, Shape4 s,
   fwd4_poly(x + off, y + off, smem, s, t, q);
 }
 
-// K7b.
+// K7b above a cluster.
 __global__ void __launch_bounds__(k4Threads)
 inv4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t, Shape4 s,
             Scale4 rs, Scale4 cs, uint32_t q) {
@@ -679,6 +685,19 @@ fwd4_cluster_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 
 template <int kThreads, int kCtasPerSm>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
+inv4_cluster_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                    Tabs4 t, Slab4 sl, Scale4 rs, Scale4 cs, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const size_t off = (size_t)(blockIdx.x >> sl.logc)
+                     << (sl.logn1 + sl.logn2);
+  const uint32_t rw[4] = {rs.su, rs.sup, rs.sv, rs.svp};
+  const uint32_t cw[4] = {cs.su, cs.sup, cs.sv, cs.svp};
+  inv4_cluster_body(cl, smem, x + off, y + off, t, sl, rw, cw, q);
+}
+
+template <int kThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 polymul4_cluster_kernel(const uint32_t* __restrict__ a,
                         const uint32_t* __restrict__ b,
                         uint32_t* __restrict__ out, Tabs4 f, Tabs4 i,
@@ -694,7 +713,19 @@ polymul4_cluster_kernel(const uint32_t* __restrict__ a,
                         cw, q, qinv_neg);
 }
 
-// K9a: blockIdx.x is the polynomial, blockIdx.y the column tile.
+// K9a on slabs: blockIdx.x is the polynomial, blockIdx.y the slab (the
+// launch shapes of slab_shape).
+template <int kThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+col_fwd4_slab_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                     Tabs4 t, Slab4 sl, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (sl.logn1 + sl.logn2);
+  col_fwd_slab_body(smem, x + off, y + off, t, sl, (int)blockIdx.y, q);
+}
+
+// K9a at n1 = 2^15: blockIdx.x is the polynomial, blockIdx.y the column
+// tile.
 __global__ void __launch_bounds__(k4Threads)
 col_fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
                 Shape4 s, uint32_t q) {
@@ -779,20 +810,36 @@ constexpr size_t k4SmallSlabBytes = 76800;  // (228 KiB - 3 x 1 KiB) / 3
 constexpr int k4LargeThreads = 512;
 
 struct ClusterShape {
-  int logc;    // -1: no cluster holds the matrices
+  int logc;    // -1: no cluster holds the matrices (K9a: no slab fits)
   bool small;  // three CTAs an SM
   int threads;
   size_t bytes;
 };
 
-ClusterShape cluster_shape(int mats, int logn1, int logn2) {
+ClusterShape shape_of(int mats, int logn1, int logn2, int logc, bool small) {
   ClusterShape c;
-  c.logc = cluster_logc(mats, logn1, logn2, k4SmallSlabBytes);
-  c.small = c.logc >= 0;
-  if (!c.small) c.logc = cluster_logc(mats, logn1, logn2, kMaxSmemBytes);
-  c.threads = c.small ? k4SmallThreads : k4LargeThreads;
-  c.bytes = c.logc < 0 ? 0 : cluster_smem_bytes(mats, logn1, logn2, c.logc);
+  c.logc = logc;
+  c.small = small;
+  c.threads = small ? k4SmallThreads : k4LargeThreads;
+  c.bytes = logc < 0 ? 0 : cluster_smem_bytes(mats, logn1, logn2, logc);
   return c;
+}
+
+ClusterShape cluster_shape(int mats, int logn1, int logn2) {
+  const int logc = cluster_logc(mats, logn1, logn2, k4SmallSlabBytes);
+  if (logc >= 0) return shape_of(mats, logn1, logn2, logc, true);
+  return shape_of(mats, logn1, logn2,
+                  cluster_logc(mats, logn1, logn2, kMaxSmemBytes), false);
+}
+
+// K9a's slabs, in the same two launch shapes: the widest slab that fits a
+// third of an SM, else the widest that fits a block; logc = logn2 - logw
+// slabs a polynomial, one CTA each.
+ClusterShape slab_shape(int logn1, int logn2) {
+  const int logw = slab_logw(logn1, logn2, k4SmallSlabBytes);
+  if (logw >= 0) return shape_of(1, logn1, logn2, logn2 - logw, true);
+  const int wide = slab_logw(logn1, logn2, kMaxSmemBytes);
+  return shape_of(1, logn1, logn2, wide < 0 ? -1 : logn2 - wide, false);
 }
 
 // One launch of a cluster kernel at shape c (attributes set first).
@@ -807,16 +854,47 @@ cudaError_t launch_cluster(Kernel kernel, const ClusterShape& c,
   return cudaGetLastError();
 }
 
-// The kernel of `mats` matrices (1: K7a, 2: K8) at a launch shape.
-const void* cluster_kernel(int mats, bool small) {
-  if (mats == 1) {
-    return small
-               ? (const void*)fwd4_cluster_kernel<k4SmallThreads, k4SmallCtas>
-               : (const void*)fwd4_cluster_kernel<k4LargeThreads, 1>;
+// One launch of K9a's slab kernel at shape c (grid: batch x slabs).
+template <typename Kernel, typename... Args>
+cudaError_t launch_slabs(Kernel kernel, const ClusterShape& c,
+                         long long batch, void* stream, Args... args) {
+  cudaError_t err = allow_smem((const void*)kernel, c.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)batch, 1u << c.logc), c.threads, c.bytes,
+           (cudaStream_t)stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The four-step kernels that ntt_fourstep_launch_info describes.
+enum Kernel4 { kFwd4 = 0, kInv4 = 1, kPolymul4 = 2, kColFwd4 = 3 };
+
+// The kernel of `which` at a launch shape.
+const void* shaped_kernel(int which, bool small) {
+  switch (which) {
+    case kFwd4:
+      return small
+                 ? (const void*)fwd4_cluster_kernel<k4SmallThreads, k4SmallCtas>
+                 : (const void*)fwd4_cluster_kernel<k4LargeThreads, 1>;
+    case kInv4:
+      return small
+                 ? (const void*)inv4_cluster_kernel<k4SmallThreads, k4SmallCtas>
+                 : (const void*)inv4_cluster_kernel<k4LargeThreads, 1>;
+    case kPolymul4:
+      return small ? (const void*)
+                         polymul4_cluster_kernel<k4SmallThreads, k4SmallCtas>
+                   : (const void*)polymul4_cluster_kernel<k4LargeThreads, 1>;
+    default:
+      return small ? (const void*)
+                         col_fwd4_slab_kernel<k4SmallThreads, k4SmallCtas>
+                   : (const void*)col_fwd4_slab_kernel<k4LargeThreads, 1>;
   }
-  return small
-             ? (const void*)polymul4_cluster_kernel<k4SmallThreads, k4SmallCtas>
-             : (const void*)polymul4_cluster_kernel<k4LargeThreads, 1>;
+}
+
+// Its launch shape: a cluster of logc CTAs (K9a: 2^logc slabs), or logc
+// -1 for the walking kernel.
+ClusterShape kernel_shape(int which, int logn1, int logn2) {
+  if (which == kColFwd4) return slab_shape(logn1, logn2);
+  return cluster_shape(which == kPolymul4 ? 2 : 1, logn1, logn2);
 }
 
 // One cluster a polynomial: grid.x = batch << logc must fit an int.
@@ -957,29 +1035,38 @@ int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
 // col_scale: host arrays of the four words (su, su', sv, sv') of the row and
 // column inverses' last stages.  Operands are (batch, n1, n2), contiguous.
 
-// log2 of the cluster that holds `mats` (n1, n2) matrices (1: K7a, 2: K8),
-// or -1: the walking kernel.
+// log2 of the cluster that holds `mats` (n1, n2) matrices (1: K7a and
+// K7b, 2: K8), or -1: the walking kernel.
 int ntt_fourstep_cluster_log(int mats, int logn1, int logn2) {
   if (!shape4_ok(logn1, logn2, 1) || mats < 1 || mats > 2) return -1;
   return cluster_shape(mats, logn1, logn2).logc;
 }
 
-// info = {log2 of the cluster's CTAs (-1: the walking kernel), shared memory
-// bytes a CTA, threads a CTA, the most such clusters the card runs at once
-// (cudaOccupancyMaxActiveClusters)}.
-int ntt_fourstep_cluster_info(int mats, int logn1, int logn2, int* info) {
+// The launch of kernel `which` (Kernel4: 0 K7a, 1 K7b, 2 K8, 3 K9a) at
+// this shape: info = {log2 of the cluster's CTAs, or for K9a of the slabs
+// a polynomial (-1: the walking kernel), shared memory bytes a CTA,
+// threads a CTA, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// the most such clusters the card runs at once
+// (cudaOccupancyMaxActiveClusters; 0 for K9a, which has none)}.
+int ntt_fourstep_launch_info(int which, int logn1, int logn2, int* info) {
   info[0] = -1;
-  info[1] = info[2] = info[3] = 0;
-  if (ntt_fourstep_cluster_log(mats, logn1, logn2) < 0) return 0;
-  const ClusterShape c = cluster_shape(mats, logn1, logn2);
+  info[1] = info[2] = info[3] = info[4] = 0;
+  if (!shape4_ok(logn1, logn2, 1) || which < kFwd4 || which > kColFwd4)
+    return (int)cudaErrorInvalidValue;
+  const ClusterShape c = kernel_shape(which, logn1, logn2);
+  if (c.logc < 0) return 0;
   info[0] = c.logc;
   info[1] = (int)c.bytes;
   info[2] = c.threads;
-  const void* kernel = cluster_kernel(mats, c.small);
-  cudaError_t err = allow_cluster(kernel, c.logc, c.bytes);
-  if (err != cudaSuccess) return (int)err;
+  const void* kernel = shaped_kernel(which, c.small);
+  cudaError_t err = which == kColFwd4 ? allow_smem(kernel, c.bytes)
+                                      : allow_cluster(kernel, c.logc, c.bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel,
+                                                        c.threads, c.bytes);
+  if (err != cudaSuccess || which == kColFwd4) return (int)err;
   ClusterLaunch launch(1, c.logc, c.threads, c.bytes, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(&info[3], kernel, &launch.cfg);
+  return (int)cudaOccupancyMaxActiveClusters(&info[4], kernel, &launch.cfg);
 }
 
 int ntt_fwd4(const uint32_t* x, uint32_t* y, const void* const* tabs,
@@ -1010,6 +1097,20 @@ int ntt_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
              const uint32_t* row_scale, const uint32_t* col_scale,
              long long batch, int logn1, int logn2, uint32_t q, void* stream) {
   if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const ClusterShape c = cluster_shape(1, logn1, logn2);
+  if (c.logc >= 0) {
+    if (!cluster_grid_ok(batch, c.logc)) return (int)cudaErrorInvalidValue;
+    const Tabs4 t = tabs4(tabs);
+    const Slab4 sl = make_slab4(logn1, logn2, c.logc);
+    const Scale4 rs = scale4(row_scale), cs = scale4(col_scale);
+    return (int)(c.small
+                     ? launch_cluster(
+                           inv4_cluster_kernel<k4SmallThreads, k4SmallCtas>, c,
+                           batch, stream, x, y, t, sl, rs, cs, q)
+                     : launch_cluster(inv4_cluster_kernel<k4LargeThreads, 1>,
+                                      c, batch, stream, x, y, t, sl, rs, cs,
+                                      q));
+  }
   const Shape4 s = make_shape4(logn1, logn2);
   const size_t bytes = smem4_bytes(s, true);
   cudaError_t err = allow_smem((const void*)inv4_kernel, bytes);
@@ -1060,6 +1161,17 @@ int ntt_col_fwd4(const uint32_t* x, uint32_t* y, const void* const* tabs,
                  long long batch, int logn1, int logn2, uint32_t q,
                  void* stream) {
   if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const ClusterShape c = slab_shape(logn1, logn2);
+  if (c.logc >= 0) {
+    const Tabs4 t = tabs4(tabs);
+    const Slab4 sl = make_slab4(logn1, logn2, c.logc);
+    return (int)(c.small
+                     ? launch_slabs(
+                           col_fwd4_slab_kernel<k4SmallThreads, k4SmallCtas>,
+                           c, batch, stream, x, y, t, sl, q)
+                     : launch_slabs(col_fwd4_slab_kernel<k4LargeThreads, 1>,
+                                    c, batch, stream, x, y, t, sl, q));
+  }
   const Shape4 s = make_shape4(logn1, logn2);
   const size_t bytes = smem4_bytes(s, false);
   cudaError_t err = allow_smem((const void*)col_fwd4_kernel, bytes);

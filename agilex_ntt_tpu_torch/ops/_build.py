@@ -68,8 +68,8 @@ SIGNATURES = {
     "ntt_xchg": (_P, _P, _P, _P, _P, _LL, _I, _U, _I, _I, _I, _U, _U, _P),
     # device, peer
     "ntt_enable_peer": (_I, _I),
-    # mats, logn1, logn2, info (4 ints)
-    "ntt_fourstep_cluster_info": (_I, _I, _I, _P),
+    # kernel (0 K7a, 1 K7b, 2 K8, 3 K9a), logn1, logn2, info (5 ints)
+    "ntt_fourstep_launch_info": (_I, _I, _I, _P),
 }
 
 

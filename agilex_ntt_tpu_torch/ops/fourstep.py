@@ -52,13 +52,15 @@ from .plain_ntt import FourStepTables
 # Caps on the (n1, n2) matrix of one polynomial, in bytes, set from this
 # card's crossovers (chip_smoke.py phase 4, NVIDIA H100 80GB HBM3 at
 # 700.00 W, 128 MiB an operand; PERF.md section 5).  The fused transforms
-# K7a + K7b beat the two-kernel route (K9a + K1 rows, K2 rows + K9b) up to
-# 2^18 (1 MiB) and lose from 2^19, where K7b is the walking kernel and
-# K7a needs a cluster of 16 CTAs.  The fused polymul K8 beats the composed
-# polymul (two transforms, the int64 Montgomery product, the scaled
-# inverse) up to 2^19 (2 MiB; K8 on the walking kernel there) and loses at
-# 2^20.  Every route is bit-exact, so the caps move only time.
-FULL_FUSE_BYTES = 1 << 20
+# K7a + K7b, both on thread-block clusters up to 2^19, beat the two-kernel
+# route (K9a + K1 rows, K2 rows + K9b) up to 2^19 (2 MiB: 0.61 + 0.66
+# against 0.75 + 0.90 ms at B=64) and lose at 2^20, where both are the
+# walking kernels (3.97 + 3.35 against 0.78 + 0.96 ms at B=32).  The fused
+# polymul K8 beats the composed polymul (two transforms, the int64
+# Montgomery product, the scaled inverse) up to 2^19 (2 MiB; K8 on the
+# walking kernel there: 5.44 against 6.40 ms) and loses at 2^20 (10.93
+# against 7.04).  Every route is bit-exact, so the caps move only time.
+FULL_FUSE_BYTES = 2 << 20
 POLYMUL_FUSE_BYTES = 2 << 20
 
 

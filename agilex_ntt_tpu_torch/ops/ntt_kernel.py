@@ -7,9 +7,9 @@ and (B, k, n) operands of one prime, and ``fwd_ntt_rns``, ``inv_ntt_rns``,
 (L, B, k, n) operands of L primes, one launch for all channels; and of the
 four-step kernels of ``agilex_ntt_tpu/ops/fourstep.py`` on (B, n1, n2)
 operands: ``fwd_ntt_fourstep``, ``inv_ntt_fourstep`` and
-``polymul_fourstep_fused`` (the whole transform in one kernel; K7a and K8
-hold the matrix in a thread-block cluster's shared memory where it fits,
-``fourstep_cluster``) and
+``polymul_fourstep_fused`` (the whole transform in one kernel; K7a, K7b
+and K8 hold the matrix in a thread-block cluster's shared memory where it
+fits, ``fourstep_cluster``) and
 ``fwd_col_fourstep``/``inv_col_fourstep`` (the column pass and the twiddle
 alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``);
 ``dit_inv_core``, the DIT inverse of ``agilex_ntt_tpu/ops/dit_inv.py``
@@ -350,23 +350,34 @@ def _logs(ft: FourStepTables):
 
 def fourstep_cluster(ft: FourStepTables, mats: int) -> int:
     """log2 of the CTAs of the cluster whose shared memory holds ``mats``
-    (n1, n2) matrices (1: ``fwd_ntt_fourstep``, 2: ``polymul_fourstep_fused``),
-    or -1 where none does and the wrapper launches the walking kernel."""
+    (n1, n2) matrices (1: ``fwd_ntt_fourstep`` and ``inv_ntt_fourstep``, 2:
+    ``polymul_fourstep_fused``), or -1 where none does and the wrapper
+    launches the walking kernel."""
     return _build.load().ntt_fourstep_cluster_log(mats, *_logs(ft))
 
 
-def fourstep_cluster_info(ft: FourStepTables, mats: int) -> dict:
-    """The cluster kernel's launch at this shape: CTAs, shared memory and
-    threads a CTA, and the most such clusters the card runs at once
-    (``cudaOccupancyMaxActiveClusters``); ``ctas`` is 0 for the walking
-    kernel."""
+# the four-step kernels that fourstep_launch_info describes
+LAUNCH_INFO_KERNELS = ("fwd4", "inv4", "polymul4", "col_fwd")
+
+
+def fourstep_launch_info(ft: FourStepTables, kernel: str) -> dict:
+    """The launch of the cluster or slab kernel behind the wrapper counted as
+    ``kernel`` (one of ``LAUNCH_INFO_KERNELS``) at this shape: ``ctas`` a
+    cluster (0: the walking kernel), or for ``"col_fwd"`` the slab width
+    ``width`` and the slabs a polynomial ``ctas`` (0: the walking kernel);
+    shared memory and threads a CTA, CTAs an SM, and for the cluster
+    kernels the most such clusters the card runs at once
+    (``cudaOccupancyMaxActiveClusters``)."""
     lib = _build.load()
-    info = (ctypes.c_int * 4)()
-    _build.check(lib, lib.ntt_fourstep_cluster_info(mats, *_logs(ft), info),
-                 "fourstep_cluster_info")
-    return {"ctas": 1 << info[0] if info[0] >= 0 else 0,
+    info = (ctypes.c_int * 5)()
+    which = LAUNCH_INFO_KERNELS.index(kernel)
+    _build.check(lib, lib.ntt_fourstep_launch_info(which, *_logs(ft), info),
+                 "fourstep_launch_info")
+    ctas = 1 << info[0] if info[0] >= 0 else 0
+    return {"ctas": ctas,
+            "width": ft.n2 // ctas if kernel == "col_fwd" and ctas else 0,
             "smem_bytes": info[1], "threads": info[2],
-            "max_active_clusters": info[3]}
+            "ctas_per_sm": info[3], "max_active_clusters": info[4]}
 
 
 def fwd_ntt_fourstep(x: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
@@ -398,7 +409,11 @@ def inv_ntt_fourstep(
 ) -> torch.Tensor:
     """Inverse four-step NTT of (B, n1, n2) in [0, 2q) -> [0, q) in one
     kernel (K7b).  ``scale`` replaces the overall n^-1: the row pass scales
-    by n2^-1, the column pass by scale * n2."""
+    by n2^-1, the column pass by scale * n2.
+
+    On the card, by shape as ``fwd_ntt_fourstep``: the cluster kernel where
+    the matrix fits in a cluster's shared memory, else the walking
+    kernel; a cluster launch the card refuses raises."""
     _check4(x, ft, "inv_ntt_fourstep")
     if x.device.type == "cpu":
         return _u32(plain.inv_ntt_fourstep_plain(x.to(torch.int64), ft, scale))
@@ -453,7 +468,12 @@ def polymul_fourstep_fused(
 
 def fwd_col_fourstep(x: torch.Tensor, ft: FourStepTables) -> torch.Tensor:
     """The column pass of (B, n1, n2) in [0, 4q) (K9a): the size-n1 NTT of
-    every column, then the twiddle T; out lazy in [0, 2q)."""
+    every column, then the twiddle T; out lazy in [0, 2q).
+
+    On the card one CTA takes a slab of consecutive columns in shared
+    memory (``fourstep_launch_info(ft, "col_fwd")``) wherever a slab of two
+    fits a block (n1 <= 2^14); at n1 = 2^15 the walking column-tile
+    kernel."""
     _check4(x, ft, "fwd_col_fourstep")
     if x.device.type == "cpu":
         return _u32(plain.fwd_col_fourstep_plain(x.to(torch.int64), ft))

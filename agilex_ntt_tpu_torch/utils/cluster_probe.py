@@ -49,7 +49,8 @@ VARIANTS = {
         (CU, "constexpr size_t k4SmallSlabBytes = 76800;",
          "constexpr size_t k4SmallSlabBytes = 115712;"),),
     "one_cta_an_sm": (
-        (CU, "c.small = c.logc >= 0;", "c.small = false;"),),
+        (CU, "if (logc >= 0) return shape_of(mats",
+         "if (false) return shape_of(mats"),),
     "radix16": (
         (H, "constexpr int k4RadixLog = 3;", "constexpr int k4RadixLog = 4;"),),
     "t_past_l1": (
@@ -71,6 +72,7 @@ STAMP_EDITS = (
      "__device__ unsigned long long g_stamps[1 << 20];\n"
      "#define STAMP(i) do { if (threadIdx.x == 0) "
      "g_stamps[blockIdx.x * 16 + (i)] = clock64(); } while (0)\n"),
+    # the column pass of K7a and K8 (and K9a, whose stamps are not read)
     ("  load_slabs(b0, b1, g0, g1, sl, rank);\n", "  STAMP(1);\n"),
     ("    if (s < sl.logn1) __syncthreads();\n  }\n", "  STAMP(2);\n"),
     ("  cl.sync();\n", "  STAMP(3);\n"),
@@ -78,14 +80,15 @@ STAMP_EDITS = (
     ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
     ("    });\n    cl.sync();\n  }\n", "  STAMP(4);\n"),
     ("    s += k;\n    __syncthreads();\n  }\n", "  STAMP(5);\n"),
-    ("    y[((size_t)r << sl.logn2) + col0 + c] = slab[r * sl.pitch + c];\n"
-     "  }\n", "  STAMP(6);\n"),
-    # K8
-    ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
-    ("    });\n    cl.sync();\n  }\n", "  STAMP(4);\n"),
+    ("  store_slab(slab, y, sl, rank);\n", "  STAMP(6);\n"),
+    # the inverse half of K8 (and K7b, whose stamps are not read)
     ("  cl.sync();\n", "  STAMP(5);\n"),
     ("    });\n    cl.sync();\n  }\n", "  STAMP(6);\n"),
     ("    if (hi > 0) __syncthreads();\n  }\n", "  STAMP(7);\n"),
+    # K7b's start, then K8
+    ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
+    ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
+    ("    });\n    cl.sync();\n  }\n", "  STAMP(4);\n"),
 )
 PHASES = {1: ("load", "column pass", "wait for the cluster", "cross",
               "row passes", "store"),
@@ -194,7 +197,8 @@ def main() -> int:
             for name in timed + timed[::-1] + ["phases"]:
                 lib = libs[name][0]
                 _build.load = lambda lib=lib: lib
-                i7, i8 = K.fourstep_cluster_info(ft, 1), K.fourstep_cluster_info(ft, 2)
+                i7 = K.fourstep_launch_info(ft, "fwd4")
+                i8 = K.fourstep_launch_info(ft, "polymul4")
                 y = K.fwd_ntt_fourstep(x, ft)
                 z = K.polymul_fourstep_fused(a, b, ft)
                 exact = (torch.equal(y[:2].to(torch.int64), want_f)

@@ -19,13 +19,14 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=32768 (L=4, the
    fused kernels' scratch path), n=32 (L=3, batch 4096) and a ragged
    batch.  The first rows are also held against the package's numpy golden
-   model, channel by channel.  Four-step (K7a, K8, K9a and K9b everywhere,
-   K7b where the route takes it): n=2^16 (B=512), 2^18 (B=128), 2^19
-   (B=64), 2^20 (B=32), 2^21 (B=16; the public ``Ring`` also through the
-   row pass on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged
-   batch (2^16, B=7); K7a and K8 on their cluster kernels up to 2^19 and
-   2^18 (clusters of 2 to 16 CTAs) and on the walking kernels above; the
-   first 2 rows at n=2^16 against the golden model.  The
+   model, channel by channel.  Four-step (K7a, K7b, K8, K9a and K9b
+   everywhere): n=2^16 (B=512), 2^18 (B=128), 2^19 (B=64), 2^20 (B=32),
+   2^21 (B=16; where the route takes the two-kernel transforms, the public
+   ``Ring`` also through the row pass on K1/K2), the unbalanced 2^17 (512 x
+   256, B=64) and a ragged batch (2^16, B=7); K7a and K7b on their cluster
+   kernels up to 2^19 and K8 up to 2^18 (clusters of 2 to 16 CTAs) and on
+   the walking kernels above, K9a on its slab kernel; the first 2 rows at
+   n=2^16 against the golden model.  The
    DIT inverse K12 at n=4096 (B=8192), 32 and 32768, with ``inv_ntt_dit``
    (direct and factored) equal to K2; the cross-device stage K11 (forward
    and inverse, each role, with and without ``last``) on one shard of the
@@ -59,12 +60,15 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       equal word for word to the unsharded ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
-   (``bound_ms``); the cluster kernels' launch shapes (CTAs, shared memory,
+   (``bound_ms``); the cluster and slab kernels' launch shapes (CTAs a
+   cluster or slab width, shared memory, CTAs an SM,
    ``cudaOccupancyMaxActiveClusters``, registers and spills) and the
    kernels ``torch.profiler`` sees run at 2^16 and 2^18; the fused
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
-   set ``ops/fourstep.py``'s caps; the DIT inverse beside K2 and its
+   set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
+   the caps; K11 at the ``overlap`` path's chunk shape beside the whole
+   shard; the DIT inverse beside K2 and its
    bit-reversals, the sharded calls beside
    the unsharded ones with K11's share of their device time, the public
    calls' throughput, and the key switch end to end.  One card measures
@@ -140,7 +144,7 @@ RNS_CHECK_SHAPES = (
 FS_CHECK_SHAPES = (
     (1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16),
     (1 << 17, 64),  # 512 x 256
-    (1 << 19, 64),  # K7a on a cluster of 16 CTAs, K8 on the walking kernel
+    (1 << 19, 64),  # K7a/K7b on clusters of 16 CTAs, K8 walking
     (1 << 16, 7),  # a ragged batch
 )
 FS_GOLDEN_ROWS = 2
@@ -150,7 +154,7 @@ FS_PATH = ((1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16))
 # 128 MiB an operand
 FS_ROUTE_SHAPES = ((1 << 16, 512), (1 << 17, 256), (1 << 18, 128),
                    (1 << 19, 64), (1 << 20, 32))
-# where torch.profiler must see the cluster kernels
+# where torch.profiler must see the cluster and slab kernels
 FS_PROFILE_NS = (1 << 16, 1 << 18)
 FS_DOT_BATCH, FS_DOT_K = 128, 3
 FS_RNS_L, FS_SMALL_BATCH = 3, 64
@@ -158,8 +162,10 @@ FS_CROSS_N, FS_CROSS_BATCH = 32768, 1024
 
 # the DIT inverse (K12): (n, batch) of the checks; the main shape first
 DIT_CHECK_SHAPES = ((MAIN_N, MAIN_BATCH), (32, 65536), (32768, 1024))
-# the cross-device stage (K11): one shard (B_loc, S) of the sharded path
+# the cross-device stage (K11): one shard (B_loc, S) of the sharded path,
+# and one chunk of it as the overlap path launches it (an eighth)
 XCHG_ROWS, XCHG_WIDTH = 512, 8192
+XCHG_CHUNK_ROWS = XCHG_ROWS // 8
 # the sharded path on one card: Ring(32768) over dp=2 x sp=4 (a shard is
 # (512, 8192)), Ring(65536) over sp=4 (four-step), the dp-only polydot
 SHARD_N, SHARD_BATCH, SHARD_DP, SHARD_SP = 32768, 1024, 2, 4
@@ -244,12 +250,15 @@ def butterflies(batch: int, n: int):
 def fwd4_ops(batch: int, n1: int, n2: int, *, rows: bool = True):
     """The forward four-step transform: size-n1 column transforms, the
     twiddle product, and (with ``rows``) size-n2 row transforms.  The lazy
-    Shoup twiddle takes any 32-bit word, so the column pass needs no final
-    reduction."""
+    Shoup twiddle takes any 32-bit word, so the whole transform needs no
+    reduction before T; the column pass alone (K9a) does one."""
     n = n1 * n2
     terms = [(1, butterflies(batch * n2, n1)), (batch * n, OPS_SHOUP)]
     if rows:
         terms.append((1, fwd_ops(batch * n1, n2)))
+    else:  # the column pass alone returns the reference's lazy words,
+        # whose column transform is reduced before T
+        terms.append((batch * n, OPS_FINAL_REDUCE))
     return ops_sum(*terms)
 
 
@@ -288,8 +297,13 @@ def bound(words_moved: int, ops):
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
     r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
-    r"|fwd4_cluster|polymul4_cluster|dit_inv|xchg)(_rns)?_kernel")
-CLUSTER_KERNELS = {1: "fwd4_cluster_kernel", 2: "polymul4_cluster_kernel"}
+    r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab|dit_inv"
+    r"|xchg)(_rns)?_kernel")
+# wrapper counter -> (TPU kernel, its cluster or slab kernel)
+CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
+                   "inv4": ("K7b", "inv4_cluster_kernel"),
+                   "polymul4": ("K8", "polymul4_cluster_kernel"),
+                   "col_fwd": ("K9a", "col_fwd4_slab_kernel")}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
@@ -543,9 +557,14 @@ def main() -> int:
         return v.view(v.shape[0], ft.n1, ft.n2)
 
     def body(ft, mats):
-        """Which kernel K7a (mats=1) or K8 (2) runs at this shape."""
+        """Which kernel K7a and K7b (mats=1) or K8 (2) run at this shape."""
         logc = K.fourstep_cluster(ft, mats)
         return f"cluster {1 << logc}" if logc >= 0 else "walking"
+
+    def slabs(ft):
+        """Which kernel K9a runs at this shape."""
+        w = K.fourstep_launch_info(ft, "col_fwd")["width"]
+        return f"slabs of {w}" if w else "walking"
 
     for n, batch in FS_CHECK_SHAPES:
         ring = Ring(n, device=dev)
@@ -556,18 +575,18 @@ def main() -> int:
         x = rand(gen, 4 * q, shape)
         y = rand(gen, 2 * q, shape)
         got = K.fwd_col_fourstep(x.to(torch.uint32), ft)
-        compare("col_fwd", got, P.fwd_col_fourstep_plain(x, ft), note)
+        compare("col_fwd", got, P.fwd_col_fourstep_plain(x, ft),
+                f"{note} {slabs(ft)}")
         got = K.inv_col_fourstep(y.to(torch.uint32), ft)
         compare("col_inv", got, P.inv_col_fourstep_plain(y, ft), note)
         want_f = P.fwd_ntt_fourstep_plain(x, ft)
         got = K.fwd_ntt_fourstep(x.to(torch.uint32), ft)
         compare("fwd4", got, want_f, f"{note} {body(ft, 1)}")
-        if FS.use_full_fuse(ft):
-            for sc in (None, ft.polymul_scale):
-                got = K.inv_ntt_fourstep(y.to(torch.uint32), ft, scale=sc)
-                compare("inv4", got, P.inv_ntt_fourstep_plain(y, ft, sc),
-                        note + (" polymul_scale" if sc else ""))
-        else:  # the column kernels and the row pass on K1/K2
+        for sc in (None, ft.polymul_scale):
+            got = K.inv_ntt_fourstep(y.to(torch.uint32), ft, scale=sc)
+            compare("inv4", got, P.inv_ntt_fourstep_plain(y, ft, sc),
+                    f"{note} {body(ft, 1)}" + (" polymul_scale" if sc else ""))
+        if not FS.use_full_fuse(ft):  # the column kernels and the row pass
             got = tiled(ring.ntt(x.view(batch, n).to(torch.uint32)), ft)
             compare("col_fwd", got, want_f, note + " + rows")
             got = tiled(ring.intt(y.view(batch, n).to(torch.uint32)), ft)
@@ -1107,20 +1126,26 @@ def main() -> int:
     path_of.update({key: slice_launches for key in SLICE})
     path_of.update({key: rns_launches for key in MULTI})
     path_of.update({key: fs_launches for key in FOURSTEP})
-    log("cluster kernels (K7a: one matrix, K8: two) by matrix, and ptxas:")
-    for n_, _ in FS_ROUTE_SHAPES:
+    log("cluster kernels (K7a, K7b: one matrix, K8: two) and K9a's slab "
+        "kernel by matrix, and ptxas:")
+    for n_, _ in FS_ROUTE_SHAPES + ((1 << 21, 16),):
         ft = Ring(n_, device=dev).fourstep
-        for mats, what in ((1, "K7a"), (2, "K8")):
-            info = K.fourstep_cluster_info(ft, mats)
-            if info["ctas"]:
-                log(f"  {what} n={n_} ({ft.n1}x{ft.n2}): cluster of {info['ctas']} "
-                    f"CTAs x {info['threads']} threads, {info['smem_bytes']} bytes "
-                    f"of shared memory a CTA, at most "
-                    f"{info['max_active_clusters']} clusters at once")
+        for key, (what, _) in CLUSTER_KERNELS.items():
+            info = K.fourstep_launch_info(ft, key)
+            where = f"  {what} n={n_} ({ft.n1}x{ft.n2}):"
+            if not info["ctas"]:
+                log(f"{where} the walking kernel")
+            elif key == "col_fwd":
+                log(f"{where} {info['ctas']} slabs of {info['width']} columns, "
+                    f"one CTA each x {info['threads']} threads, "
+                    f"{info['smem_bytes']} bytes of shared memory a CTA, "
+                    f"{info['ctas_per_sm']} CTAs an SM")
             else:
-                log(f"  {what} n={n_} ({ft.n1}x{ft.n2}): does not fit a "
-                    f"cluster; the walking kernel")
-    for name in CLUSTER_KERNELS.values():
+                log(f"{where} cluster of {info['ctas']} CTAs x {info['threads']} "
+                    f"threads, {info['smem_bytes']} bytes of shared memory a "
+                    f"CTA, {info['ctas_per_sm']} CTAs an SM, at most "
+                    f"{info['max_active_clusters']} clusters at once")
+    for _, name in CLUSTER_KERNELS.values():
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
@@ -1152,7 +1177,8 @@ def main() -> int:
     # K8 against the composed polymul (two forward transforms, the int64
     # Montgomery product, the scaled inverse; its transforms routed by
     # FULL_FUSE_BYTES as on the main path)
-    log(f"  fused four-step kernels beside their routes on {card}:")
+    log(f"  fused four-step kernels beside their routes on {card} (API: "
+        f"Ring.ntt / Ring.intt through the caps):")
     wins = {"transform": [], "polymul": []}
     for n_, b_ in FS_ROUTE_SHAPES:
         r_ = Ring(n_, device=dev)
@@ -1181,10 +1207,13 @@ def main() -> int:
         t_ = {name: cuda_time_ms(call, warmup=2, reps=5, inner=4)
               for name, call, _ in calls}
         FS.POLYMUL_FUSE_BYTES = saved
-        log(f"    n={n_} ({ft.n1}x{ft.n2}) B={b_}, K7a {body(ft, 1)}, "
-            f"K8 {body(ft, 2)}: " + "; ".join(
+        api = [cuda_time_ms(call, warmup=2, reps=5, inner=4) for call in (
+            lambda: r_.ntt(xi.view(b_, n_)), lambda: r_.intt(yi.view(b_, n_)))]
+        log(f"    n={n_} ({ft.n1}x{ft.n2}) B={b_}, K7a/K7b {body(ft, 1)}, "
+            f"K8 {body(ft, 2)}, K9a {slabs(ft)}: " + "; ".join(
                 f"{name} {t_[name]:.4f} ms ({bnd / t_[name]:.1%} of bound)"
-                for name, _, bnd in calls))
+                for name, _, bnd in calls)
+            + f"; API ntt {api[0]:.4f} ms, intt {api[1]:.4f} ms")
         if t_["K7a"] + t_["K7b"] < t_["K9a + K1"] + t_["K2 + K9b"]:
             wins["transform"].append(4 * n_)
         if t_["K8"] < t_["composed"]:
@@ -1205,6 +1234,21 @@ def main() -> int:
                                        rows21.shape[0], f21.n2))
         log(f"  {name:30s} ({rows21.shape[0]}, {f21.n2}) {ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    # K11 at the overlap path's chunk shape beside the whole shard: most of
+    # its launches on the sharded path are chunks
+    cshape = f"(B={XCHG_CHUNK_ROWS}, S={XCHG_WIDTH})"
+    log(f"  K11 at the overlap chunk {cshape} and the whole shard {xshape}:")
+    chunk = [v[:XCHG_CHUNK_ROWS].contiguous() for v in x32s[:2]] + x32s[2:]
+    for key, fwd, is_u in (("xchg_fwd", True, True), ("xchg_inv", False, False)):
+        for what, args, rows_ in ((cshape, chunk, XCHG_CHUNK_ROWS),
+                                  (xshape, x32s, XCHG_ROWS)):
+            ms = cuda_time_ms(lambda: K.xchg_step(*args, q=xq, fwd=fwd,
+                                                  is_u=is_u))
+            bnd, by = bound(3 * rows_ * XCHG_WIDTH + 2 * XCHG_WIDTH,
+                            scaled(rows_ * XCHG_WIDTH,
+                                   OPS_XCHG_FWD if fwd else OPS_XCHG_INV))
+            log(f"    {KERNELS[key][0]:16s} {what:20s} {ms:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound")
     # the DIT inverse beside K2 and its two bit-reversal forms
     log(f"  DIT inverse against K2 (B={bsz}, n={n}):")
     for what, call, words in (
@@ -1323,18 +1367,22 @@ def main() -> int:
         call_ms["keyswitch ntt keys"])
     # profiled after every timing, so that no profiler session precedes a
     # host-bound measurement
-    log("the kernels K7a and K8 launch at 2^16 and 2^18 (torch.profiler):")
+    log("the kernels K7a, K7b, K8 and K9a launch at 2^16 and 2^18 "
+        "(torch.profiler):")
     for n_ in FS_PROFILE_NS:
         i = [n for n, _ in FS_PATH].index(n_)
-        ft, (xi, ai, bi, _), _ = fs_operands(i)
-        for mats, call in ((1, lambda: K.fwd_ntt_fourstep(xi, ft)),
-                           (2, lambda: K.polymul_fourstep_fused(ai, bi, ft))):
+        ft, (xi, ai, bi, yi), _ = fs_operands(i)
+        for key, call in (
+                ("fwd4", lambda: K.fwd_ntt_fourstep(xi, ft)),
+                ("inv4", lambda: K.inv_ntt_fourstep(yi, ft)),
+                ("polymul4", lambda: K.polymul_fourstep_fused(ai, bi, ft)),
+                ("col_fwd", lambda: K.fwd_col_fourstep(xi, ft))):
+            what, name = CLUSTER_KERNELS[key]
             seen = kernels_seen(torch, call)
-            log(f"  n={n_} B={xi.shape[0]} {'K7a' if mats == 1 else 'K8'}: " +
+            log(f"  n={n_} B={xi.shape[0]} {what}: " +
                 ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
-            if seen and not any(CLUSTER_KERNELS[mats] in k for k, _, _ in seen):
-                raise AssertionError(f"{CLUSTER_KERNELS[mats]} did not run at "
-                                     f"n={n_}")
+            if seen and not any(name in k for k, _, _ in seen):
+                raise AssertionError(f"{name} did not run at n={n_}")
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
         kernel_share(torch, lambda: sr.ntt(sx),

@@ -3,9 +3,10 @@ against the port's int64 helpers (``ops/modmul.py``) and the plain versions
 of the cross-device stage K11, the DIT inverse's scale rows (K12) and the
 radix-4 and radix-8 groups of the four-step cluster kernels (K7a, K8:
 against the int64 butterflies stage by stage, and as whole size-4 and
-size-8 transforms against ``ops/plain_ntt.py``).  The cluster kernels'
-bodies (``csrc/ntt_fourstep_cluster.cuh``) run here too: one host thread a
-GPU thread, four a CTA, ``std::barrier`` for ``__syncthreads`` and for the
+size-8 transforms against ``ops/plain_ntt.py``).  The bodies of the
+cluster kernels K7a, K7b, K8 and of K9a's slab kernel
+(``csrc/ntt_fourstep_cluster.cuh``) run here too: one host thread a GPU
+thread, four a CTA, ``std::barrier`` for ``__syncthreads`` and for the
 cluster's barrier, each CTA's slab a host array that the others reach as
 through ``map_shared_rank``, in a spawned child process (the pytest worker
 loads no threaded library); their output is held against the plain
@@ -196,8 +197,30 @@ void h_polymul4(const uint32_t* a, const uint32_t* b, uint32_t* out,
                           qinv);
   });
 }
+void h_inv4(const uint32_t* x, uint32_t* y, const void* const* t,
+            const uint32_t* rs, const uint32_t* cs, long long batch,
+            int logn1, int logn2, int logc, uint32_t q) {
+  const Slab4 sl = make_slab4(logn1, logn2, logc);
+  const Tabs4 tb = tabs(t);
+  run(1, batch, logn1, logn2, logc, [&](HostCluster& cl, uint32_t* s, size_t o) {
+    inv4_cluster_body(cl, s, x + o, y + o, tb, sl, rs, cs, q);
+  });
+}
+// K9a's slabs of 2^logw columns, each CTA on its own (the cluster unused)
+void h_col_fwd4(const uint32_t* x, uint32_t* y, const void* const* t,
+                long long batch, int logn1, int logn2, int logw, uint32_t q) {
+  const Slab4 sl = make_slab4(logn1, logn2, logn2 - logw);
+  const Tabs4 tb = tabs(t);
+  run(1, batch, logn1, logn2, sl.logc,
+      [&](HostCluster& cl, uint32_t* s, size_t o) {
+        col_fwd_slab_body(s, x + o, y + o, tb, sl, cl.rank, q);
+      });
+}
 int h_cluster_logc(int mats, int logn1, int logn2, long long max_bytes) {
   return cluster_logc(mats, logn1, logn2, (size_t)max_bytes);
+}
+int h_slab_logw(int logn1, int logn2, long long max_bytes) {
+  return slab_logw(logn1, logn2, (size_t)max_bytes);
 }
 }
 """
@@ -358,10 +381,13 @@ def test_shoup_lazy(lib, q):
 
 
 def _cluster_bodies_match_plain(so):
-    """K7a's and K8's cluster bodies on host threads against the plain
-    four-step versions, at clusters of 1 to 16 CTAs (any size may take any
-    cluster here), with K8's first operands at the edge words q - 1 and 0;
-    then the cluster each balanced size takes at a block's 227 KiB.  Runs
+    """K7a's, K7b's and K8's cluster bodies on host threads against the
+    plain four-step versions, at clusters of 1 to 16 CTAs (any size may take
+    any cluster here), with K8's first operands at the edge words q - 1 and
+    0 and K7b's first input at 2q - 1, q - 1 and 0 (the top of its lazy
+    range and below); K9a's slab body at slabs of 2, 8 and n2 columns; then
+    the cluster each balanced size takes at a block's 227 KiB, and K9a's
+    slab width at a third of an SM's shared memory and at a block's.  Runs
     in a child process: ``so`` is the library's path."""
     from agilex_ntt_tpu_torch.ops import fourstep as FS
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
@@ -371,7 +397,10 @@ def _cluster_bodies_match_plain(so):
     P_, I, U, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     h.h_fwd4.argtypes = [P_, P_, P_, LL, I, I, I, U]
     h.h_polymul4.argtypes = [P_, P_, P_, P_, P_, P_, P_, LL, I, I, I, U, U]
+    h.h_inv4.argtypes = [P_, P_, P_, P_, P_, LL, I, I, I, U]
+    h.h_col_fwd4.argtypes = [P_, P_, P_, LL, I, I, I, U]
     h.h_cluster_logc.argtypes = [I, I, I, LL]
+    h.h_slab_logw.argtypes = [I, I, LL]
 
     # (n, n1, batch, cyclic, log2 of the cluster's CTAs)
     for n, n1, batch, cyclic, logc in ((256, None, 2, False, 1),
@@ -388,17 +417,32 @@ def _cluster_bodies_match_plain(so):
         rng = np.random.default_rng(n + logc)
         shape = (batch, ft.n1, ft.n2)
         x = rng.integers(0, 4 * qn, size=shape, dtype=np.int64)
+        xi = rng.integers(0, 2 * qn, size=shape, dtype=np.int64)
         a = rng.integers(0, qn, size=shape, dtype=np.int64)
         b = rng.integers(0, qn, size=shape, dtype=np.int64)
         a[0].reshape(-1)[: n // 2] = qn - 1
         b[0].reshape(-1)[: n // 4] = qn - 1
         b[0].reshape(-1)[n // 2:] = 0
-        x32, a32, b32 = (v.astype(np.uint32) for v in (x, a, b))
+        xi[0].reshape(-1)[: n // 4] = 2 * qn - 1
+        xi[0].reshape(-1)[n // 4: n // 2] = qn - 1
+        xi[0].reshape(-1)[n // 2: 3 * n // 4] = 0
+        x32, xi32, a32, b32 = (v.astype(np.uint32) for v in (x, xi, a, b))
         y, out = np.empty_like(x32), np.empty_like(x32)
         logs = (ft.n1.bit_length() - 1, ft.n2.bit_length() - 1)
         h.h_fwd4(_ptr(x32), _ptr(y), K._fwd_tabs(ft), batch, *logs, logc, qn)
         want = P.fwd_ntt_fourstep_plain(_t(x), ft).numpy()
         assert np.array_equal(y, want), ("fwd4", n, logc)
+        for sc in (None, ft.polymul_scale):
+            h.h_inv4(_ptr(xi32), _ptr(y), K._inv_tabs(ft), K._row_scale(ft),
+                     K._col_scale(ft, sc), batch, *logs, logc, qn)
+            want = P.inv_ntt_fourstep_plain(_t(xi), ft, sc).numpy()
+            assert np.array_equal(y, want), ("inv4", n, logc, sc)
+        want = P.fwd_col_fourstep_plain(_t(x), ft).numpy()
+        for logw in sorted({min(1, logs[1]), min(3, logs[1]), logs[1]}):
+            y[:] = 0
+            h.h_col_fwd4(_ptr(x32), _ptr(y), K._fwd_tabs(ft), batch, *logs,
+                         logw, qn)
+            assert np.array_equal(y, want), ("col_fwd4", n, logw)
         h.h_polymul4(_ptr(a32), _ptr(b32), _ptr(out), K._fwd_tabs(ft),
                      K._inv_tabs(ft), K._row_scale(ft),
                      K._col_scale(ft, ft.polymul_scale), batch, *logs, logc,
@@ -409,6 +453,13 @@ def _cluster_bodies_match_plain(so):
             h.h_cluster_logc(2, (lg + 1) // 2, lg // 2, 232448))
            for lg in (15, 16, 17, 18, 19, 20)]
     assert got == [(0, 1), (1, 2), (2, 3), (3, 4), (4, -1), (-1, -1)]
+    # K9a's slab width (log2) at the balanced splits 2^16..2^21 in 75 KiB,
+    # then n1 = 2^12..2^15 (n2 = 2^7) in 75 KiB and in 227 KiB
+    got = [h.h_slab_logw((lg + 1) // 2, lg // 2, 76800) for lg in range(16, 22)]
+    assert got == [6, 5, 5, 4, 4, 3]
+    got = [(h.h_slab_logw(lg, 7, 76800), h.h_slab_logw(lg, 7, 232448))
+           for lg in range(12, 16)]
+    assert got == [(1, 3), (-1, 2), (-1, 1), (-1, -1)]
 
 
 @pytest.mark.parametrize("q", PRIMES)

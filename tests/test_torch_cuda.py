@@ -152,18 +152,30 @@ def test_rns_keyswitch_on_the_card_matches_the_cpu(cuda):
 def test_fourstep_kernels_match_plain(cuda):
     """K7a, K7b, K8, K9a and K9b against their plain versions, bit for bit,
     at 16 x 16 and the unbalanced 128 x 32 (clusters of one CTA), 256 x 256
-    with a ragged batch of 7 (K7a on 4 CTAs, K8 on 8), 512 x 256 (8, 16),
-    512 x 512 (16, 16 of one CTA an SM), 1024 x 512 (K7a on 16 CTAs of one
-    an SM, K8 on the walking kernel), 2048 x 1024 (both walking; the column
-    tile of 16 columns) and a cyclic plan at 256 x 256.  The cluster each
-    wrapper picks is checked; K8's first operands hold the edge words q - 1
-    and 0."""
-    # (n, n1, batch, cyclic, log2 of K7a's cluster, of K8's; -1: walking)
-    for n, n1, batch, cyclic, c7, c8 in (
-            (256, None, 5, False, 0, 0), (4096, 128, 3, False, 0, 0),
-            (1 << 16, None, 7, False, 2, 3), (1 << 17, 512, 2, False, 3, 4),
-            (1 << 18, None, 1, False, 4, 4), (1 << 19, None, 1, False, 4, -1),
-            (1 << 21, None, 1, False, -1, -1), (1 << 16, None, 2, True, 2, 3)):
+    with a ragged batch of 7 (K7a and K7b on 4 CTAs, K8 on 8), 512 x 256
+    (8, 16), 512 x 512 (16, 16 of one CTA an SM), 1024 x 512 (K7a and K7b
+    on 16 CTAs of one an SM, K8 on the walking kernel), 1024 x 1024 and
+    2048 x 1024 (all three walking; the column tile of 16 columns), a
+    cyclic plan at 256 x 256, and the unbalanced 8192 x 128 and 16384 x 128
+    (K9a's slabs of one CTA of 512 an SM) and 32768 x 2 (K9a's walking
+    kernel).  The cluster each wrapper picks and K9a's slab width and
+    threads are checked; K8's first operands hold the edge words q - 1 and
+    0."""
+    # (n, n1, batch, cyclic, log2 of K7a's and K7b's cluster, of K8's, K9a's
+    # slab width and threads; -1 and 0: walking)
+    for n, n1, batch, cyclic, c7, c8, w9, t9 in (
+            (256, None, 5, False, 0, 0, 16, 256),
+            (4096, 128, 3, False, 0, 0, 32, 256),
+            (1 << 16, None, 7, False, 2, 3, 64, 256),
+            (1 << 17, 512, 2, False, 3, 4, 32, 256),
+            (1 << 18, None, 1, False, 4, 4, 32, 256),
+            (1 << 19, None, 1, False, 4, -1, 16, 256),
+            (1 << 20, None, 1, False, -1, -1, 16, 256),
+            (1 << 21, None, 1, False, -1, -1, 8, 256),
+            (1 << 16, None, 2, True, 2, 3, 64, 256),
+            (1 << 20, 1 << 13, 1, False, -1, -1, 4, 512),
+            (1 << 21, 1 << 14, 1, False, -1, -1, 2, 512),
+            (1 << 16, 1 << 15, 1, False, -1, -1, 0, 0)):
         q = find_primes(n, 1)[0]
         if cyclic:
             omega = pow(find_psi(n, q), 2, q)  # of order n
@@ -172,6 +184,11 @@ def test_fourstep_kernels_match_plain(cuda):
             plan = FS.make_plan(n, q, None, n1)
         ft = P.make_fourstep_tables(plan, cuda)
         assert (K.fourstep_cluster(ft, 1), K.fourstep_cluster(ft, 2)) == (c7, c8)
+        info = K.fourstep_launch_info(ft, "col_fwd")
+        assert (info["width"], info["threads"]) == (w9, t9), n
+        for key in ("fwd4", "inv4"):
+            assert K.fourstep_launch_info(ft, key)["ctas"] == (
+                1 << c7 if c7 >= 0 else 0)
         gen = torch.Generator(cuda).manual_seed(n + batch)
         shape = (batch, ft.n1, ft.n2)
         x, y = _rand(gen, 4 * q, shape, cuda), _rand(gen, 2 * q, shape, cuda)
