@@ -16,10 +16,14 @@
 #define NTT_HD __host__ __device__ __forceinline__
 // Full unrolling of the radix groups' loops on the device, so that their
 // word arrays stay in registers.
+// NTT_NO_UNROLL keeps a loop rolled where unrolling would hold registers
+// that a caller's live values need.
 #ifdef __CUDA_ARCH__
 #define NTT_UNROLL _Pragma("unroll")
+#define NTT_NO_UNROLL _Pragma("unroll 1")
 #else
 #define NTT_UNROLL
+#define NTT_NO_UNROLL
 #endif
 
 // High 32 bits of a 32x32-bit product.

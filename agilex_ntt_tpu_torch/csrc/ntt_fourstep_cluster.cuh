@@ -1,10 +1,11 @@
 // The four-step forward transform (K7a), inverse (K7b) and polymul (K8)
 // with one polynomial's whole (n1, n2) matrix on chip, in the shared memory
-// of a thread-block cluster, and the column pass (K9a) on column slabs.
+// of a thread-block cluster, and the column passes (K9a, K9b) on column
+// slabs.
 //
 // They replace, for every matrix that fits (ntt_kernels.cu launches its
-// walking kernels fwd4_kernel, inv4_kernel, polymul4_kernel and
-// col_fwd4_kernel above that):
+// walking kernels fwd4_kernel, inv4_kernel, polymul4_kernel,
+// col_fwd4_kernel and col_inv4_kernel above that):
 //   fwd4_cluster_body     <- _full_fwd_kernel     (K7a,
 //                            agilex_ntt_tpu/ops/fourstep.py:345)
 //   inv4_cluster_body     <- _full_inv_kernel     (K7b,
@@ -13,14 +14,17 @@
 //                            agilex_ntt_tpu/ops/fourstep.py:449)
 //   col_fwd_slab_body     <- _col_fwd_kernel      (K9a,
 //                            agilex_ntt_tpu/ops/fourstep.py:194)
+//   col_inv_slab_body     <- _col_inv_kernel      (K9b,
+//                            agilex_ntt_tpu/ops/fourstep.py:208)
 // The TPU kernels keep the matrix in VMEM from the column pass to the row
 // pass.  On an H100 a 2^16-word matrix (256 KiB) exceeds the 227 KiB of
 // one block; a cluster's distributed shared memory is Hopper's counterpart
 // of VMEM.  Each word then crosses device memory once in and once out, the
 // bytes the bound counts (the walking kernels move it two or three times).
-// K9a's columns are independent, so it needs no cluster: one CTA a slab of
-// w columns, as wide as three CTAs an SM allow, loaded in one burst and
-// transformed by the same register-radix column passes.
+// K9a's and K9b's columns are independent, so they need no cluster: one CTA
+// a slab of w columns, as wide as three CTAs an SM allow, loaded in one
+// burst and transformed by the same register-radix column passes (K9b's
+// are K7b's: T^-1 on the first, the last storing to device memory).
 //
 // Layout.  C = 2^logc CTAs of one cluster hold one polynomial.  CTA `rank`
 // holds the columns [rank w, rank w + w) of every row (w = n2 / C) in its
@@ -330,6 +334,29 @@ __device__ __forceinline__ void col_inv_pass(uint32_t* slab,
   }
 }
 
+// The column inverse of the slab, stages logn1 - 1 .. 0 in passes: T^-1
+// first (any word in), the scale cs on the last stage, the last pass
+// storing straight to dst (in [0, q)).  Shared by K7b and K8 (after their
+// row stages) and K9b.
+__device__ __forceinline__ void col_inv_passes(uint32_t* slab,
+                                               uint32_t* __restrict__ dst,
+                                               const Slab4& sl, int rank,
+                                               const Tabs4& i,
+                                               const uint32_t* cs,
+                                               uint32_t q) {
+  for (int hi = sl.logn1; hi > 0;) {
+    const int k = inv_pass_stages(hi);
+    const bool first = hi == sl.logn1;
+    hi -= k;
+    with_radix<k4RadixLog>(k, [&](auto r) {
+      col_inv_pass<decltype(r)::value>(slab, hi == 0 ? dst : nullptr, sl,
+                                       rank, hi, i, hi == 0 ? cs : nullptr, q,
+                                       first);
+    });
+    if (hi > 0) __syncthreads();
+  }
+}
+
 // The row pass group g's first word and global block.
 struct RowGroup {
   int word, blk;
@@ -573,17 +600,7 @@ __device__ __forceinline__ void inv_rows_cols(Cluster& cl, uint32_t* slab,
     });
     cl.sync();
   }
-  for (hi = sl.logn1; hi > 0;) {
-    const int k = inv_pass_stages(hi);
-    const bool first = hi == sl.logn1;
-    hi -= k;
-    with_radix<k4RadixLog>(k, [&](auto r) {
-      col_inv_pass<decltype(r)::value>(slab, hi == 0 ? dst : nullptr, sl,
-                                       rank, hi, i, hi == 0 ? cs : nullptr, q,
-                                       first);
-    });
-    if (hi > 0) __syncthreads();
-  }
+  col_inv_passes(slab, dst, sl, rank, i, cs, q);
 }
 
 // K7b: x in [0, 2q), y in [0, q); the row inverse scaled by rs (n2^-1),
@@ -649,6 +666,16 @@ __device__ __forceinline__ void col_fwd_slab_body(
   col_fwd_slabs(slab, nullptr, x, nullptr, sl, rank, t, q, true);
   __syncthreads();
   store_slab(slab, y, sl, rank);
+}
+
+// K9b on slab `rank` (as K9a's): x any words, y = the column inverse of
+// T^-1 x scaled by cs, in [0, q).
+__device__ __forceinline__ void col_inv_slab_body(
+    uint32_t* slab, const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+    const Tabs4& t, const Slab4& sl, int rank, const uint32_t* cs,
+    uint32_t q) {
+  load_slabs(slab, nullptr, x, nullptr, sl, rank);
+  col_inv_passes(slab, y, sl, rank, t, cs, q);
 }
 
 }  // namespace

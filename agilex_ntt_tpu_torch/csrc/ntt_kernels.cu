@@ -10,8 +10,10 @@
 //   fwd_rns_kernel  <- _fwd_rns_kernel  (K4a, K1 over L primes)
 //   inv_rns_kernel  <- _inv_rns_kernel  (K4b, K2 over L primes, a scale
 //                                        per channel)
-//   polydot_rns_kernel <- _polymul_rns_kernel (K5, k = 1)
-//                   and _polydot_rns_kernel   (K6b, K6a over L primes)
+//   polydot_rns_cluster_kernel <- _polymul_rns_kernel (K5, k = 1)
+//                   and _polydot_rns_kernel   (K6b, K6a over L primes; see
+//                                        ntt_polydot_cluster.cuh for its
+//                                        design)
 // the DIT inverse of agilex_ntt_tpu/ops/dit_inv.py and the cross-device
 // stage of agilex_ntt_tpu/parallel/overlap.py (see their sections below):
 //   dit_inv_kernel  <- _dit_inv_kernel  (K12)
@@ -26,12 +28,14 @@
 //   polymul4_kernel <- _full_polymul_kernel (K8)
 //   col_fwd4_slab_kernel, where a slab of 2 columns fits a block, else
 //   col_fwd4_kernel <- _col_fwd_kernel      (K9a)
+//   col_inv4_slab_kernel, where a slab of 2 columns fits a block, else
 //   col_inv4_kernel <- _col_inv_kernel      (K9b)
-// The multi-prime kernels run the single-prime bodies with the channel on
-// blockIdx.y: each block reads its channel's q, -q^-1 and inverse-scale
-// constants from (L,) and (L, 4) arrays and its twiddles from row l of the
-// (L, n) tables, where the TPU kernels take q from SMEM and (L, log n, n)
-// positional tables per grid step.
+// The multi-prime kernels run with the channel on blockIdx.y (K4a and K4b
+// on the single-prime bodies, K5/K6b on polydot_rns_body): each block
+// reads its channel's q, -q^-1 and inverse-scale constants from (L,) and
+// (L, 4) arrays and its twiddles from row l of the (L, n) tables, where the
+// TPU kernels take q from SMEM and (L, log n, n) positional tables per grid
+// step.
 // They compute what the TPU kernels compute, not the TPU's layout: each
 // butterfly is computed once (the TPU computes it at both slots of a pair
 // and finds partners by lane rolls), on the compact HEXL twiddle tables
@@ -62,8 +66,9 @@
 // where they do not fit (n = 32768) they go to a scratch buffer in device
 // memory that the caller allocates.  These kernels run at a tenth to a
 // fifth of that bound on an H100 (PERF.md): every stage goes through
-// shared memory and a block-wide barrier.  Keeping several stages in
-// registers, vector loads and fewer barriers is later work.
+// shared memory and a block-wide barrier.  The multi-prime polydot (K5,
+// K6b) runs register-radix passes with the sum in registers instead
+// (ntt_polydot_cluster.cuh); the single-prime polydot (K3, K6a) is next.
 //
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
@@ -74,6 +79,7 @@
 
 #include "ntt_arith.cuh"
 #include "ntt_fourstep_cluster.cuh"
+#include "ntt_polydot_cluster.cuh"
 
 namespace {
 
@@ -319,7 +325,8 @@ polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 //
 // Channel l's data starts at l * batch * n (l * batch * k * n for the dot's
 // operands), its tables at row l of the (L, n) tables, and its scalars are
-// qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').
+// qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').  K5 and
+// K6b: polydot_rns_cluster_kernel, after the four-step section.
 
 __global__ void __launch_bounds__(kThreads)
 fwd_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
@@ -348,32 +355,6 @@ inv_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   inv_body(x + data, y + data, iroots + tab, iprecon + tab, batch, logn,
            polys, __ldg(qs + l), __ldg(s), __ldg(s + 1), __ldg(s + 2),
            __ldg(s + 3));
-}
-
-__global__ void __launch_bounds__(kThreads)
-polydot_rns_kernel(const uint32_t* __restrict__ a,
-                   const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
-                   uint32_t* scratch, const uint32_t* __restrict__ roots,
-                   const uint32_t* __restrict__ precon,
-                   const uint32_t* __restrict__ iroots,
-                   const uint32_t* __restrict__ iprecon,
-                   const uint32_t* __restrict__ qs,
-                   const uint32_t* __restrict__ qinvs,
-                   const uint32_t* __restrict__ scales, long long batch, int k,
-                   int logn, int polys) {
-  const int l = blockIdx.y;
-  const long long data = ((long long)l * batch) << logn;
-  const long long tab = (long long)l << logn;
-  const uint32_t* s = scales + 4 * l;
-  // this channel's blocks own the channel's slice of the scratch buffer
-  uint32_t* chan_scratch =
-      scratch != nullptr
-          ? scratch + (size_t)l * gridDim.x * (k > 1 ? 2 : 1) * (polys << logn)
-          : nullptr;
-  polydot_body(a + data * k, b + data * k, out + data, chan_scratch,
-               roots + tab, precon + tab, iroots + tab, iprecon + tab, batch,
-               k, logn, polys, __ldg(qs + l), __ldg(qinvs + l), __ldg(s),
-               __ldg(s + 1), __ldg(s + 2), __ldg(s + 3));
 }
 
 // -- DIT inverse (K12) --------------------------------------------------------
@@ -508,7 +489,8 @@ xchg_kernel(const uint32_t* __restrict__ x,
 // kernels, made in ntt_fwd4, ntt_inv4 and ntt_polymul4.  K9a runs
 // col_fwd4_slab_kernel (one CTA a slab of columns, register-radix passes)
 // wherever a slab of 2 columns fits a block, that is for n1 <= 2^14, and
-// the walking col_fwd4_kernel at n1 = 2^15.  A cluster launch the card
+// the walking col_fwd4_kernel at n1 = 2^15; K9b likewise
+// (col_inv4_slab_kernel, col_inv4_kernel).  A cluster launch the card
 // refuses returns its error.
 
 constexpr int k4Threads = 1024;
@@ -724,6 +706,17 @@ col_fwd4_slab_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   col_fwd_slab_body(smem, x + off, y + off, t, sl, (int)blockIdx.y, q);
 }
 
+// K9b on slabs, as K9a's.
+template <int kThreads, int kCtasPerSm>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+col_inv4_slab_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                     Tabs4 t, Slab4 sl, Scale4 cs, uint32_t q) {
+  extern __shared__ uint32_t smem[];
+  const size_t off = (size_t)blockIdx.x << (sl.logn1 + sl.logn2);
+  const uint32_t cw[4] = {cs.su, cs.sup, cs.sv, cs.svp};
+  col_inv_slab_body(smem, x + off, y + off, t, sl, (int)blockIdx.y, cw, q);
+}
+
 // K9a at n1 = 2^15: blockIdx.x is the polynomial, blockIdx.y the column
 // tile.
 __global__ void __launch_bounds__(k4Threads)
@@ -734,7 +727,7 @@ col_fwd4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
   col_fwd_tile(x + off, y + off, smem, blockIdx.y << s.logtc, s, t, q);
 }
 
-// K9b.
+// K9b at n1 = 2^15.
 __global__ void __launch_bounds__(k4Threads)
 col_inv4_kernel(const uint32_t* __restrict__ x, uint32_t* y, Tabs4 t,
                 Shape4 s, Scale4 cs, uint32_t q) {
@@ -782,9 +775,9 @@ struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   ClusterLaunch(long long clusters, int logc, int threads, size_t bytes,
-                void* stream) {
+                void* stream, unsigned grid_y = 1) {
     cfg = cudaLaunchConfig_t{};
-    cfg.gridDim = dim3((unsigned)(clusters << logc));
+    cfg.gridDim = dim3((unsigned)(clusters << logc), grid_y);
     cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = bytes;
     cfg.stream = (cudaStream_t)stream;
@@ -832,9 +825,9 @@ ClusterShape cluster_shape(int mats, int logn1, int logn2) {
                   cluster_logc(mats, logn1, logn2, kMaxSmemBytes), false);
 }
 
-// K9a's slabs, in the same two launch shapes: the widest slab that fits a
-// third of an SM, else the widest that fits a block; logc = logn2 - logw
-// slabs a polynomial, one CTA each.
+// K9a's and K9b's slabs, in the same two launch shapes: the widest slab
+// that fits a third of an SM, else the widest that fits a block; logc =
+// logn2 - logw slabs a polynomial, one CTA each.
 ClusterShape slab_shape(int logn1, int logn2) {
   const int logw = slab_logw(logn1, logn2, k4SmallSlabBytes);
   if (logw >= 0) return shape_of(1, logn1, logn2, logn2 - logw, true);
@@ -854,7 +847,8 @@ cudaError_t launch_cluster(Kernel kernel, const ClusterShape& c,
   return cudaGetLastError();
 }
 
-// One launch of K9a's slab kernel at shape c (grid: batch x slabs).
+// One launch of K9a's or K9b's slab kernel at shape c (grid: batch x
+// slabs).
 template <typename Kernel, typename... Args>
 cudaError_t launch_slabs(Kernel kernel, const ClusterShape& c,
                          long long batch, void* stream, Args... args) {
@@ -866,7 +860,9 @@ cudaError_t launch_slabs(Kernel kernel, const ClusterShape& c,
 }
 
 // The four-step kernels that ntt_fourstep_launch_info describes.
-enum Kernel4 { kFwd4 = 0, kInv4 = 1, kPolymul4 = 2, kColFwd4 = 3 };
+enum Kernel4 {
+  kFwd4 = 0, kInv4 = 1, kPolymul4 = 2, kColFwd4 = 3, kColInv4 = 4
+};
 
 // The kernel of `which` at a launch shape.
 const void* shaped_kernel(int which, bool small) {
@@ -883,23 +879,84 @@ const void* shaped_kernel(int which, bool small) {
       return small ? (const void*)
                          polymul4_cluster_kernel<k4SmallThreads, k4SmallCtas>
                    : (const void*)polymul4_cluster_kernel<k4LargeThreads, 1>;
-    default:
+    case kColFwd4:
       return small ? (const void*)
                          col_fwd4_slab_kernel<k4SmallThreads, k4SmallCtas>
                    : (const void*)col_fwd4_slab_kernel<k4LargeThreads, 1>;
+    default:
+      return small ? (const void*)
+                         col_inv4_slab_kernel<k4SmallThreads, k4SmallCtas>
+                   : (const void*)col_inv4_slab_kernel<k4LargeThreads, 1>;
   }
 }
 
-// Its launch shape: a cluster of logc CTAs (K9a: 2^logc slabs), or logc
-// -1 for the walking kernel.
+bool is_slab_kernel(int which) {
+  return which == kColFwd4 || which == kColInv4;
+}
+
+// Its launch shape: a cluster of logc CTAs (K9a, K9b: 2^logc slabs), or
+// logc -1 for the walking kernel.
 ClusterShape kernel_shape(int which, int logn1, int logn2) {
-  if (which == kColFwd4) return slab_shape(logn1, logn2);
+  if (is_slab_kernel(which)) return slab_shape(logn1, logn2);
   return cluster_shape(which == kPolymul4 ? 2 : 1, logn1, logn2);
 }
 
 // One cluster a polynomial: grid.x = batch << logc must fit an int.
 bool cluster_grid_ok(long long batch, int logc) {
   return batch >= 1 && batch <= (0x7fffffffLL >> logc);
+}
+
+// K5/K6b (ntt_polydot_cluster.cuh): CTAs of 256 threads, three an SM; a
+// CTA holds kDotSumWords x 256 = 4096 words of each operand.
+constexpr int kDotLogThreads = 8;
+constexpr int kDotCtasPerSm = 3;
+
+// Cluster blockIdx.x >> logc of channel blockIdx.y holds polynomials
+// (blockIdx.x >> logc) << logp ..., or with a cluster one polynomial.
+__global__ void __launch_bounds__(1 << kDotLogThreads, kDotCtasPerSm)
+polydot_rns_cluster_kernel(const uint32_t* __restrict__ a,
+                           const uint32_t* __restrict__ b,
+                           uint32_t* __restrict__ out,
+                           const uint32_t* __restrict__ roots,
+                           const uint32_t* __restrict__ precon,
+                           const uint32_t* __restrict__ iroots,
+                           const uint32_t* __restrict__ iprecon,
+                           const uint32_t* __restrict__ qs,
+                           const uint32_t* __restrict__ qinvs,
+                           const uint32_t* __restrict__ scales,
+                           long long batch, int k, DotShape sh) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << sh.logn;
+  const long long tab = (long long)l << sh.logn;
+  const long long poly0 = (long long)(blockIdx.x >> sh.logc) << sh.logp;
+  polydot_rns_body(cl, smem, a + data * k, b + data * k, out + data,
+                   roots + tab, precon + tab, iroots + tab, iprecon + tab,
+                   batch, k, sh, (int)cl.block_rank(), poly0, __ldg(qs + l),
+                   __ldg(qinvs + l), scales + 4 * l);
+}
+
+// Its launch at (L, B, k, n): the shape, the clusters a channel, the
+// kernel's attributes set.
+struct DotLaunch {
+  DotShape sh;
+  long long clusters;
+  size_t bytes;
+};
+
+cudaError_t dot_launch(int channels, long long batch, int k, int logn,
+                       DotLaunch* d) {
+  if (channels < 1 || channels > kMaxChannels || batch < 1 || k < 1 ||
+      logn < 1 || logn > k4MaxLogSide)
+    return cudaErrorInvalidValue;
+  d->sh = make_dot_shape(logn, kDotLogThreads);
+  d->clusters = (batch + (1LL << d->sh.logp) - 1) >> d->sh.logp;
+  d->bytes = dot_smem_bytes(d->sh, k);
+  if (d->sh.logc > kDotMaxClusterLog ||
+      !cluster_grid_ok(d->clusters, d->sh.logc))
+    return cudaErrorInvalidValue;
+  return allow_cluster(polydot_rns_cluster_kernel, d->sh.logc, d->bytes);
 }
 
 // Tiles the fused kernel keeps besides the working tile: fa, and acc if k > 1.
@@ -999,34 +1056,45 @@ int ntt_inv_rns(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
   return (int)cudaGetLastError();
 }
 
-// Words of device scratch ntt_polydot_rns needs (0: all in shared memory):
-// one slice per (channel, block).
-long long ntt_polydot_rns_scratch_words(int channels, long long batch, int k,
-                                        int logn) {
-  return (long long)channels * ntt_polydot_scratch_words(batch, k, logn);
+// K5/K6b: one launch for every channel, no scratch.
+int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                    const uint32_t* roots, const uint32_t* precon,
+                    const uint32_t* iroots, const uint32_t* iprecon,
+                    const uint32_t* qs, const uint32_t* qinvs,
+                    const uint32_t* scales, int channels, long long batch,
+                    int k, int logn, void* stream) {
+  DotLaunch d;
+  cudaError_t err = dot_launch(channels, batch, k, logn, &d);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kDotLogThreads, d.bytes,
+                       stream, (unsigned)channels);
+  err = cudaLaunchKernelEx(&launch.cfg, polydot_rns_cluster_kernel, a, b, out,
+                           roots, precon, iroots, iprecon, qs, qinvs, scales,
+                           batch, k, d.sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                    uint32_t* scratch, const uint32_t* roots,
-                    const uint32_t* precon, const uint32_t* iroots,
-                    const uint32_t* iprecon, const uint32_t* qs,
-                    const uint32_t* qinvs, const uint32_t* scales,
-                    int channels, long long batch, int k, int logn,
-                    void* stream) {
-  if (channels < 1 || channels > kMaxChannels)
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(batch, logn);
-  const bool in_smem = polydot_fits_smem(k, p.words);
-  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes =
-      (size_t)(in_smem ? 1 + polydot_extra_tiles(k) : 1) * p.words * 4;
-  cudaError_t err = allow_smem((const void*)polydot_rns_kernel, bytes);
+// K5/K6b's launch at n = 2^logn with k terms: info = {log2 of the CTAs a
+// polynomial (the cluster), log2 of the polynomials a CTA, shared memory
+// bytes a CTA, threads a CTA, CTAs an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the most such clusters
+// the card runs at once (cudaOccupancyMaxActiveClusters)}.
+int ntt_polydot_rns_launch_info(int logn, int k, int* info) {
+  for (int i = 0; i < 6; ++i) info[i] = 0;
+  DotLaunch d;
+  cudaError_t err = dot_launch(1, 1, k, logn, &d);
   if (err != cudaSuccess) return (int)err;
-  polydot_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
-                       (cudaStream_t)stream>>>(
-      a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
-      qs, qinvs, scales, batch, k, logn, p.polys);
-  return (int)cudaGetLastError();
+  info[0] = d.sh.logc;
+  info[1] = d.sh.logp;
+  info[2] = (int)d.bytes;
+  info[3] = 1 << kDotLogThreads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[4], polydot_rns_cluster_kernel, info[3], d.bytes);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(1, d.sh.logc, info[3], d.bytes, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      &info[5], (const void*)polydot_rns_cluster_kernel, &launch.cfg);
 }
 
 // -- four-step (K7a, K7b, K8, K9a, K9b) ----------------------------------------
@@ -1042,16 +1110,17 @@ int ntt_fourstep_cluster_log(int mats, int logn1, int logn2) {
   return cluster_shape(mats, logn1, logn2).logc;
 }
 
-// The launch of kernel `which` (Kernel4: 0 K7a, 1 K7b, 2 K8, 3 K9a) at
-// this shape: info = {log2 of the cluster's CTAs, or for K9a of the slabs
-// a polynomial (-1: the walking kernel), shared memory bytes a CTA,
-// threads a CTA, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// the most such clusters the card runs at once
-// (cudaOccupancyMaxActiveClusters; 0 for K9a, which has none)}.
+// The launch of kernel `which` (Kernel4: 0 K7a, 1 K7b, 2 K8, 3 K9a, 4 K9b)
+// at this shape: info = {log2 of the cluster's CTAs, or for K9a and K9b of
+// the slabs a polynomial (-1: the walking kernel), shared memory bytes a
+// CTA, threads a CTA, CTAs an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the most such clusters
+// the card runs at once (cudaOccupancyMaxActiveClusters; 0 for K9a and
+// K9b, which have none)}.
 int ntt_fourstep_launch_info(int which, int logn1, int logn2, int* info) {
   info[0] = -1;
   info[1] = info[2] = info[3] = info[4] = 0;
-  if (!shape4_ok(logn1, logn2, 1) || which < kFwd4 || which > kColFwd4)
+  if (!shape4_ok(logn1, logn2, 1) || which < kFwd4 || which > kColInv4)
     return (int)cudaErrorInvalidValue;
   const ClusterShape c = kernel_shape(which, logn1, logn2);
   if (c.logc < 0) return 0;
@@ -1059,12 +1128,13 @@ int ntt_fourstep_launch_info(int which, int logn1, int logn2, int* info) {
   info[1] = (int)c.bytes;
   info[2] = c.threads;
   const void* kernel = shaped_kernel(which, c.small);
-  cudaError_t err = which == kColFwd4 ? allow_smem(kernel, c.bytes)
-                                      : allow_cluster(kernel, c.logc, c.bytes);
+  cudaError_t err = is_slab_kernel(which)
+                        ? allow_smem(kernel, c.bytes)
+                        : allow_cluster(kernel, c.logc, c.bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel,
                                                         c.threads, c.bytes);
-  if (err != cudaSuccess || which == kColFwd4) return (int)err;
+  if (err != cudaSuccess || is_slab_kernel(which)) return (int)err;
   ClusterLaunch launch(1, c.logc, c.threads, c.bytes, nullptr);
   return (int)cudaOccupancyMaxActiveClusters(&info[4], kernel, &launch.cfg);
 }
@@ -1186,6 +1256,18 @@ int ntt_col_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
                  const uint32_t* col_scale, long long batch, int logn1,
                  int logn2, uint32_t q, void* stream) {
   if (!shape4_ok(logn1, logn2, batch)) return (int)cudaErrorInvalidValue;
+  const ClusterShape c = slab_shape(logn1, logn2);
+  if (c.logc >= 0) {
+    const Tabs4 t = tabs4(tabs);
+    const Slab4 sl = make_slab4(logn1, logn2, c.logc);
+    const Scale4 cs = scale4(col_scale);
+    return (int)(c.small
+                     ? launch_slabs(
+                           col_inv4_slab_kernel<k4SmallThreads, k4SmallCtas>,
+                           c, batch, stream, x, y, t, sl, cs, q)
+                     : launch_slabs(col_inv4_slab_kernel<k4LargeThreads, 1>,
+                                    c, batch, stream, x, y, t, sl, cs, q));
+  }
   const Shape4 s = make_shape4(logn1, logn2);
   const size_t bytes = smem4_bytes(s, false);
   cudaError_t err = allow_smem((const void*)col_inv4_kernel, bytes);

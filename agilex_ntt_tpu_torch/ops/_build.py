@@ -20,7 +20,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh", "ntt_kernels.cu")
+SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh",
+           "ntt_polydot_cluster.cuh", "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libntt_kernels.so"
 NVCC_FLAGS = (
@@ -43,11 +44,13 @@ SIGNATURES = {
     "ntt_fwd_rns": (_P, _P, _P, _P, _P, _I, _LL, _I, _P),
     # x, y, iroots, iprecon, qs, scales, channels, batch, logn, stream
     "ntt_inv_rns": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P),
-    # a, b, out, scratch, roots, precon, iroots, iprecon, qs, qinvs, scales,
+    # a, b, out, roots, precon, iroots, iprecon, qs, qinvs, scales,
     # channels, batch, k, logn, stream
     "ntt_polydot_rns": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P,
     ),
+    # logn, k, info (6 ints)
+    "ntt_polydot_rns_launch_info": (_I, _I, _P),
     # four-step: tabs is a host array of six device pointers, the scales
     # host arrays of four words.
     # x, y, tabs, batch, logn1, logn2, q, stream
@@ -68,7 +71,7 @@ SIGNATURES = {
     "ntt_xchg": (_P, _P, _P, _P, _P, _LL, _I, _U, _I, _I, _I, _U, _U, _P),
     # device, peer
     "ntt_enable_peer": (_I, _I),
-    # kernel (0 K7a, 1 K7b, 2 K8, 3 K9a), logn1, logn2, info (5 ints)
+    # kernel (0 K7a, 1 K7b, 2 K8, 3 K9a, 4 K9b), logn1, logn2, info (5 ints)
     "ntt_fourstep_launch_info": (_I, _I, _I, _P),
 }
 
@@ -133,8 +136,6 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ntt_polydot_scratch_words.argtypes = [_LL, _I, _I]
     lib.ntt_polydot_scratch_words.restype = _LL
-    lib.ntt_polydot_rns_scratch_words.argtypes = [_I, _LL, _I, _I]
-    lib.ntt_polydot_rns_scratch_words.restype = _LL
     lib.ntt_fourstep_cluster_log.argtypes = [_I, _I, _I]
     lib.ntt_fourstep_cluster_log.restype = _I
     lib.ntt_error_string.argtypes = [_I]

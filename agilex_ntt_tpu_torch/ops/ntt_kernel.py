@@ -243,14 +243,9 @@ def _polydot_rns_launch(a, b, tables: RNSTables, what: str) -> torch.Tensor:
     out = torch.empty((L, batch, n), dtype=torch.uint32, device=a.device)
     words = tables.scale_words(tables.polymul_scale)
     lib = _build.load()
-    need = lib.ntt_polydot_rns_scratch_words(L, batch, k, tables.log_n)
-    scratch = (
-        torch.empty(need, dtype=torch.uint32, device=a.device) if need else None
-    )
     with torch.cuda.device(a.device):
         rc = lib.ntt_polydot_rns(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             tables.roots.data_ptr(), tables.precon.data_ptr(),
             tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
             tables.q_words.data_ptr(), tables.qinv_words.data_ptr(),
@@ -260,10 +255,25 @@ def _polydot_rns_launch(a, b, tables: RNSTables, what: str) -> torch.Tensor:
     return out
 
 
+def polydot_rns_launch_info(tables: RNSTables, k: int = 2) -> dict:
+    """The launch of the multi-prime polydot kernel (K5 with ``k`` = 1, K6b)
+    at ``tables``' n: ``ctas`` a polynomial (the cluster; 1: no cluster),
+    ``polys`` a CTA, shared memory and threads a CTA, CTAs an SM and the
+    most such clusters the card runs at once."""
+    lib = _build.load()
+    info = (ctypes.c_int * 6)()
+    _build.check(lib, lib.ntt_polydot_rns_launch_info(tables.log_n, k, info),
+                 "polydot_rns_launch_info")
+    return {"ctas": 1 << info[0], "polys": 1 << info[1],
+            "smem_bytes": info[2], "threads": info[3],
+            "ctas_per_sm": info[4], "max_active_clusters": info[5]}
+
+
 def polymul_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
     """Negacyclic a * b mod (X^n + 1, q_l) of (L, B, n) operands in one
     launch: per channel two forward transforms, the Montgomery product and
-    the inverse scaled by that channel's ``polymul_scale``."""
+    the inverse scaled by that channel's ``polymul_scale`` (on the card the
+    polydot kernel with k = 1, ``polydot_rns_launch_info``)."""
     _check_pair(a, b, tables, "polymul_rns_fused", 3)
     if a.device.type == "cpu":
         return _u32(
@@ -279,7 +289,12 @@ def polymul_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> to
 def polydot_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:
     """sum_i a_i * b_i mod (X^n + 1, q_l) of (L, B, k, n) operands ->
     (L, B, n) in one launch: 2k forward transforms, lazy accumulation and
-    one scaled inverse per polynomial of every channel."""
+    one scaled inverse per polynomial of every channel.
+
+    On the card a CTA holds 4096 words of each operand: a polynomial of
+    n > 4096 words on a cluster of n / 4096 CTAs, smaller ones several to a
+    CTA (``polydot_rns_launch_info``); register-radix passes, the sum in
+    registers.  A launch the card refuses raises."""
     _check_pair(a, b, tables, "polydot_rns_fused", 4)
     if a.shape[2] == 0:
         raise ValueError("polydot_rns_fused: k must be at least 1")
@@ -357,14 +372,16 @@ def fourstep_cluster(ft: FourStepTables, mats: int) -> int:
 
 
 # the four-step kernels that fourstep_launch_info describes
-LAUNCH_INFO_KERNELS = ("fwd4", "inv4", "polymul4", "col_fwd")
+LAUNCH_INFO_KERNELS = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
+SLAB_KERNELS = ("col_fwd", "col_inv")
 
 
 def fourstep_launch_info(ft: FourStepTables, kernel: str) -> dict:
     """The launch of the cluster or slab kernel behind the wrapper counted as
     ``kernel`` (one of ``LAUNCH_INFO_KERNELS``) at this shape: ``ctas`` a
-    cluster (0: the walking kernel), or for ``"col_fwd"`` the slab width
-    ``width`` and the slabs a polynomial ``ctas`` (0: the walking kernel);
+    cluster (0: the walking kernel), or for ``"col_fwd"`` and ``"col_inv"``
+    the slab width ``width`` and the slabs a polynomial ``ctas`` (0: the
+    walking kernel);
     shared memory and threads a CTA, CTAs an SM, and for the cluster
     kernels the most such clusters the card runs at once
     (``cudaOccupancyMaxActiveClusters``)."""
@@ -375,7 +392,7 @@ def fourstep_launch_info(ft: FourStepTables, kernel: str) -> dict:
                  "fourstep_launch_info")
     ctas = 1 << info[0] if info[0] >= 0 else 0
     return {"ctas": ctas,
-            "width": ft.n2 // ctas if kernel == "col_fwd" and ctas else 0,
+            "width": ft.n2 // ctas if kernel in SLAB_KERNELS and ctas else 0,
             "smem_bytes": info[1], "threads": info[2],
             "ctas_per_sm": info[3], "max_active_clusters": info[4]}
 
@@ -494,7 +511,11 @@ def inv_col_fourstep(
 ) -> torch.Tensor:
     """The column inverse of (B, n1, n2), any words (K9b): the product with
     T^-1, then the size-n1 inverse of every column scaled by scale * n2
-    (default n^-1 n2 = n1^-1); out [0, q)."""
+    (default n^-1 n2 = n1^-1); out [0, q).
+
+    On the card as ``fwd_col_fourstep``: slabs of columns
+    (``fourstep_launch_info(ft, "col_inv")``) wherever a slab of two fits a
+    block, the walking column-tile kernel at n1 = 2^15."""
     _check4(x, ft, "inv_col_fourstep")
     if x.device.type == "cpu":
         return _u32(plain.inv_col_fourstep_plain(x.to(torch.int64), ft, scale))

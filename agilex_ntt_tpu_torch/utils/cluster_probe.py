@@ -72,6 +72,9 @@ STAMP_EDITS = (
      "__device__ unsigned long long g_stamps[1 << 20];\n"
      "#define STAMP(i) do { if (threadIdx.x == 0) "
      "g_stamps[blockIdx.x * 16 + (i)] = clock64(); } while (0)\n"),
+    # the end of the column inverse of K8 (and of K7b and K9b, whose stamps
+    # are not read)
+    ("    if (hi > 0) __syncthreads();\n  }\n", "  STAMP(7);\n"),
     # the column pass of K7a and K8 (and K9a, whose stamps are not read)
     ("  load_slabs(b0, b1, g0, g1, sl, rank);\n", "  STAMP(1);\n"),
     ("    if (s < sl.logn1) __syncthreads();\n  }\n", "  STAMP(2);\n"),
@@ -84,7 +87,6 @@ STAMP_EDITS = (
     # the inverse half of K8 (and K7b, whose stamps are not read)
     ("  cl.sync();\n", "  STAMP(5);\n"),
     ("    });\n    cl.sync();\n  }\n", "  STAMP(6);\n"),
-    ("    if (hi > 0) __syncthreads();\n  }\n", "  STAMP(7);\n"),
     # K7b's start, then K8
     ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
     ("  const int rank = (int)cl.block_rank();\n", "  STAMP(0);\n"),
@@ -109,14 +111,16 @@ def _insert_after(text: str, edits) -> str:
     return text
 
 
-def _sources(name: str) -> Path:
+def _sources(name: str, edits) -> Path:
+    """A copy of csrc/ under the variant's name with its (file, text,
+    replacement) edits; ``phases`` also gets the clock64() stamps."""
     d = VARIANT_DIR / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
     if name == "phases":
         (d / H).write_text(_insert_after((d / H).read_text(), STAMP_EDITS))
         (d / CU).write_text((d / CU).read_text() + STAMPS_EXPORT)
-    for fname, old, new in VARIANTS.get(name, ()):
+    for fname, old, new in edits:
         text = (d / fname).read_text()
         if old not in text:
             raise RuntimeError(f"variant {name}: {old!r} not in {fname}")
@@ -124,13 +128,16 @@ def _sources(name: str) -> Path:
     return d
 
 
-def build_all():
-    """{name: (library, ptxas lines of the cluster kernels)}, built in
-    parallel."""
+def build_all(variants=None, watch: str = "cluster"):
+    """{name: (library, ptxas lines of the kernels whose name holds
+    ``watch``)} of ``variants`` (name: edits; default this module's
+    variants and ``phases``), built in parallel."""
+    if variants is None:
+        variants = {**VARIANTS, "phases": ()}
     nvcc = _build._nvcc()
     procs = {}
-    for name in list(VARIANTS) + ["phases"]:
-        d = _sources(name)
+    for name, edits in variants.items():
+        d = _sources(name, edits)
         cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / CU)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -144,7 +151,7 @@ def build_all():
             m = re.search(r"\d+([a-z][a-z_]*\d?(?:_[a-z]+)*_kernel)[EI]", line)
             if "Compiling entry" in line and m:
                 kernel = m.group(1)
-            elif "cluster" in kernel and ("registers" in line or "stack" in line):
+            elif watch in kernel and ("registers" in line or "stack" in line):
                 lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
         lib = ctypes.CDLL(str(VARIANT_DIR / name / "lib.so"))
         for fn, argtypes in _build.SIGNATURES.items():

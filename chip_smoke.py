@@ -16,17 +16,21 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
    n=32, and at two shapes that reach the kernels' other branches.  L
    primes: the "n4096" chain (L=3, batch 2048), the key-switch dot of the
-   "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=32768 (L=4, the
-   fused kernels' scratch path), n=32 (L=3, batch 4096) and a ragged
-   batch.  The first rows are also held against the package's numpy golden
-   model, channel by channel.  Four-step (K7a, K7b, K8, K9a and K9b
-   everywhere): n=2^16 (B=512), 2^18 (B=128), 2^19 (B=64), 2^20 (B=32),
-   2^21 (B=16; where the route takes the two-kernel transforms, the public
-   ``Ring`` also through the row pass on K1/K2), the unbalanced 2^17 (512 x
-   256, B=64) and a ragged batch (2^16, B=7); K7a and K7b on their cluster
-   kernels up to 2^19 and K8 up to 2^18 (clusters of 2 to 16 CTAs) and on
-   the walking kernels above, K9a on its slab kernel; the first 2 rows at
-   n=2^16 against the golden model.  The
+   "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=8192 and n=32768,
+   n=32 (L=3, batch 4096) and a ragged batch: K5 and K6b at every launch
+   shape of their kernel (clusters of 1, 2, 4 and 8 CTAs, 16 and 128
+   polynomials a CTA), each check line naming it.  The first rows are also
+   held against the package's numpy golden model, channel by channel.
+   Four-step (K7a, K7b, K8, K9a and K9b everywhere): n=2^16 (B=512), 2^18
+   (B=128), 2^19 (B=64), 2^20 (B=32), 2^21 (B=16; where the route takes
+   the two-kernel transforms, the public ``Ring`` also through the row pass
+   on K1/K2), the unbalanced 2^17 (512 x 256, B=64) and a ragged batch
+   (2^16, B=7); K7a and K7b on their cluster kernels up to 2^19 and K8 up
+   to 2^18 (clusters of 2 to 16 CTAs) and on the walking kernels above, K9a
+   and K9b on their slab kernels; K9a and K9b also at n1 = 2^11 .. 2^15
+   (n2 = 64, 32 MiB an operand: slabs of 32 down to 2 columns, then the
+   walking kernels), K9b on any 32-bit words with both scales; the first 2
+   rows at n=2^16 against the golden model.  The
    DIT inverse K12 at n=4096 (B=8192), 32 and 32768, with ``inv_ntt_dit``
    (direct and factored) equal to K2; the cross-device stage K11 (forward
    and inverse, each role, with and without ``last``) on one shard of the
@@ -62,8 +66,9 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    path's shape, beside the least time the card could take
    (``bound_ms``); the cluster and slab kernels' launch shapes (CTAs a
    cluster or slab width, shared memory, CTAs an SM,
-   ``cudaOccupancyMaxActiveClusters``, registers and spills) and the
-   kernels ``torch.profiler`` sees run at 2^16 and 2^18; the fused
+   ``cudaOccupancyMaxActiveClusters``, registers and spills; K5's and
+   K6b's cluster or polynomials a CTA) and the kernels ``torch.profiler``
+   sees run at 2^16 and 2^18; the fused
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
    set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
@@ -135,7 +140,8 @@ KS_STEPS = (5, 25, 2 * KS_N - 1)  # rotations by 1 and 2 slots, conjugation
 RNS_CHECK_SHAPES = (
     (RNS_N, RNS_L, RNS_BATCH, 4, 256),  # the "n4096" chain, 96 MiB an operand
     (KS_N, KS_L + 1, KS_BATCH, KS_L, KS_BATCH),  # the key-switch dot, 80 MiB
-    (32768, 4, 64, 2, 64),  # the fused kernels' scratch path
+    (8192, 3, 512, 2, 256),  # K5/K6b on clusters of 2 CTAs
+    (32768, 4, 64, 2, 64),  # clusters of 8 CTAs
     (32, 3, 4096, 3, 4096),  # 32 polynomials a block
     (256, 3, 1001, 2, 333),  # a ragged last block
 )
@@ -148,6 +154,8 @@ FS_CHECK_SHAPES = (
     (1 << 16, 7),  # a ragged batch
 )
 FS_GOLDEN_ROWS = 2
+# K9a and K9b at n1 = 2^11 .. 2^15 with n2 = 64, 32 MiB an operand
+COL_LOGN1, COL_N2, COL_WORDS = range(11, 16), 64, 1 << 23
 # the four-step main path: (n, batch)
 FS_PATH = ((1 << 16, 512), (1 << 18, 128), (1 << 20, 32), (1 << 21, 16))
 # the fused kernels beside the routes the caps choose between: (n, batch),
@@ -173,6 +181,14 @@ SHARD_FS_N, SHARD_FS_BATCH = 1 << 16, 512
 SHARD_DOT_DP = 8
 
 KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
+# rows whose kernel body lives in a header beside it
+BODY_SOURCE = {
+    **{key: "agilex_ntt_tpu_torch/csrc/ntt_polydot_cluster.cuh"
+       for key in ("polymul_rns", "polydot_rns")},
+    **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
+       for key in ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv",
+                   "flat_fwd", "flat_inv", "flat_polymul")},
+}
 KERNELS = {  # row -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
     "inv": ("inv_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:110"),
@@ -297,13 +313,15 @@ def bound(words_moved: int, ops):
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
     r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
-    r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab|dit_inv"
-    r"|xchg)(_rns)?_kernel")
+    r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
+    r"|col_inv4_slab|polydot_rns_cluster|dit_inv|xchg)(_rns)?_kernel")
 # wrapper counter -> (TPU kernel, its cluster or slab kernel)
 CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "inv4": ("K7b", "inv4_cluster_kernel"),
                    "polymul4": ("K8", "polymul4_cluster_kernel"),
-                   "col_fwd": ("K9a", "col_fwd4_slab_kernel")}
+                   "col_fwd": ("K9a", "col_fwd4_slab_kernel"),
+                   "col_inv": ("K9b", "col_inv4_slab_kernel")}
+DOT_KERNEL = "polydot_rns_cluster_kernel"  # K5 and K6b
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
@@ -508,12 +526,20 @@ def main() -> int:
             same_as_golden(got[l, :GOLDEN_ROWS], want_fn(l, r.params),
                            f"{what} channel {l}")
 
+    def dot_shape(tabs):
+        """Which launch shape K5 and K6b take at this n."""
+        info = K.polydot_rns_launch_info(tabs)
+        if info["ctas"] > 1:
+            return f"cluster {info['ctas']}"
+        return f"{info['polys']} a CTA"
+
     g = GOLDEN_ROWS
     for n, L, batch, k, dot_batch in RNS_CHECK_SHAPES:
         ring = RNSRing(n, L, device=dev)
         tabs, qs = ring.tables, ring.qs
         gen = torch.Generator(dev).manual_seed(n + L)
         note = f"n={n} L={L} B={batch}"
+        dshape = dot_shape(tabs)
 
         x = channels(gen, qs, 4, (batch, n))
         got = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
@@ -535,7 +561,8 @@ def main() -> int:
 
         a, b = channels(gen, qs, 1, (batch, n)), channels(gen, qs, 1, (batch, n))
         got = K.polymul_rns_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
-        compare("polymul_rns", got, P.polymul_rns_plain(a, b, tabs), note)
+        compare("polymul_rns", got, P.polymul_rns_plain(a, b, tabs),
+                f"{note} {dshape}")
         golden_channels(
             got, lambda l, p: golden_dot(a[l, :g, None], b[l, :g, None], p),
             ring.rings, "polymul_rns_fused")
@@ -545,7 +572,7 @@ def main() -> int:
         b = channels(gen, qs, 1, (dot_batch, k, n))
         got = K.polydot_rns_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
         compare("polydot_rns", got, P.polydot_rns_plain(a, b, tabs),
-                f"n={n} L={L} B={dot_batch} k={k}")
+                f"n={n} L={L} B={dot_batch} k={k} {dshape}")
         golden_channels(got, lambda l, p: golden_dot(a[l, :g], b[l, :g], p),
                         ring.rings, "polydot_rns_fused")
         del a, b, got
@@ -561,9 +588,9 @@ def main() -> int:
         logc = K.fourstep_cluster(ft, mats)
         return f"cluster {1 << logc}" if logc >= 0 else "walking"
 
-    def slabs(ft):
-        """Which kernel K9a runs at this shape."""
-        w = K.fourstep_launch_info(ft, "col_fwd")["width"]
+    def slabs(ft, key="col_fwd"):
+        """Which kernel K9a (or K9b) runs at this shape."""
+        w = K.fourstep_launch_info(ft, key)["width"]
         return f"slabs of {w}" if w else "walking"
 
     for n, batch in FS_CHECK_SHAPES:
@@ -578,7 +605,8 @@ def main() -> int:
         compare("col_fwd", got, P.fwd_col_fourstep_plain(x, ft),
                 f"{note} {slabs(ft)}")
         got = K.inv_col_fourstep(y.to(torch.uint32), ft)
-        compare("col_inv", got, P.inv_col_fourstep_plain(y, ft), note)
+        compare("col_inv", got, P.inv_col_fourstep_plain(y, ft),
+                f"{note} {slabs(ft, 'col_inv')}")
         want_f = P.fwd_ntt_fourstep_plain(x, ft)
         got = K.fwd_ntt_fourstep(x.to(torch.uint32), ft)
         compare("fwd4", got, want_f, f"{note} {body(ft, 1)}")
@@ -614,6 +642,30 @@ def main() -> int:
                            ring.params),
                 "polymul_fourstep_fused")
         del a, b, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    # K9a and K9b alone at n1 = 2^11 .. 2^15: the slabs narrow to 2 columns,
+    # then the walking kernels; K9b on any 32-bit words, both scales
+    for logn1 in COL_LOGN1:
+        n1 = 1 << logn1
+        n = n1 * COL_N2
+        q = find_primes(n, 1)[0]
+        ft = P.make_fourstep_tables(FS.make_plan(n, q, None, n1), dev)
+        batch = COL_WORDS // n
+        shape = (batch, n1, COL_N2)
+        gen = torch.Generator(dev).manual_seed(logn1)
+        note = f"n1={n1} n2={COL_N2} B={batch}"
+        x = rand(gen, 4 * q, shape)
+        compare("col_fwd", K.fwd_col_fourstep(x.to(torch.uint32), ft),
+                P.fwd_col_fourstep_plain(x, ft), f"{note} {slabs(ft)}")
+        z = rand(gen, 1 << 32, shape)
+        z[0].view(-1)[:4] = torch.tensor([2**32 - 1, 4 * q - 1, 2 * q - 1, 0])
+        for sc in (None, ft.polymul_scale):
+            got = K.inv_col_fourstep(z.to(torch.uint32), ft, scale=sc)
+            compare("col_inv", got, P.inv_col_fourstep_plain(z, ft, sc),
+                    f"{note} {slabs(ft, 'col_inv')}"
+                    + (" polymul_scale" if sc else ""))
+        del x, z, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     # the DIT inverse (K12) and the cross-device stage (K11)
@@ -1126,8 +1178,8 @@ def main() -> int:
     path_of.update({key: slice_launches for key in SLICE})
     path_of.update({key: rns_launches for key in MULTI})
     path_of.update({key: fs_launches for key in FOURSTEP})
-    log("cluster kernels (K7a, K7b: one matrix, K8: two) and K9a's slab "
-        "kernel by matrix, and ptxas:")
+    log("cluster kernels (K7a, K7b: one matrix, K8: two) and K9a's and "
+        "K9b's slab kernels by matrix, and ptxas:")
     for n_, _ in FS_ROUTE_SHAPES + ((1 << 21, 16),):
         ft = Ring(n_, device=dev).fourstep
         for key, (what, _) in CLUSTER_KERNELS.items():
@@ -1135,7 +1187,7 @@ def main() -> int:
             where = f"  {what} n={n_} ({ft.n1}x{ft.n2}):"
             if not info["ctas"]:
                 log(f"{where} the walking kernel")
-            elif key == "col_fwd":
+            elif key in K.SLAB_KERNELS:
                 log(f"{where} {info['ctas']} slabs of {info['width']} columns, "
                     f"one CTA each x {info['threads']} threads, "
                     f"{info['smem_bytes']} bytes of shared memory a CTA, "
@@ -1147,6 +1199,15 @@ def main() -> int:
                     f"{info['max_active_clusters']} clusters at once")
     for _, name in CLUSTER_KERNELS.values():
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
+    log("K5 and K6b (polydot_rns_cluster_kernel) by n, and ptxas:")
+    for n_, k_ in ((RNS_N, 1), (8192, 2), (KS_N, KS_L), (32768, 2), (256, 2)):
+        info = K.polydot_rns_launch_info(RNSRing(n_, 1, device=dev).tables, k_)
+        log(f"  n={n_} k={k_}: {info['ctas']} CTAs a polynomial, "
+            f"{info['polys']} polynomials a CTA, {info['threads']} threads, "
+            f"{info['smem_bytes']} bytes of shared memory a CTA, "
+            f"{info['ctas_per_sm']} CTAs an SM, at most "
+            f"{info['max_active_clusters']} clusters at once")
+    log(f"  ptxas {DOT_KERNEL}: {'; '.join(ptxas.get(DOT_KERNEL, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -1161,7 +1222,8 @@ def main() -> int:
         count = (flat_launches[FLAT[key]] if key in FLAT
                  else path_of[key][key])
         rows.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": BODY_SOURCE.get(key, KERNEL_SOURCE),
             "replaces": replaces, "launches": count,
             "max_abs_err": worst[key], "mismatches": mismatched[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1367,7 +1429,7 @@ def main() -> int:
         call_ms["keyswitch ntt keys"])
     # profiled after every timing, so that no profiler session precedes a
     # host-bound measurement
-    log("the kernels K7a, K7b, K8 and K9a launch at 2^16 and 2^18 "
+    log("the kernels K7a, K7b, K8, K9a and K9b launch at 2^16 and 2^18 "
         "(torch.profiler):")
     for n_ in FS_PROFILE_NS:
         i = [n for n, _ in FS_PATH].index(n_)
@@ -1376,13 +1438,23 @@ def main() -> int:
                 ("fwd4", lambda: K.fwd_ntt_fourstep(xi, ft)),
                 ("inv4", lambda: K.inv_ntt_fourstep(yi, ft)),
                 ("polymul4", lambda: K.polymul_fourstep_fused(ai, bi, ft)),
-                ("col_fwd", lambda: K.fwd_col_fourstep(xi, ft))):
+                ("col_fwd", lambda: K.fwd_col_fourstep(xi, ft)),
+                ("col_inv", lambda: K.inv_col_fourstep(yi, ft))):
             what, name = CLUSTER_KERNELS[key]
             seen = kernels_seen(torch, call)
             log(f"  n={n_} B={xi.shape[0]} {what}: " +
                 ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
             if seen and not any(name in k for k, _, _ in seen):
                 raise AssertionError(f"{name} did not run at n={n_}")
+    for what, call in ((f"K6b (K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N})",
+                        lambda: K.polydot_rns_fused(dig32, kdot32, etabs)),
+                       (f"K5 (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
+                        lambda: K.polymul_rns_fused(ra, rb, rtabs))):
+        seen = kernels_seen(torch, call)
+        log(f"  {what}: " + ", ".join(f"{k} {c} x {ms:.4f} ms"
+                                      for k, c, ms in seen))
+        if seen and not any(DOT_KERNEL in k for k, _, _ in seen):
+            raise AssertionError(f"{DOT_KERNEL} did not run for {what}")
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
         kernel_share(torch, lambda: sr.ntt(sx),

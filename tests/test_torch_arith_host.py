@@ -4,13 +4,14 @@ of the cross-device stage K11, the DIT inverse's scale rows (K12) and the
 radix-4 and radix-8 groups of the four-step cluster kernels (K7a, K8:
 against the int64 butterflies stage by stage, and as whole size-4 and
 size-8 transforms against ``ops/plain_ntt.py``).  The bodies of the
-cluster kernels K7a, K7b, K8 and of K9a's slab kernel
-(``csrc/ntt_fourstep_cluster.cuh``) run here too: one host thread a GPU
-thread, four a CTA, ``std::barrier`` for ``__syncthreads`` and for the
-cluster's barrier, each CTA's slab a host array that the others reach as
-through ``map_shared_rank``, in a spawned child process (the pytest worker
-loads no threaded library); their output is held against the plain
-four-step versions at clusters of 1 to 16 CTAs.
+cluster kernels K7a, K7b, K8, of K9a's and K9b's slab kernels
+(``csrc/ntt_fourstep_cluster.cuh``) and of the multi-prime polydot K5/K6b
+(``csrc/ntt_polydot_cluster.cuh``) run here too: one host thread a GPU
+thread, four a CTA (the polydot: a sixteenth of its words), ``std::barrier``
+for ``__syncthreads`` and for the cluster's barrier, each CTA's slab a host
+array that the others reach as through ``map_shared_rank``, in a spawned
+child process (the pytest worker loads no threaded library); their output
+is held against the plain versions at clusters of 1 to 16 CTAs.
 
 ``csrc/ntt_arith.cuh`` is written once for the device and the host.  Here it
 is built with plain ``g++`` (``__host__``/``__device__`` defined away, no
@@ -132,7 +133,7 @@ static Dim blockDim = {4};
 static thread_local std::barrier<>* cta_barrier = nullptr;
 inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
-#include "ntt_fourstep_cluster.cuh"
+#include "ntt_polydot_cluster.cuh"
 
 struct HostCluster {
   std::barrier<>* all;
@@ -151,30 +152,40 @@ static Tabs4 tabs(const void* const* p) {
                (const uint32_t*)p[4], (const uint32_t*)p[5]};
 }
 
-// One cluster of 2^logc CTAs a polynomial, one after another.
+// `clusters` clusters of 2^logc CTAs of `words` words of shared memory,
+// one after another: body(cluster, slab, cluster index).
 template <class Body>
-static void run(int mats, long long batch, int logn1, int logn2, int logc,
-                Body body) {
+static void run_clusters(long long clusters, int logc, size_t words,
+                         Body body) {
   const int ctas = 1 << logc;
-  const size_t words = cluster_smem_bytes(mats, logn1, logn2, logc) / 4;
-  for (long long p = 0; p < batch; ++p) {
+  for (long long p = 0; p < clusters; ++p) {
     std::barrier<> all(ctas * blockDim.x);
     std::vector<std::barrier<>*> cta;
     for (int r = 0; r < ctas; ++r) cta.push_back(new std::barrier<>(blockDim.x));
     std::vector<std::vector<uint32_t>> slabs(ctas, std::vector<uint32_t>(words));
     std::vector<std::thread> threads;
-    const size_t off = (size_t)p << (logn1 + logn2);
     for (int r = 0; r < ctas; ++r)
       for (unsigned tid = 0; tid < blockDim.x; ++tid)
         threads.emplace_back([&, r, tid] {
           threadIdx.x = tid;
           cta_barrier = cta[r];
           HostCluster cl{&all, &slabs, r};
-          body(cl, slabs[r].data(), off);
+          body(cl, slabs[r].data(), p);
         });
     for (auto& t : threads) t.join();
     for (auto* b : cta) delete b;
   }
+}
+
+// One cluster of 2^logc CTAs a polynomial (`mats` matrices): body(cluster,
+// slab, the polynomial's first word).
+template <class Body>
+static void run(int mats, long long batch, int logn1, int logn2, int logc,
+                Body body) {
+  run_clusters(batch, logc, cluster_smem_bytes(mats, logn1, logn2, logc) / 4,
+               [&](HostCluster& cl, uint32_t* s, long long p) {
+                 body(cl, s, (size_t)p << (logn1 + logn2));
+               });
 }
 
 extern "C" {
@@ -215,6 +226,51 @@ void h_col_fwd4(const uint32_t* x, uint32_t* y, const void* const* t,
       [&](HostCluster& cl, uint32_t* s, size_t o) {
         col_fwd_slab_body(s, x + o, y + o, tb, sl, cl.rank, q);
       });
+}
+// K9b's slabs of 2^logw columns
+void h_col_inv4(const uint32_t* x, uint32_t* y, const void* const* t,
+                const uint32_t* cs, long long batch, int logn1, int logn2,
+                int logw, uint32_t q) {
+  const Slab4 sl = make_slab4(logn1, logn2, logn2 - logw);
+  const Tabs4 tb = tabs(t);
+  run(1, batch, logn1, logn2, sl.logc,
+      [&](HostCluster& cl, uint32_t* s, size_t o) {
+        col_inv_slab_body(s, x + o, y + o, tb, sl, cl.rank, cs, q);
+      });
+}
+// K5/K6b over `channels` channels of (batch, k, 2^logn) operands, CTAs of
+// 2^logthreads threads (each holding 16 words a thread of an operand);
+// tables (L, n), qs, qinvs (L,), scales (L, 4)
+void h_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                   const uint32_t* roots, const uint32_t* precon,
+                   const uint32_t* iroots, const uint32_t* iprecon,
+                   const uint32_t* qs, const uint32_t* qinvs,
+                   const uint32_t* scales, int channels, long long batch,
+                   int k, int logn, int logthreads) {
+  const DotShape sh = make_dot_shape(logn, logthreads);
+  const unsigned saved = blockDim.x;
+  blockDim.x = 1u << logthreads;
+  const long long clusters = (batch + (1LL << sh.logp) - 1) >> sh.logp;
+  for (int l = 0; l < channels; ++l) {
+    const size_t data = ((size_t)l * batch) << logn, tab = (size_t)l << logn;
+    run_clusters(clusters, sh.logc, dot_smem_bytes(sh, k) / 4,
+                 [&](HostCluster& cl, uint32_t* s, long long c) {
+                   polydot_rns_body(cl, s, a + data * k, b + data * k,
+                                    out + data, roots + tab, precon + tab,
+                                    iroots + tab, iprecon + tab, batch, k, sh,
+                                    cl.rank, c << sh.logp, qs[l], qinvs[l],
+                                    scales + 4 * l);
+                 });
+  }
+  blockDim.x = saved;
+}
+// K5/K6b's shape: {logc, logp, logw, logr, shared bytes with k = 1, k = 2}
+void h_dot_shape(int logn, int logthreads, long long* out) {
+  const DotShape s = make_dot_shape(logn, logthreads);
+  const long long v[6] = {s.logc, s.logp, s.logw, s.logr,
+                          (long long)dot_smem_bytes(s, 1),
+                          (long long)dot_smem_bytes(s, 2)};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 int h_cluster_logc(int mats, int logn1, int logn2, long long max_bytes) {
   return cluster_logc(mats, logn1, logn2, (size_t)max_bytes);
@@ -385,10 +441,17 @@ def _cluster_bodies_match_plain(so):
     plain four-step versions, at clusters of 1 to 16 CTAs (any size may take
     any cluster here), with K8's first operands at the edge words q - 1 and
     0 and K7b's first input at 2q - 1, q - 1 and 0 (the top of its lazy
-    range and below); K9a's slab body at slabs of 2, 8 and n2 columns; then
-    the cluster each balanced size takes at a block's 227 KiB, and K9a's
-    slab width at a third of an SM's shared memory and at a block's.  Runs
-    in a child process: ``so`` is the library's path."""
+    range and below); K9a's and K9b's slab bodies at slabs of 2, 8 and n2
+    columns, K9b on any words (2^32 - 1, 4q - 1, 2q - 1, q - 1 and 0
+    included) with both scales; the cluster each balanced size takes at a
+    block's 227 KiB, and K9a's slab width at a third of an SM's shared
+    memory and at a block's.  Then K5/K6b's polydot body at n = 256 and
+    1024, L = 2, k = 1 and 3, on clusters of 1, 2 and 4 CTAs and with 4
+    polynomials a CTA (a ragged last one), and at n = 8 and 4 (the turn pass
+    holding every stage; rows of 4 words), its operands at q - 1 on half of
+    the words and 0 on a quarter, against ``polydot_rns_plain``; and its
+    launch shape (cluster, polynomials a CTA, shared memory) at 256 threads
+    a CTA.  Runs in a child process: ``so`` is the library's path."""
     from agilex_ntt_tpu_torch.ops import fourstep as FS
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.params import find_psi
@@ -399,6 +462,9 @@ def _cluster_bodies_match_plain(so):
     h.h_polymul4.argtypes = [P_, P_, P_, P_, P_, P_, P_, LL, I, I, I, U, U]
     h.h_inv4.argtypes = [P_, P_, P_, P_, P_, LL, I, I, I, U]
     h.h_col_fwd4.argtypes = [P_, P_, P_, LL, I, I, I, U]
+    h.h_col_inv4.argtypes = [P_, P_, P_, P_, LL, I, I, I, U]
+    h.h_polydot_rns.argtypes = [P_] * 10 + [I, LL, I, I, I]
+    h.h_dot_shape.argtypes = [I, I, P_]
     h.h_cluster_logc.argtypes = [I, I, I, LL]
     h.h_slab_logw.argtypes = [I, I, LL]
 
@@ -443,6 +509,19 @@ def _cluster_bodies_match_plain(so):
             h.h_col_fwd4(_ptr(x32), _ptr(y), K._fwd_tabs(ft), batch, *logs,
                          logw, qn)
             assert np.array_equal(y, want), ("col_fwd4", n, logw)
+        # K9b takes any words: the edges of every lazy range, then random
+        xw = rng.integers(0, 1 << 32, size=shape, dtype=np.int64)
+        edges = (2**32 - 1, 4 * qn - 1, 2 * qn - 1, qn - 1, 0)
+        for i, v in enumerate(edges):
+            xw[0].reshape(-1)[i * n // 8: (i + 1) * n // 8] = v
+        xw32 = xw.astype(np.uint32)
+        for sc in (None, ft.polymul_scale):
+            want = P.inv_col_fourstep_plain(_t(xw), ft, sc).numpy()
+            for logw in sorted({min(1, logs[1]), min(3, logs[1]), logs[1]}):
+                y[:] = 0
+                h.h_col_inv4(_ptr(xw32), _ptr(y), K._inv_tabs(ft),
+                             K._col_scale(ft, sc), batch, *logs, logw, qn)
+                assert np.array_equal(y, want), ("col_inv4", n, logw, sc)
         h.h_polymul4(_ptr(a32), _ptr(b32), _ptr(out), K._fwd_tabs(ft),
                      K._inv_tabs(ft), K._row_scale(ft),
                      K._col_scale(ft, ft.polymul_scale), batch, *logs, logc,
@@ -460,6 +539,47 @@ def _cluster_bodies_match_plain(so):
     got = [(h.h_slab_logw(lg, 7, 76800), h.h_slab_logw(lg, 7, 232448))
            for lg in range(12, 16)]
     assert got == [(1, 3), (-1, 2), (-1, 1), (-1, -1)]
+
+    # K5/K6b: (n, log2 of the threads a CTA, batch); a CTA holds 16 words a
+    # thread, so at n = 256 4, 8 and 16 threads make clusters of 4, 2 and 1
+    # CTAs and 64 threads 4 polynomials a CTA; at n = 1024 16, 32, 64; at
+    # n = 8 the turn pass holds every stage, at n = 4 rows of 4 words
+    for n, logt, batch in ((256, 2, 2), (256, 3, 2), (256, 4, 2), (256, 6, 5),
+                           (1024, 4, 1), (1024, 5, 1), (1024, 6, 2),
+                           (8, 0, 3), (4, 1, 7)):
+        tabs = P.make_rns_tables([P.make_tables(make_params(n, q), "cpu")
+                                  for q in find_primes(n, 2)])
+        rng = np.random.default_rng(n + logt)
+        for k in (1, 3):
+            shape = (batch, k, n)
+            a = np.stack([rng.integers(0, q, size=shape) for q in tabs.qs])
+            b = np.stack([rng.integers(0, q, size=shape) for q in tabs.qs])
+            for l, q in enumerate(tabs.qs):
+                a[l].reshape(-1)[: a[l].size // 2] = q - 1
+                b[l].reshape(-1)[: b[l].size // 4] = q - 1
+                b[l].reshape(-1)[b[l].size // 2: 3 * b[l].size // 4] = 0
+                a[l].reshape(-1)[3 * a[l].size // 4:] = 0
+            a32, b32 = a.astype(np.uint32), b.astype(np.uint32)
+            out = np.zeros((2, batch, n), dtype=np.uint32)
+            h.h_polydot_rns(
+                _ptr(a32), _ptr(b32), _ptr(out),
+                *(t.data_ptr() for t in (
+                    tabs.roots, tabs.precon, tabs.inv_roots, tabs.inv_precon,
+                    tabs.q_words, tabs.qinv_words,
+                    tabs.scale_words(tabs.polymul_scale))),
+                2, batch, k, n.bit_length() - 1, logt)
+            want = P.polydot_rns_plain(_t(a), _t(b), tabs).numpy()
+            assert np.array_equal(out, want), ("polydot_rns", n, logt, k)
+    # its shape at 256 threads: (cluster log, polynomials log, row log, rows
+    # log, bytes at k = 1 and k > 1) at the key switch's 16384, K5's 4096,
+    # 32768 and 256
+    shp = (ctypes.c_longlong * 6)()
+    got = []
+    for lg in (14, 12, 15, 8):
+        h.h_dot_shape(lg, 8, shp)
+        got.append(tuple(shp))
+    assert got == [(2, 0, 3, 9, 36864, 73728), (0, 0, 3, 9, 36864, 73728),
+                   (3, 0, 3, 9, 36864, 73728), (0, 4, 3, 5, 36864, 73728)]
 
 
 @pytest.mark.parametrize("q", PRIMES)

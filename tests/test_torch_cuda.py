@@ -108,26 +108,51 @@ def test_rns_transforms_match_plain(cuda, n, L, batch):
         assert np.array_equal(got_f[l, :2].cpu().numpy(), golden)
 
 
+# K5/K6b's launch shapes that the parametrized cases below do not reach,
+# run inside the first case: a cluster of 2 CTAs (n = 8192), 16 and 512
+# polynomials a CTA (n = 256 and 8, ragged last CTAs)
+RNS_FUSED_MORE = ((8192, 2, 3, 3), (8192, 3, 5, 1), (256, 3, 37, 2),
+                  (8, 2, 1001, 3))
+
+
 @pytest.mark.parametrize("n,L,batch,k", [(32, 3, 999, 1), (32, 3, 999, 3),
                                          (4096, 3, 16, 1), (4096, 5, 8, 4),
                                          (16384, 5, 2, 4), (32768, 4, 3, 1),
                                          (32768, 3, 2, 2)])
 def test_rns_fused_match_plain(cuda, n, L, batch, k):
-    ring = RNSRing(n, L, device=cuda)
-    tabs = ring.tables
-    gen = torch.Generator(cuda).manual_seed(n + L + k)
-    a = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
-    b = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
-    a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
-    if k == 1:
-        got = K.polymul_rns_fused(a32[:, :, 0].contiguous(),
-                                  b32[:, :, 0].contiguous(), tabs)
-        want = P.polymul_rns_plain(a[:, :, 0], b[:, :, 0], tabs)
-    else:
-        got = K.polydot_rns_fused(a32, b32, tabs)
-        want = P.polydot_rns_plain(a, b, tabs)
-    torch.cuda.synchronize()
-    assert torch.equal(got.to(torch.int64), want)
+    """K5 (k = 1) and K6b against their plain versions at every launch
+    shape of the kernel: a CTA holds 4096 words of each operand, so n =
+    8192, 16384 and 32768 take clusters of 2, 4 and 8 CTAs, n = 4096 one
+    CTA, smaller n several polynomials a CTA; operands at q - 1 on half of
+    the words and 0 on a quarter."""
+    cases = ((n, L, batch, k),)
+    if (n, L, batch, k) == (32, 3, 999, 1):
+        cases += RNS_FUSED_MORE
+    for n, L, batch, k in cases:
+        ring = RNSRing(n, L, device=cuda)
+        tabs = ring.tables
+        info = K.polydot_rns_launch_info(tabs, k)
+        assert (info["ctas"], info["polys"], info["threads"]) == (
+            max(1, n // 4096), max(1, 4096 // n), 256), n
+        gen = torch.Generator(cuda).manual_seed(n + L + k)
+        a = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
+        b = _channels(gen, ring.qs, 1, (batch, k, n), cuda)
+        for l, q in enumerate(ring.qs):
+            a[l].view(-1)[: a[l].numel() // 2] = q - 1
+            b[l].view(-1)[b[l].numel() // 2: 3 * b[l].numel() // 4] = 0
+        a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
+        key = "polymul_rns" if k == 1 else "polydot_rns"
+        before = K.LAUNCHES[key]
+        if k == 1:
+            got = K.polymul_rns_fused(a32[:, :, 0].contiguous(),
+                                      b32[:, :, 0].contiguous(), tabs)
+            want = P.polymul_rns_plain(a[:, :, 0], b[:, :, 0], tabs)
+        else:
+            got = K.polydot_rns_fused(a32, b32, tabs)
+            want = P.polydot_rns_plain(a, b, tabs)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[key] == before + 1
+        assert torch.equal(got.to(torch.int64), want), (n, L, batch, k)
 
 
 def test_rns_keyswitch_on_the_card_matches_the_cpu(cuda):
@@ -158,9 +183,10 @@ def test_fourstep_kernels_match_plain(cuda):
     2048 x 1024 (all three walking; the column tile of 16 columns), a
     cyclic plan at 256 x 256, and the unbalanced 8192 x 128 and 16384 x 128
     (K9a's slabs of one CTA of 512 an SM) and 32768 x 2 (K9a's walking
-    kernel).  The cluster each wrapper picks and K9a's slab width and
-    threads are checked; K8's first operands hold the edge words q - 1 and
-    0."""
+    kernel; K9b's walking kernel likewise).  The cluster each wrapper picks
+    and K9a's and K9b's slab width and threads are checked; K8's first
+    operands hold the edge words q - 1 and 0, K9b's input reaches 2^32 - 1
+    and 4q - 1."""
     # (n, n1, batch, cyclic, log2 of K7a's and K7b's cluster, of K8's, K9a's
     # slab width and threads; -1 and 0: walking)
     for n, n1, batch, cyclic, c7, c8, w9, t9 in (
@@ -184,8 +210,9 @@ def test_fourstep_kernels_match_plain(cuda):
             plan = FS.make_plan(n, q, None, n1)
         ft = P.make_fourstep_tables(plan, cuda)
         assert (K.fourstep_cluster(ft, 1), K.fourstep_cluster(ft, 2)) == (c7, c8)
-        info = K.fourstep_launch_info(ft, "col_fwd")
-        assert (info["width"], info["threads"]) == (w9, t9), n
+        for key in ("col_fwd", "col_inv"):
+            info = K.fourstep_launch_info(ft, key)
+            assert (info["width"], info["threads"]) == (w9, t9), (key, n)
         for key in ("fwd4", "inv4"):
             assert K.fourstep_launch_info(ft, key)["ctas"] == (
                 1 << c7 if c7 >= 0 else 0)
@@ -196,6 +223,8 @@ def test_fourstep_kernels_match_plain(cuda):
         a[0].view(-1)[: n // 2] = q - 1
         b[0].view(-1)[: n // 4] = q - 1
         b[0].view(-1)[n // 2:] = 0
+        z = _rand(gen, 1 << 32, shape, cuda)  # K9b takes any words
+        z[0].view(-1)[:2] = torch.tensor([2**32 - 1, 4 * q - 1])
         x32, y32 = x.to(torch.uint32), y.to(torch.uint32)
         before = dict(K.LAUNCHES)
         got = {
@@ -217,6 +246,9 @@ def test_fourstep_kernels_match_plain(cuda):
         for key, out in got.items():
             assert K.LAUNCHES[key] == before[key] + 1
             assert torch.equal(out.to(torch.int64), want[key]), (key, n, cyclic)
+        got = K.inv_col_fourstep(z.to(torch.uint32), ft, scale=ft.polymul_scale)
+        want = P.inv_col_fourstep_plain(z, ft, ft.polymul_scale)
+        assert torch.equal(got.to(torch.int64), want), ("col_inv any word", n)
 
 
 def test_fourstep_rings_on_the_card_match_the_cpu(cuda):
