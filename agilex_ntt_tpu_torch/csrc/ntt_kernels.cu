@@ -7,9 +7,11 @@
 //                                        folded into the last stage)
 //   polydot_kernel  <- _polymul_kernel  (K3, k = 1)
 //                   and _polydot_kernel (K6a, sum of k products)
-//   fwd_rns_kernel  <- _fwd_rns_kernel  (K4a, K1 over L primes)
-//   inv_rns_kernel  <- _inv_rns_kernel  (K4b, K2 over L primes, a scale
-//                                        per channel)
+//   fwd_rns_cluster_kernel <- _fwd_rns_kernel (K4a, K1 over L primes)
+//   inv_rns_cluster_kernel <- _inv_rns_kernel (K4b, K2 over L primes, a
+//                                        scale per channel; both on the
+//                                        polydot's register-radix passes,
+//                                        see ntt_rns_transform.cuh)
 //   polydot_rns_cluster_kernel <- _polymul_rns_kernel (K5, k = 1)
 //                   and _polydot_rns_kernel   (K6b, K6a over L primes; see
 //                                        ntt_polydot_cluster.cuh for its
@@ -31,7 +33,7 @@
 //   col_inv4_slab_kernel, where a slab of 2 columns fits a block, else
 //   col_inv4_kernel <- _col_inv_kernel      (K9b)
 // The multi-prime kernels run with the channel on blockIdx.y (K4a and K4b
-// on the single-prime bodies, K5/K6b on polydot_rns_body): each block
+// on fwd_rns_body/inv_rns_body, K5/K6b on polydot_rns_body): each block
 // reads its channel's q, -q^-1 and inverse-scale constants from (L,) and
 // (L, 4) arrays and its twiddles from row l of the (L, n) tables, where the
 // TPU kernels take q from SMEM and (L, log n, n) positional tables per grid
@@ -44,8 +46,8 @@
 // Bound on this card: memory for fwd/inv, int32 issue for the fused ones.
 // A call must move 2 B n 4 bytes for fwd/inv, 3 B n 4 for the polymul and
 // (2k + 1) B n 4 for the polydot; a multi-prime call L times that (B
-// polynomials in each of L channels) plus its L 4 n table words, and does L
-// times the operations.  A transform also does (n/2) log2(n)
+// polynomials in each of L channels) plus its table words (L 2 n for a
+// transform, L 4 n for the fused ones), and does L times the operations.  A transform also does (n/2) log2(n)
 // butterflies of 3 multiplies (FMA pipe only), one unsigned min (ALU pipe
 // only) and 3 adds (either pipe).  An H100 SM runs 64 lanes of each pipe
 // and issues 128 lane-operations a clock: 16.75 T multiplies/s and 33.5 T
@@ -64,11 +66,14 @@
 // memory, which stay in L2.  The fused kernel keeps the first operand's
 // transform and the running sum beside the working tile in shared memory;
 // where they do not fit (n = 32768) they go to a scratch buffer in device
-// memory that the caller allocates.  These kernels run at a tenth to a
-// fifth of that bound on an H100 (PERF.md): every stage goes through
-// shared memory and a block-wide barrier.  The multi-prime polydot (K5,
-// K6b) runs register-radix passes with the sum in registers instead
-// (ntt_polydot_cluster.cuh); the single-prime polydot (K3, K6a) is next.
+// memory that the caller allocates.  These kernels (K1, K2, K3/K6a on
+// fwd_body, inv_body and polydot_body) run at a tenth to a fifth of that
+// bound on an H100 (PERF.md): every stage goes through shared memory and a
+// block-wide barrier.  The multi-prime kernels run register-radix passes
+// instead: the polydot (K5, K6b) with the sum in registers
+// (ntt_polydot_cluster.cuh), the transforms (K4a, K4b) on the same passes
+// with one operand (ntt_rns_transform.cuh); the single-prime polydot (K3,
+// K6a) is next.
 //
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
@@ -80,6 +85,7 @@
 #include "ntt_arith.cuh"
 #include "ntt_fourstep_cluster.cuh"
 #include "ntt_polydot_cluster.cuh"
+#include "ntt_rns_transform.cuh"
 
 namespace {
 
@@ -325,37 +331,9 @@ polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 //
 // Channel l's data starts at l * batch * n (l * batch * k * n for the dot's
 // operands), its tables at row l of the (L, n) tables, and its scalars are
-// qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').  K5 and
-// K6b: polydot_rns_cluster_kernel, after the four-step section.
-
-__global__ void __launch_bounds__(kThreads)
-fwd_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const uint32_t* __restrict__ roots,
-               const uint32_t* __restrict__ precon,
-               const uint32_t* __restrict__ qs, long long batch, int logn,
-               int polys) {
-  const int l = blockIdx.y;
-  const long long data = ((long long)l * batch) << logn;
-  const long long tab = (long long)l << logn;
-  fwd_body(x + data, y + data, roots + tab, precon + tab, batch, logn, polys,
-           __ldg(qs + l));
-}
-
-__global__ void __launch_bounds__(kThreads)
-inv_rns_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const uint32_t* __restrict__ iroots,
-               const uint32_t* __restrict__ iprecon,
-               const uint32_t* __restrict__ qs,
-               const uint32_t* __restrict__ scales, long long batch, int logn,
-               int polys) {
-  const int l = blockIdx.y;
-  const long long data = ((long long)l * batch) << logn;
-  const long long tab = (long long)l << logn;
-  const uint32_t* s = scales + 4 * l;
-  inv_body(x + data, y + data, iroots + tab, iprecon + tab, batch, logn,
-           polys, __ldg(qs + l), __ldg(s), __ldg(s + 1), __ldg(s + 2),
-           __ldg(s + 3));
-}
+// qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').  All
+// four run on clusters: fwd_rns_cluster_kernel, inv_rns_cluster_kernel and
+// polydot_rns_cluster_kernel, after the four-step section.
 
 // -- DIT inverse (K12) --------------------------------------------------------
 //
@@ -959,6 +937,78 @@ cudaError_t dot_launch(int channels, long long batch, int k, int logn,
   return allow_cluster(polydot_rns_cluster_kernel, d->sh.logc, d->bytes);
 }
 
+// K4a/K4b (ntt_rns_transform.cuh): CTAs of 256 threads, each holding 4096
+// words of a slab (a cluster of n / 4096 CTAs a polynomial, or 4096 / n
+// polynomials a CTA), kRnsCtasPerSm an SM: at most 40 registers and a few
+// spilled, which measured 3-6% faster than four an SM without a spill.
+// One unit a cluster and one slab (18 KiB a CTA): a cluster that took
+// several units in turn, loading the next into a second slab, measured
+// 8-15% slower on the H100 at every shape timed (PERF.md).
+constexpr int kRnsLogThreads = 8;
+constexpr int kRnsCtasPerSm = 6;
+
+// Cluster blockIdx.x >> logc of channel blockIdx.y transforms unit
+// blockIdx.x >> logc.
+__global__ void __launch_bounds__(1 << kRnsLogThreads, kRnsCtasPerSm)
+fwd_rns_cluster_kernel(const uint32_t* __restrict__ x,
+                       uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ roots,
+                       const uint32_t* __restrict__ precon,
+                       const uint32_t* __restrict__ qs, long long batch,
+                       DotShape sh) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << sh.logn;
+  const long long tab = (long long)l << sh.logn;
+  fwd_rns_body(cl, smem, x + data, y + data, roots + tab, precon + tab, batch,
+               sh, (int)cl.block_rank(), blockIdx.x >> sh.logc,
+               __ldg(qs + l));
+}
+
+__global__ void __launch_bounds__(1 << kRnsLogThreads, kRnsCtasPerSm)
+inv_rns_cluster_kernel(const uint32_t* __restrict__ x,
+                       uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ iroots,
+                       const uint32_t* __restrict__ iprecon,
+                       const uint32_t* __restrict__ qs,
+                       const uint32_t* __restrict__ scales, long long batch,
+                       DotShape sh) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int l = blockIdx.y;
+  const long long data = ((long long)l * batch) << sh.logn;
+  const long long tab = (long long)l << sh.logn;
+  inv_rns_body(cl, smem, x + data, y + data, iroots + tab, iprecon + tab,
+               batch, sh, (int)cl.block_rank(), blockIdx.x >> sh.logc,
+               __ldg(qs + l), scales + 4 * l);
+}
+
+const void* rns_kernel(bool inv) {
+  return inv ? (const void*)inv_rns_cluster_kernel
+             : (const void*)fwd_rns_cluster_kernel;
+}
+
+// A transform launch at (L, B, n): the shape, the clusters a channel (one
+// a unit), the kernel's attributes set.
+struct RnsLaunch {
+  DotShape sh;
+  long long clusters;
+  size_t bytes;
+};
+
+cudaError_t rns_launch(bool inv, int channels, long long batch, int logn,
+                       RnsLaunch* d) {
+  if (channels < 1 || channels > kMaxChannels || batch < 1 || logn < 1)
+    return cudaErrorInvalidValue;
+  d->sh = make_dot_shape(logn, kRnsLogThreads);
+  if (d->sh.logc > kDotMaxClusterLog) return cudaErrorInvalidValue;
+  d->bytes = rns_smem_bytes(d->sh);
+  d->clusters = rns_units(d->sh, batch);
+  if (!cluster_grid_ok(d->clusters, d->sh.logc)) return cudaErrorInvalidValue;
+  return allow_cluster(rns_kernel(inv), d->sh.logc, d->bytes);
+}
+
 // Tiles the fused kernel keeps besides the working tile: fa, and acc if k > 1.
 int polydot_extra_tiles(int k) { return k > 1 ? 2 : 1; }
 
@@ -1025,18 +1075,18 @@ int ntt_polydot(const uint32_t* a, const uint32_t* b, uint32_t* out,
   return (int)cudaGetLastError();
 }
 
+// K4a, K4b: one launch for every channel.
 int ntt_fwd_rns(const uint32_t* x, uint32_t* y, const uint32_t* roots,
                 const uint32_t* precon, const uint32_t* qs, int channels,
                 long long batch, int logn, void* stream) {
-  if (channels < 1 || channels > kMaxChannels)
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(batch, logn);
-  const size_t bytes = (size_t)p.words * 4;
-  cudaError_t err = allow_smem((const void*)fwd_rns_kernel, bytes);
+  RnsLaunch d;
+  cudaError_t err = rns_launch(false, channels, batch, logn, &d);
   if (err != cudaSuccess) return (int)err;
-  fwd_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
-                   (cudaStream_t)stream>>>(x, y, roots, precon, qs, batch,
-                                           logn, p.polys);
+  ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kRnsLogThreads, d.bytes,
+                       stream, (unsigned)channels);
+  err = cudaLaunchKernelEx(&launch.cfg, fwd_rns_cluster_kernel, x, y, roots,
+                           precon, qs, batch, d.sh);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1044,16 +1094,46 @@ int ntt_inv_rns(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
                 const uint32_t* iprecon, const uint32_t* qs,
                 const uint32_t* scales, int channels, long long batch,
                 int logn, void* stream) {
-  if (channels < 1 || channels > kMaxChannels)
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(batch, logn);
-  const size_t bytes = (size_t)p.words * 4;
-  cudaError_t err = allow_smem((const void*)inv_rns_kernel, bytes);
+  RnsLaunch d;
+  cudaError_t err = rns_launch(true, channels, batch, logn, &d);
   if (err != cudaSuccess) return (int)err;
-  inv_rns_kernel<<<dim3(p.grid, channels), kThreads, bytes,
-                   (cudaStream_t)stream>>>(x, y, iroots, iprecon, qs, scales,
-                                           batch, logn, p.polys);
+  ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kRnsLogThreads, d.bytes,
+                       stream, (unsigned)channels);
+  err = cudaLaunchKernelEx(&launch.cfg, inv_rns_cluster_kernel, x, y, iroots,
+                           iprecon, qs, scales, batch, d.sh);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// K4a's (inv = 0) or K4b's (1) launch for (channels, batch, n = 2^logn):
+// info = {log2 of the CTAs a polynomial (the cluster), log2 of the
+// polynomials a CTA, shared memory bytes a CTA, threads a CTA, registers a
+// thread, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
+// most such clusters the card runs at once, the clusters a channel
+// launched}.
+int ntt_rns_launch_info(int inv, int logn, int channels, long long batch,
+                        int* info) {
+  for (int i = 0; i < 8; ++i) info[i] = 0;
+  RnsLaunch d;
+  cudaError_t err = rns_launch(inv != 0, channels, batch, logn, &d);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = d.sh.logc;
+  info[1] = d.sh.logp;
+  info[2] = (int)d.bytes;
+  info[3] = 1 << kRnsLogThreads;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, rns_kernel(inv != 0));
+  if (err != cudaSuccess) return (int)err;
+  info[4] = attr.numRegs;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[5], rns_kernel(inv != 0), info[3], d.bytes);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(1, d.sh.logc, info[3], d.bytes, nullptr);
+  err = cudaOccupancyMaxActiveClusters(&info[6], rns_kernel(inv != 0),
+                                       &launch.cfg);
+  if (err != cudaSuccess) return (int)err;
+  info[7] = (int)d.clusters;
+  return (int)cudaSuccess;
 }
 
 // K5/K6b: one launch for every channel, no scratch.

@@ -179,10 +179,12 @@ __device__ __forceinline__ void dot_load(uint32_t* sa, uint32_t* sb,
 
 // The radix-C groups across the cluster, stages [0, logc) (block 0: one
 // set of twiddles): this CTA takes words [rank S / C, (rank + 1) S / C) of
-// every CTA's slab.  Forward on slabs sa and sb; inverse (kInv) on sa,
-// scaled, storing CTA j's results to its words of `out` (poly0 < batch:
-// with a cluster a CTA holds one polynomial).
-template <int K, bool kInv, class Cluster>
+// every CTA's slab.  Forward on slabs sa and sb (kOps = 2, the dot's pair)
+// or on sa alone (kOps = 1, the transforms of ntt_rns_transform.cuh: g
+// then never reaches sb); inverse (kInv) on sa, scaled, storing CTA j's
+// results to its words of `out` (poly0 < batch: with a cluster a CTA holds
+// one polynomial).
+template <int K, bool kInv, int kOps = (kInv ? 1 : 2), class Cluster>
 __device__ __forceinline__ void dot_cross_pass(
     Cluster& cl, uint32_t* sa, uint32_t* sb, uint32_t* __restrict__ out,
     const DotShape& s, int rank, long long poly0,
@@ -191,7 +193,7 @@ __device__ __forceinline__ void dot_cross_pass(
   uint32_t w[(1 << K) - 1], wp[(1 << K) - 1];
   load_group_twiddles<K>(w, wp, roots, precon, 0, 0);
   const int loge = s.logs - K;  // this CTA's words of a slab
-  const int count = (kInv ? 1 : 2) << loge;
+  const int count = kOps << loge;
   for (int g = dot_tid(); g < count; g += blockDim.x) {
     const int e = (rank << loge) + (g & ((1 << loge) - 1));
     uint32_t* word = ((g >> loge) != 0 ? sb : sa) + dot_word(s, e);
@@ -230,8 +232,9 @@ __device__ __forceinline__ DotColGroup dot_col_group(int g, const DotShape& s,
   return cg;
 }
 
-// Forward stages [s, s + K) on the columns of slabs sa and sb.
-template <int K>
+// Forward stages [s, s + K) on the columns of slabs sa and sb (kOps = 2)
+// or of sa alone (kOps = 1: g then never reaches sb).
+template <int K, int kOps = 2>
 __device__ __forceinline__ void dot_col_fwd_pass(
     uint32_t* sa, uint32_t* sb, const DotShape& s, int rank, int st,
     const uint32_t* __restrict__ roots, const uint32_t* __restrict__ precon,
@@ -239,7 +242,7 @@ __device__ __forceinline__ void dot_col_fwd_pass(
   const int sc = st - s.logc;             // stage within the columns
   const int logu = s.logr - sc - K;       // rows between a group's words
   const int logg = s.logs - K;            // groups of one slab
-  for (int g = dot_tid(); g < (2 << logg); g += blockDim.x) {
+  for (int g = dot_tid(); g < (kOps << logg); g += blockDim.x) {
     uint32_t* slab = (g >> logg) != 0 ? sb : sa;
     const DotColGroup cg = dot_col_group<K>(g & ((1 << logg) - 1), s, rank,
                                             sc, logu);

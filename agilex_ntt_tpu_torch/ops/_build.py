@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh",
-           "ntt_polydot_cluster.cuh", "ntt_kernels.cu")
+           "ntt_polydot_cluster.cuh", "ntt_rns_transform.cuh",
+           "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libntt_kernels.so"
 NVCC_FLAGS = (
@@ -51,6 +52,8 @@ SIGNATURES = {
     ),
     # logn, k, info (6 ints)
     "ntt_polydot_rns_launch_info": (_I, _I, _P),
+    # inv, logn, channels, batch, info (9 ints)
+    "ntt_rns_launch_info": (_I, _I, _I, _LL, _P),
     # four-step: tabs is a host array of six device pointers, the scales
     # host arrays of four words.
     # x, y, tabs, batch, logn1, logn2, q, stream

@@ -195,7 +195,11 @@ def polydot_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch
 
 
 def fwd_ntt_rns(x: torch.Tensor, tables: RNSTables) -> torch.Tensor:
-    """Forward NTT of (L, B, n), channel l in [0, 4 q_l) -> [0, q_l)."""
+    """Forward NTT of (L, B, n), channel l in [0, 4 q_l) -> [0, q_l).
+
+    On the card the polydot's register-radix passes with one operand: a CTA
+    holds 4096 words (a polynomial of n > 4096 words on a cluster of
+    n / 4096 CTAs, smaller ones several to a CTA; ``rns_launch_info``)."""
     _check(x, tables, "fwd_ntt_rns", 3)
     if x.device.type == "cpu":
         return _u32(plain.fwd_ntt_rns_plain(x.to(torch.int64), tables))
@@ -218,7 +222,8 @@ def inv_ntt_rns(
 ) -> torch.Tensor:
     """Inverse NTT of (L, B, n), channel l in [0, 2 q_l) -> [0, q_l).
     ``scales[l]`` replaces channel l's final n^-1 (for example
-    ``tables.polymul_scale`` to absorb a Montgomery factor)."""
+    ``tables.polymul_scale`` to absorb a Montgomery factor).  On the card
+    ``fwd_ntt_rns``'s launch shape, the passes in the mirror order."""
     _check(x, tables, "inv_ntt_rns", 3)
     if x.device.type == "cpu":
         return _u32(plain.inv_ntt_rns_plain(x.to(torch.int64), tables, scales))
@@ -235,6 +240,28 @@ def inv_ntt_rns(
     _build.check(lib, rc, "inv_ntt_rns")
     LAUNCHES["inv_rns"] += 1
     return y
+
+
+def rns_launch_info(tables: RNSTables, which: str = "fwd_rns",
+                    batch: int = 1) -> dict:
+    """The launch of the multi-prime transform kernel ``which``
+    (``"fwd_rns"``: K4a, ``"inv_rns"``: K4b) on (L, ``batch``, n) at
+    ``tables``' L and n: ``ctas`` a polynomial (the cluster; 1: no
+    cluster), ``polys`` a CTA, shared memory and threads a CTA,
+    ``registers`` a thread, CTAs an SM, the most such clusters the card runs
+    at once and ``clusters`` launched a channel (one a unit of ``polys``
+    polynomials, or one polynomial on a cluster)."""
+    if which not in ("fwd_rns", "inv_rns"):
+        raise ValueError(f"rns_launch_info: unknown kernel {which!r}")
+    lib = _build.load()
+    info = (ctypes.c_int * 8)()
+    _build.check(lib, lib.ntt_rns_launch_info(int(which == "inv_rns"),
+                                              tables.log_n, tables.L, batch,
+                                              info), "rns_launch_info")
+    return {"ctas": 1 << info[0], "polys": 1 << info[1],
+            "smem_bytes": info[2], "threads": info[3],
+            "registers": info[4], "ctas_per_sm": info[5],
+            "max_active_clusters": info[6], "clusters": info[7]}
 
 
 def _polydot_rns_launch(a, b, tables: RNSTables, what: str) -> torch.Tensor:

@@ -57,8 +57,9 @@ SHAPES = ((5, 64, 4, 16384), (3, 2048, 1, 4096))
 KERNEL = "polydot_rns_cluster_kernel"
 
 
-def local_memory_ops(lib: Path) -> str:
-    """The STL and LDL instructions in the dot kernel's SASS, counted."""
+def local_memory_ops(lib: Path, kernel: str = KERNEL) -> str:
+    """The STL and LDL instructions in ``kernel``'s SASS (by default the
+    dot kernel's), counted."""
     nvcc = Path(_build._nvcc())
     cuobjdump = shutil.which("cuobjdump") or str(nvcc.parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
@@ -66,7 +67,7 @@ def local_memory_ops(lib: Path) -> str:
     counts, inside = {"STL": 0, "LDL": 0}, False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = KERNEL in line
+            inside = kernel in line
         elif inside:
             for op in counts:
                 counts[op] += bool(re.search(rf"\b{op}(\.|\s)", line))

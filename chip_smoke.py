@@ -17,10 +17,11 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    n=32, and at two shapes that reach the kernels' other branches.  L
    primes: the "n4096" chain (L=3, batch 2048), the key-switch dot of the
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=8192 and n=32768,
-   n=32 (L=3, batch 4096) and a ragged batch: K5 and K6b at every launch
-   shape of their kernel (clusters of 1, 2, 4 and 8 CTAs, 16 and 128
-   polynomials a CTA), each check line naming it.  The first rows are also
-   held against the package's numpy golden model, channel by channel.
+   n=32 (L=3, batch 4096) and a ragged batch: K4a, K4b, K5 and K6b at
+   every launch shape of their kernels (clusters of 1, 2, 4 and 8 CTAs, 16
+   and 128 polynomials a CTA), each check line naming it.  The first rows
+   are also held against the package's numpy golden model, channel by
+   channel.
    Four-step (K7a, K7b, K8, K9a and K9b everywhere): n=2^16 (B=512), 2^18
    (B=128), 2^19 (B=64), 2^20 (B=32), 2^21 (B=16; where the route takes
    the two-kernel transforms, the public ``Ring`` also through the row pass
@@ -64,11 +65,14 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       equal word for word to the unsharded ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
-   (``bound_ms``); the cluster and slab kernels' launch shapes (CTAs a
+   (``bound_ms``), and K4a and K4b also at the key switch's shapes (n =
+   16384, K = 5 primes); the cluster and slab kernels' launch shapes (CTAs a
    cluster or slab width, shared memory, CTAs an SM,
-   ``cudaOccupancyMaxActiveClusters``, registers and spills; K5's and
-   K6b's cluster or polynomials a CTA) and the kernels ``torch.profiler``
-   sees run at 2^16 and 2^18; the fused
+   ``cudaOccupancyMaxActiveClusters``, registers and spills; K4a's, K4b's,
+   K5's and K6b's cluster or polynomials a CTA, K4a's and K4b's clusters a
+   channel) and
+   the kernels ``torch.profiler`` sees run at 2^16 and 2^18 and for K4a,
+   K4b, K5 and K6b; the fused
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
    set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
@@ -183,6 +187,8 @@ SHARD_DOT_DP = 8
 KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
 # rows whose kernel body lives in a header beside it
 BODY_SOURCE = {
+    **{key: "agilex_ntt_tpu_torch/csrc/ntt_rns_transform.cuh"
+       for key in ("fwd_rns", "inv_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_polydot_cluster.cuh"
        for key in ("polymul_rns", "polydot_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
@@ -314,7 +320,8 @@ def bound(words_moved: int, ops):
 OUR_KERNEL = re.compile(
     r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
     r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
-    r"|col_inv4_slab|polydot_rns_cluster|dit_inv|xchg)(_rns)?_kernel")
+    r"|col_inv4_slab|polydot_rns_cluster|fwd_rns_cluster|inv_rns_cluster"
+    r"|dit_inv|xchg)(_rns)?_kernel")
 # wrapper counter -> (TPU kernel, its cluster or slab kernel)
 CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "inv4": ("K7b", "inv4_cluster_kernel"),
@@ -322,6 +329,8 @@ CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "col_fwd": ("K9a", "col_fwd4_slab_kernel"),
                    "col_inv": ("K9b", "col_inv4_slab_kernel")}
 DOT_KERNEL = "polydot_rns_cluster_kernel"  # K5 and K6b
+RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
+               "inv_rns": ("K4b", "inv_rns_cluster_kernel")}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
@@ -533,6 +542,13 @@ def main() -> int:
             return f"cluster {info['ctas']}"
         return f"{info['polys']} a CTA"
 
+    def rns_shape(tabs, which, batch):
+        """Which launch shape K4a or K4b takes at (L, batch, n)."""
+        info = K.rns_launch_info(tabs, which, batch)
+        if info["ctas"] > 1:
+            return f"cluster {info['ctas']}"
+        return f"{info['polys']} a CTA"
+
     g = GOLDEN_ROWS
     for n, L, batch, k, dot_batch in RNS_CHECK_SHAPES:
         ring = RNSRing(n, L, device=dev)
@@ -543,20 +559,23 @@ def main() -> int:
 
         x = channels(gen, qs, 4, (batch, n))
         got = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
-        compare("fwd_rns", got, P.fwd_ntt_rns_plain(x, tabs), note)
+        compare("fwd_rns", got, P.fwd_ntt_rns_plain(x, tabs),
+                f"{note} {rns_shape(tabs, 'fwd_rns', batch)}")
         golden_channels(got, lambda l, p: golden_fwd(x[l, :g], p), ring.rings,
                         "fwd_ntt_rns")
         del x, got
 
         y = channels(gen, qs, 2, (batch, n))
+        ishape = rns_shape(tabs, "inv_rns", batch)
         got = K.inv_ntt_rns(y.to(torch.uint32), tabs)
-        compare("inv_rns", got, P.inv_ntt_rns_plain(y, tabs), note)
+        compare("inv_rns", got, P.inv_ntt_rns_plain(y, tabs),
+                f"{note} {ishape}")
         golden_channels(
             got, lambda l, p: G.inv_ntt_u64(y[l, :g].cpu().numpy(), p),
             ring.rings, "inv_ntt_rns")
         got = K.inv_ntt_rns(y.to(torch.uint32), tabs, scales=tabs.polymul_scale)
         compare("inv_rns", got, P.inv_ntt_rns_plain(y, tabs, tabs.polymul_scale),
-                note + " polymul_scale")
+                f"{note} {ishape} polymul_scale")
         del y, got
 
         a, b = channels(gen, qs, 1, (batch, n)), channels(gen, qs, 1, (batch, n))
@@ -1070,7 +1089,9 @@ def main() -> int:
         ext_k, KS_BATCH, dnum, KS_N).contiguous()
     dig32, kdot32 = dig.to(torch.uint32), kdot.to(torch.uint32)
     L, rb_, rn = RNS_L, RNS_BATCH, RNS_N
-    tab_words = 4 * rn  # four twiddle tables of n words a channel
+    # a transform reads two twiddle tables of n words a channel (roots and
+    # their Shoup words, or the inverse's), the polymul both transforms' four
+    tab_words = 2 * rn
     timed.update({
         "fwd_rns": (lambda: K.fwd_ntt_rns(rx, rtabs),
                     lambda: P.fwd_ntt_rns_plain(rx64, rtabs),
@@ -1082,7 +1103,7 @@ def main() -> int:
                     f"(L={L}, B={rb_}, n={rn})"),
         "polymul_rns": (lambda: K.polymul_rns_fused(ra, rb, rtabs),
                         lambda: P.polymul_rns_plain(ra64, rb64, rtabs),
-                        L * (3 * rb_ * rn + tab_words),
+                        L * (3 * rb_ * rn + 2 * tab_words),
                         scaled(L, dot_ops(rb_, 1, rn)),
                         f"(L={L}, B={rb_}, n={rn}) x2"),
         "polydot_rns": (lambda: K.polydot_rns_fused(dig32, kdot32, etabs),
@@ -1208,6 +1229,28 @@ def main() -> int:
             f"{info['ctas_per_sm']} CTAs an SM, at most "
             f"{info['max_active_clusters']} clusters at once")
     log(f"  ptxas {DOT_KERNEL}: {'; '.join(ptxas.get(DOT_KERNEL, ['not found']))}")
+    # K4a and K4b at the main shape and at the key switch's: its digits'
+    # forward transform (K, B dnum, n) and its sum's inverse (K, B, n)
+    gen = torch.Generator(dev).manual_seed(91)
+    ks_fx = channels(gen, ext_qs, 4, (KS_BATCH * dnum, KS_N)).to(torch.uint32)
+    ks_ix = channels(gen, ext_qs, 2, (KS_BATCH, KS_N)).to(torch.uint32)
+    rns_shapes = (("fwd_rns", rtabs, rx, RNS_BATCH, RNS_N),
+                  ("inv_rns", rtabs, rc, RNS_BATCH, RNS_N),
+                  ("fwd_rns", etabs, ks_fx, KS_BATCH * dnum, KS_N),
+                  ("inv_rns", etabs, ks_ix, KS_BATCH, KS_N))
+    log("K4a and K4b (fwd_rns_cluster_kernel, inv_rns_cluster_kernel) by "
+        "shape, and ptxas:")
+    for key, tabs_, _, b_, n_ in rns_shapes:
+        info = K.rns_launch_info(tabs_, key, b_)
+        log(f"  {RNS_KERNELS[key][0]} (L={tabs_.L}, B={b_}, n={n_}): "
+            f"{info['ctas']} CTAs a polynomial, {info['polys']} polynomials "
+            f"a CTA, {info['threads']} threads, {info['registers']} "
+            f"registers, {info['smem_bytes']} bytes of shared memory a CTA, "
+            f"{info['ctas_per_sm']} CTAs an SM, at most "
+            f"{info['max_active_clusters']} clusters at once; "
+            f"{info['clusters']} clusters a channel")
+    for _, name in RNS_KERNELS.values():
+        log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -1231,6 +1274,19 @@ def main() -> int:
         })
     log("library_ms: null for every kernel - no PyTorch call computes a "
         "negacyclic NTT mod q")
+    log(f"K4a and K4b at the key switch's shapes on {card} (CUDA events, "
+        "median of 5 runs of 10 calls):")
+    for key, tabs_, v, b_, n_ in rns_shapes[2:]:
+        call = ((lambda: K.fwd_ntt_rns(v, tabs_)) if key == "fwd_rns"
+                else (lambda: K.inv_ntt_rns(v, tabs_)))
+        ms = cuda_time_ms(call)
+        ops = (fwd_ops if key == "fwd_rns" else inv_ops)(b_, n_)
+        bound_ms, bound_by = bound(tabs_.L * (2 * b_ * n_ + 2 * n_),
+                                   scaled(tabs_.L, ops))
+        log(f"  {KERNELS[key][0]:30s} (L={tabs_.L}, B={b_}, n={n_}) "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound")
+    del ks_fx, ks_ix
     del x16l, a16l, b16l, y16l, x21l, y21l
     torch.cuda.empty_cache()
     # the fused four-step kernels beside the routes the caps of
@@ -1446,15 +1502,20 @@ def main() -> int:
                 ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
             if seen and not any(name in k for k, _, _ in seen):
                 raise AssertionError(f"{name} did not run at n={n_}")
-    for what, call in ((f"K6b (K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N})",
-                        lambda: K.polydot_rns_fused(dig32, kdot32, etabs)),
-                       (f"K5 (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
-                        lambda: K.polymul_rns_fused(ra, rb, rtabs))):
+    for what, call, kernel in (
+            (f"K6b (K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N})",
+             lambda: K.polydot_rns_fused(dig32, kdot32, etabs), DOT_KERNEL),
+            (f"K5 (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
+             lambda: K.polymul_rns_fused(ra, rb, rtabs), DOT_KERNEL),
+            (f"K4a (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
+             lambda: K.fwd_ntt_rns(rx, rtabs), RNS_KERNELS["fwd_rns"][1]),
+            (f"K4b (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
+             lambda: K.inv_ntt_rns(rc, rtabs), RNS_KERNELS["inv_rns"][1])):
         seen = kernels_seen(torch, call)
         log(f"  {what}: " + ", ".join(f"{k} {c} x {ms:.4f} ms"
                                       for k, c, ms in seen))
-        if seen and not any(DOT_KERNEL in k for k, _, _ in seen):
-            raise AssertionError(f"{DOT_KERNEL} did not run for {what}")
+        if seen and not any(kernel in k for k, _, _ in seen):
+            raise AssertionError(f"{kernel} did not run for {what}")
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
         kernel_share(torch, lambda: sr.ntt(sx),

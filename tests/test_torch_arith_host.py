@@ -133,7 +133,7 @@ static Dim blockDim = {4};
 static thread_local std::barrier<>* cta_barrier = nullptr;
 inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
-#include "ntt_polydot_cluster.cuh"
+#include "ntt_rns_transform.cuh"
 
 struct HostCluster {
   std::barrier<>* all;
@@ -260,6 +260,30 @@ void h_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
                                     iroots + tab, iprecon + tab, batch, k, sh,
                                     cl.rank, c << sh.logp, qs[l], qinvs[l],
                                     scales + 4 * l);
+                 });
+  }
+  blockDim.x = saved;
+}
+// K4a (inv = 0) or K4b over `channels` channels of (batch, 2^logn), CTAs of
+// 2^logthreads threads (16 words a thread), one cluster a unit as the
+// launcher runs them; tables (L, n), qs (L,), scales (L, 4)
+void h_rns(int inv, const uint32_t* x, uint32_t* y, const uint32_t* roots,
+           const uint32_t* precon, const uint32_t* qs, const uint32_t* scales,
+           int channels, long long batch, int logn, int logthreads) {
+  const DotShape sh = make_dot_shape(logn, logthreads);
+  const unsigned saved = blockDim.x;
+  blockDim.x = 1u << logthreads;
+  for (int l = 0; l < channels; ++l) {
+    const size_t data = ((size_t)l * batch) << logn, tab = (size_t)l << logn;
+    run_clusters(rns_units(sh, batch), sh.logc, rns_smem_bytes(sh) / 4,
+                 [&](HostCluster& cl, uint32_t* s, long long u) {
+                   if (inv)
+                     inv_rns_body(cl, s, x + data, y + data, roots + tab,
+                                  precon + tab, batch, sh, cl.rank, u, qs[l],
+                                  scales + 4 * l);
+                   else
+                     fwd_rns_body(cl, s, x + data, y + data, roots + tab,
+                                  precon + tab, batch, sh, cl.rank, u, qs[l]);
                  });
   }
   blockDim.x = saved;
@@ -449,9 +473,13 @@ def _cluster_bodies_match_plain(so):
     1024, L = 2, k = 1 and 3, on clusters of 1, 2 and 4 CTAs and with 4
     polynomials a CTA (a ragged last one), and at n = 8 and 4 (the turn pass
     holding every stage; rows of 4 words), its operands at q - 1 on half of
-    the words and 0 on a quarter, against ``polydot_rns_plain``; and its
-    launch shape (cluster, polynomials a CTA, shared memory) at 256 threads
-    a CTA.  Runs in a child process: ``so`` is the library's path."""
+    the words and 0 on a quarter, against ``polydot_rns_plain``; K4a's and
+    K4b's bodies on the same layouts and at n = 8 and 4, one cluster a
+    unit as the launcher runs them, with ragged last units, on inputs over [0, 4q) and [0, 2q) (their tops included),
+    K4b with the default and the polymul scale, against
+    ``fwd_ntt_rns_plain``/``inv_ntt_rns_plain``; and the polydot's launch
+    shape (cluster, polynomials a CTA, shared memory) at 256 threads a CTA.
+    Runs in a child process: ``so`` is the library's path."""
     from agilex_ntt_tpu_torch.ops import fourstep as FS
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.params import find_psi
@@ -464,6 +492,7 @@ def _cluster_bodies_match_plain(so):
     h.h_col_fwd4.argtypes = [P_, P_, P_, LL, I, I, I, U]
     h.h_col_inv4.argtypes = [P_, P_, P_, P_, LL, I, I, I, U]
     h.h_polydot_rns.argtypes = [P_] * 10 + [I, LL, I, I, I]
+    h.h_rns.argtypes = [I] + [P_] * 6 + [I, LL, I, I]
     h.h_dot_shape.argtypes = [I, I, P_]
     h.h_cluster_logc.argtypes = [I, I, I, LL]
     h.h_slab_logw.argtypes = [I, I, LL]
@@ -570,6 +599,40 @@ def _cluster_bodies_match_plain(so):
                 2, batch, k, n.bit_length() - 1, logt)
             want = P.polydot_rns_plain(_t(a), _t(b), tabs).numpy()
             assert np.array_equal(out, want), ("polydot_rns", n, logt, k)
+
+    # K4a/K4b on the same layout: (n, log2 of the threads a CTA, batch); at
+    # n = 256 clusters of 4, 2 and 1 CTAs and 4 polynomials a CTA, at
+    # n = 1024 of 4, 2 and 1, at n = 8 2 and 16 polynomials a CTA, at n = 4
+    # 8 (rows of 4 words); ragged last units
+    for n, logt, batch in ((256, 2, 3), (256, 3, 3), (256, 4, 2), (256, 6, 9),
+                           (1024, 4, 2), (1024, 5, 3), (1024, 6, 5), (8, 0, 7),
+                           (8, 3, 40), (4, 1, 19)):
+        tabs = P.make_rns_tables([P.make_tables(make_params(n, q), "cpu")
+                                  for q in find_primes(n, 2)])
+        rng = np.random.default_rng(n + logt + 7)
+        x = np.stack([rng.integers(0, 4 * q, size=(batch, n)) for q in tabs.qs])
+        xi = np.stack([rng.integers(0, 2 * q, size=(batch, n))
+                       for q in tabs.qs])
+        for l, q in enumerate(tabs.qs):  # the top of each lazy range
+            x[l].reshape(-1)[: x[l].size // 4] = 4 * q - 1
+            xi[l].reshape(-1)[: xi[l].size // 4] = 2 * q - 1
+            xi[l].reshape(-1)[xi[l].size // 4: xi[l].size // 2] = 0
+        got = np.zeros((2, batch, n), dtype=np.uint32)
+        unused = tabs.scale_words()
+        for inv, v, tw, scales, want in (
+                (0, x, (tabs.roots, tabs.precon), unused,
+                 P.fwd_ntt_rns_plain(_t(x), tabs)),
+                (1, xi, (tabs.inv_roots, tabs.inv_precon), unused,
+                 P.inv_ntt_rns_plain(_t(xi), tabs)),
+                (1, xi, (tabs.inv_roots, tabs.inv_precon),
+                 tabs.scale_words(tabs.polymul_scale),
+                 P.inv_ntt_rns_plain(_t(xi), tabs, tabs.polymul_scale))):
+            v32 = v.astype(np.uint32)
+            got[:] = 0
+            h.h_rns(inv, _ptr(v32), _ptr(got), tw[0].data_ptr(),
+                    tw[1].data_ptr(), tabs.q_words.data_ptr(),
+                    scales.data_ptr(), 2, batch, n.bit_length() - 1, logt)
+            assert np.array_equal(got, want.numpy()), ("rns", inv, n, logt)
     # its shape at 256 threads: (cluster log, polynomials log, row log, rows
     # log, bytes at k = 1 and k > 1) at the key switch's 16384, K5's 4096,
     # 32768 and 256

@@ -85,27 +85,66 @@ def _channels(gen, qs, mult, shape, device):
     return torch.stack([_rand(gen, mult * q, shape, device) for q in qs])
 
 
+# K4a/K4b's launch shapes that the parametrized cases below do not reach,
+# run inside the first case: (n, L, batch, scales): a cluster of 2 CTAs
+# (n = 8192) and of 8 (32768) with a ragged batch, 16 and 512 polynomials a
+# CTA (n = 256 and 8, ragged last CTAs), and more units than the card
+# holds clusters at once; "random": K4b with a random scale a channel
+RNS_TRANSFORMS_MORE = ((8192, 2, 3, "random"), (32768, 3, 5, None),
+                       (256, 3, 37, "random"), (8, 2, 1001, None),
+                       (4096, 3, 3001, "random"), (16384, 5, 301, None))
+
+
 @pytest.mark.parametrize("n,L,batch", [(8, 2, 5), (32, 3, 1000), (256, 3, 333),
                                        (4096, 3, 16), (16384, 4, 3),
                                        (32768, 4, 2)])
 def test_rns_transforms_match_plain(cuda, n, L, batch):
-    ring = RNSRing(n, L, device=cuda)
-    tabs = ring.tables
-    gen = torch.Generator(cuda).manual_seed(n + L)
-    x = _channels(gen, ring.qs, 4, (batch, n), cuda)
-    y = _channels(gen, ring.qs, 2, (batch, n), cuda)
-    before = dict(K.LAUNCHES)
-    got_f = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
-    got_i = K.inv_ntt_rns(y.to(torch.uint32), tabs, scales=tabs.polymul_scale)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["fwd_rns"] == before["fwd_rns"] + 1
-    assert K.LAUNCHES["inv_rns"] == before["inv_rns"] + 1
-    assert torch.equal(got_f.to(torch.int64), P.fwd_ntt_rns_plain(x, tabs))
-    want_i = P.inv_ntt_rns_plain(y, tabs, tabs.polymul_scale)
-    assert torch.equal(got_i.to(torch.int64), want_i)
-    for l, r in enumerate(ring.rings):  # channel l used its own prime
-        golden = G.fwd_ntt_u32(x[l, :2].cpu().numpy().astype(np.uint32), r.params)
-        assert np.array_equal(got_f[l, :2].cpu().numpy(), golden)
+    """K4a and K4b against their plain versions (and K4a's first rows
+    against the golden model) at every launch shape of their kernels: a CTA
+    holds 4096 words, so n = 8192 to 32768 take clusters of 2 to 8 CTAs,
+    smaller n several polynomials a CTA; inputs over [0, 4q) and [0, 2q),
+    K4b with the polymul scale or random ones; the launch info's shape, one
+    unit a cluster."""
+    cases = ((n, L, batch, "polymul"),)
+    if (n, L, batch) == (8, 2, 5):
+        cases += RNS_TRANSFORMS_MORE
+    for n, L, batch, scale in cases:
+        ring = RNSRing(n, L, device=cuda)
+        tabs = ring.tables
+        units = -(-batch * n // 4096) if n < 4096 else batch
+        for which in ("fwd_rns", "inv_rns"):
+            info = K.rns_launch_info(tabs, which, batch)
+            assert (info["ctas"], info["polys"], info["threads"]) == (
+                max(1, n // 4096), max(1, 4096 // n), 256), (n, which)
+            # one unit a cluster, one slab of 512 rows of 8 words at pitch 9
+            assert info["smem_bytes"] == 4 * 512 * 9, info
+            assert info["registers"] <= 40 and info["ctas_per_sm"] >= 1, info
+            assert info["clusters"] == units, info
+        gen = torch.Generator(cuda).manual_seed(n + L + batch)
+        x = _channels(gen, ring.qs, 4, (batch, n), cuda)
+        y = _channels(gen, ring.qs, 2, (batch, n), cuda)
+        for l, q in enumerate(ring.qs):  # the top of each lazy range
+            x[l].view(-1)[: x[l].numel() // 4] = 4 * q - 1
+            y[l].view(-1)[: y[l].numel() // 4] = 2 * q - 1
+        if scale == "random":
+            scales = [int(s) for s in np.random.default_rng(n).integers(
+                1, min(ring.qs), size=L)]
+        else:
+            scales = tabs.polymul_scale if scale == "polymul" else None
+        before = dict(K.LAUNCHES)
+        got_f = K.fwd_ntt_rns(x.to(torch.uint32), tabs)
+        got_i = K.inv_ntt_rns(y.to(torch.uint32), tabs, scales=scales)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fwd_rns"] == before["fwd_rns"] + 1
+        assert K.LAUNCHES["inv_rns"] == before["inv_rns"] + 1
+        assert torch.equal(got_f.to(torch.int64), P.fwd_ntt_rns_plain(x, tabs)), (
+            n, L, batch)
+        want_i = P.inv_ntt_rns_plain(y, tabs, scales)
+        assert torch.equal(got_i.to(torch.int64), want_i), (n, L, batch, scale)
+        for l, r in enumerate(ring.rings):  # channel l used its own prime
+            golden = G.fwd_ntt_u32(x[l, :2].cpu().numpy().astype(np.uint32),
+                                   r.params)
+            assert np.array_equal(got_f[l, :2].cpu().numpy(), golden)
 
 
 # K5/K6b's launch shapes that the parametrized cases below do not reach,
