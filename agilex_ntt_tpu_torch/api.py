@@ -70,6 +70,25 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+# Constructor arguments of the JAX package's rings that choose or tune its
+# TPU kernels: the Pallas or XLA backend, the kernels' block rows, Pallas's
+# interpret mode.  No kernel of the port has them, so the port refuses them
+# rather than ignore them.
+TPU_ONLY_ARGS = ("backend", "block_rows", "interpret")
+
+
+def _refuse_unknown(owner: str, names) -> None:
+    """Raise ``TypeError`` for keyword arguments ``owner`` does not take,
+    naming the JAX package's TPU-only ones as such."""
+    for name in names:
+        if name in TPU_ONLY_ARGS:
+            raise TypeError(
+                f"{owner}: {name}= is one of the JAX package's TPU-only "
+                f"options {TPU_ONLY_ARGS}; the port's kernels have none"
+            )
+        raise TypeError(f"{owner}() got an unexpected keyword argument {name!r}")
+
+
 def _resolve_method(n: int, method: Optional[str]) -> str:
     """"radix2" or "fourstep"; default four-step above ``MAX_RADIX2_N``."""
     if method is None:
@@ -182,12 +201,17 @@ class Ring(_TransformRing):
       psi: a primitive 2n-th root of unity mod q; default the one
         ``find_psi`` picks (the JAX package's choice).
       method: "radix2" (n <= 32768) or "fourstep"; default four-step above
-        32768.
+        32768.  "auto" is the JAX package's choice from its autotune cache;
+        the port has no such cache yet, so "auto" takes the default, as the
+        JAX package does when its cache has no entry.
       fourstep_kernel: "tiled" (the default of a four-step ring) or "flat"
         (n <= ``FLAT_FUSE_MAX_N``).  "flat" is an alias kept for parity with
         the JAX package's API: on the card (B, n) and (B, n1, n2) are the
         same bytes, so both values run the same kernels.
       device: ``None`` for the current CUDA device, or ``"cpu"``.
+
+    The JAX package's ``backend``, ``block_rows`` and ``interpret`` tune its
+    TPU kernels; they raise ``TypeError`` here.
     """
 
     def __init__(
@@ -199,13 +223,15 @@ class Ring(_TransformRing):
         method: Optional[str] = None,
         fourstep_kernel: Optional[str] = None,
         device=None,
+        **unknown,
     ):
+        _refuse_unknown("Ring", unknown)
         if q is None:
             q = find_primes(n, 1)[0]
         self.config = NTTConfig(n=n, q=q)
         self.n = n
         self.q = q
-        self.method = _resolve_method(n, method)
+        self.method = _resolve_method(n, None if method == "auto" else method)
         if fourstep_kernel not in (None, "tiled", "flat"):
             raise ValueError(
                 f"unknown fourstep_kernel {fourstep_kernel!r}; "
@@ -537,8 +563,12 @@ class CyclicRing(_TransformRing):
       omega: a primitive n-th root of unity mod q; default g^((q-1)/n) for
         the smallest generator g.
       method: "radix2" (n <= 32768) or "fourstep"; default four-step above
-        32768.
+        32768.  The JAX package's ``CyclicRing`` has no "auto", and neither
+        has this one.
       device: ``None`` for the current CUDA device, or ``"cpu"``.
+
+    ``backend``, ``block_rows`` and ``interpret`` raise ``TypeError``, as on
+    ``Ring``.
     """
 
     def __init__(
@@ -549,7 +579,9 @@ class CyclicRing(_TransformRing):
         omega: Optional[int] = None,
         method: Optional[str] = None,
         device=None,
+        **unknown,
     ):
+        _refuse_unknown("CyclicRing", unknown)
         if q is None:
             q = find_primes(n, 1)[0]
         if q % n != 1:
@@ -611,6 +643,9 @@ class RNSRing:
       num_primes: L, when ``qs`` is not given: ``find_primes(n, L)``.
       qs: the primes, each ≡ 1 (mod 2n) and below 2**30.
       device: ``None`` for the current CUDA device, or ``"cpu"``.
+      ring_kwargs: passed to every channel's ``Ring`` (``method``, ``psi``,
+        ``fourstep_kernel``), as the JAX package passes them; the TPU-only
+        ``backend``, ``block_rows`` and ``interpret`` raise ``TypeError``.
     """
 
     def __init__(
@@ -620,11 +655,15 @@ class RNSRing:
         qs: Optional[Sequence[int]] = None,
         *,
         device=None,
+        **ring_kwargs,
     ):
+        _refuse_unknown("RNSRing", [k for k in ring_kwargs if k in TPU_ONLY_ARGS])
         if qs is None:
             qs = find_primes(n, num_primes)
         self.device = _resolve_device(device)
-        self.rings: List[Ring] = [Ring(n, int(q), device=self.device) for q in qs]
+        self.rings: List[Ring] = [
+            Ring(n, int(q), device=self.device, **ring_kwargs) for q in qs
+        ]
         if not self.rings:
             raise ValueError("an RNSRing needs at least one prime")
         self.n = n
@@ -632,10 +671,12 @@ class RNSRing:
         self.modulus = 1
         for q in self.qs:
             self.modulus *= q
-        # the multi-prime kernels' tables; None for four-step channels
+        # the multi-prime kernels' tables where every channel is radix-2 (the
+        # JAX package's _uniform_pallas); else None, and each channel's ring
+        # runs in turn
         self.tables = (
             make_rns_tables([r.tables for r in self.rings])
-            if self.rings[0].tables is not None else None
+            if all(r.method == "radix2" for r in self.rings) else None
         )
         self.polymul_scale = tuple(r.polymul_scale for r in self.rings)
         # per-channel q and -q^-1 mod 2**32 as int64, for the PyTorch steps

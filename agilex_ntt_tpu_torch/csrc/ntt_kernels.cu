@@ -5,8 +5,6 @@
 //   fwd_kernel      <- _fwd_kernel      (K1, forward Cooley-Tukey NTT)
 //   inv_kernel      <- _inv_kernel      (K2, Gentleman-Sande inverse, scale
 //                                        folded into the last stage)
-//   polydot_kernel  <- _polymul_kernel  (K3, k = 1)
-//                   and _polydot_kernel (K6a, sum of k products)
 //   fwd_rns_cluster_kernel <- _fwd_rns_kernel (K4a, K1 over L primes)
 //   inv_rns_cluster_kernel <- _inv_rns_kernel (K4b, K2 over L primes, a
 //                                        scale per channel; both on the
@@ -16,6 +14,9 @@
 //                   and _polydot_rns_kernel   (K6b, K6a over L primes; see
 //                                        ntt_polydot_cluster.cuh for its
 //                                        design)
+//                   and, launched at one channel (L = 1),
+//                       _polymul_kernel   (K3, k = 1)
+//                   and _polydot_kernel   (K6a, sum of k products)
 // the DIT inverse of agilex_ntt_tpu/ops/dit_inv.py and the cross-device
 // stage of agilex_ntt_tpu/parallel/overlap.py (see their sections below):
 //   dit_inv_kernel  <- _dit_inv_kernel  (K12)
@@ -33,7 +34,8 @@
 //   col_inv4_slab_kernel, where a slab of 2 columns fits a block, else
 //   col_inv4_kernel <- _col_inv_kernel      (K9b)
 // The multi-prime kernels run with the channel on blockIdx.y (K4a and K4b
-// on fwd_rns_body/inv_rns_body, K5/K6b on polydot_rns_body): each block
+// on fwd_rns_body/inv_rns_body, K5/K6b on polydot_rns_body, K3/K6a there
+// at one channel): each block
 // reads its channel's q, -q^-1 and inverse-scale constants from (L,) and
 // (L, 4) arrays and its twiddles from row l of the (L, n) tables, where the
 // TPU kernels take q from SMEM and (L, log n, n) positional tables per grid
@@ -58,22 +60,18 @@
 // memory.  chip_smoke.py computes both for every kernel.
 //
 // Design against that bound: each polynomial is read from device memory
-// once and written once, and no butterfly is computed twice.  One thread
-// block holds one polynomial in shared memory (16 KiB at n = 4096, 128 KiB
-// at n = 32768) and runs all log2(n) stages there, separated by
+// once and written once, and no butterfly is computed twice.  The
+// single-prime transforms (K1, K2 on fwd_body and inv_body) hold one
+// polynomial a thread block in shared memory (16 KiB at n = 4096, 128 KiB
+// at n = 32768) and run all log2(n) stages there, separated by
 // __syncthreads(); below n = 1024 several polynomials share a block so it
 // still has 512 threads.  Twiddles come from the n-word tables in device
-// memory, which stay in L2.  The fused kernel keeps the first operand's
-// transform and the running sum beside the working tile in shared memory;
-// where they do not fit (n = 32768) they go to a scratch buffer in device
-// memory that the caller allocates.  These kernels (K1, K2, K3/K6a on
-// fwd_body, inv_body and polydot_body) run at a tenth to a fifth of that
-// bound on an H100 (PERF.md): every stage goes through shared memory and a
-// block-wide barrier.  The multi-prime kernels run register-radix passes
-// instead: the polydot (K5, K6b) with the sum in registers
-// (ntt_polydot_cluster.cuh), the transforms (K4a, K4b) on the same passes
-// with one operand (ntt_rns_transform.cuh); the single-prime polydot (K3,
-// K6a) is next.
+// memory, which stay in L2.  They run at a fifth of that bound on an H100
+// (PERF.md): every stage goes through shared memory and a block-wide
+// barrier.  The other kernels run register-radix passes instead: the
+// polydot (K5, K6b, and K3, K6a at one channel) with the sum in registers
+// (ntt_polydot_cluster.cuh), the multi-prime transforms (K4a, K4b) on the
+// same passes with one operand (ntt_rns_transform.cuh).
 //
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
@@ -115,16 +113,14 @@ Plan make_plan(long long batch, int logn) {
 }
 
 // Tile of `polys` polynomials starting at polynomial `first`: element e of
-// the tile is coefficient (e mod n) of polynomial first + e / n, term `term`
-// of a (batch, k, n) operand.  Polynomials past the batch read as zero.
+// the tile is word e of the (batch, n) operand from polynomial `first` on.
+// Polynomials past the batch read as zero.
 __device__ void load_tile(uint32_t* tile, const uint32_t* __restrict__ g,
                           long long first, int polys, long long batch,
-                          int logn, int k, int term) {
+                          int logn) {
   const int words = polys << logn;
-  const int mask = (1 << logn) - 1;
   for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    const long long poly = first + (e >> logn);
-    tile[e] = poly < batch ? g[((poly * k + term) << logn) + (e & mask)] : 0u;
+    tile[e] = first + (e >> logn) < batch ? g[(first << logn) + e] : 0u;
   }
 }
 
@@ -222,7 +218,7 @@ __device__ void fwd_body(const uint32_t* __restrict__ x,
                          int logn, int polys, uint32_t q) {
   extern __shared__ uint32_t smem[];
   const long long first = (long long)blockIdx.x * polys;
-  load_tile(smem, x, first, polys, batch, logn, 1, 0);
+  load_tile(smem, x, first, polys, batch, logn);
   __syncthreads();
   fwd_stages(smem, logn, polys, roots, precon, q, 1 << logn);
   store_tile(y, smem, first, polys, batch, logn);
@@ -236,66 +232,14 @@ __device__ void inv_body(const uint32_t* __restrict__ x,
                          uint32_t sup, uint32_t sv, uint32_t svp) {
   extern __shared__ uint32_t smem[];
   const long long first = (long long)blockIdx.x * polys;
-  load_tile(smem, x, first, polys, batch, logn, 1, 0);
+  load_tile(smem, x, first, polys, batch, logn);
   __syncthreads();
   inv_stages(smem, logn, polys, iroots, iprecon, q, su, sup, sv, svp,
              1 << logn);
   store_tile(y, smem, first, polys, batch, logn);
 }
 
-// sum_i a_i * b_i for (batch, k, n) operands; k = 1 is the polymul.  Per
-// term: forward a_i, park it in `fa`; forward b_i in the working tile;
-// Montgomery product, accumulated lazily in [0, 2q) in the same order as
-// the TPU kernel (acc = t_0, then cond_sub(acc + t_i, 2q)); the last term
-// lands in the working tile, which the scaled inverse then transforms.
-// `fa` and `acc` are shared memory after the working tile, or block x's
-// slice of `scratch` when that is not null.
-__device__ void polydot_body(const uint32_t* __restrict__ a,
-                             const uint32_t* __restrict__ b,
-                             uint32_t* __restrict__ out, uint32_t* scratch,
-                             const uint32_t* __restrict__ roots,
-                             const uint32_t* __restrict__ precon,
-                             const uint32_t* __restrict__ iroots,
-                             const uint32_t* __restrict__ iprecon,
-                             long long batch, int k, int logn, int polys,
-                             uint32_t q, uint32_t qinv_neg, uint32_t su,
-                             uint32_t sup, uint32_t sv, uint32_t svp) {
-  extern __shared__ uint32_t smem[];
-  const int words = polys << logn;
-  uint32_t* work = smem;
-  uint32_t* fa = scratch != nullptr
-                     ? scratch + (size_t)blockIdx.x * (k > 1 ? 2 : 1) * words
-                     : smem + words;
-  uint32_t* acc = fa + words;
-  const long long first = (long long)blockIdx.x * polys;
-  const uint32_t two_q = 2u * q;
-  for (int i = 0; i < k; ++i) {
-    load_tile(work, a, first, polys, batch, logn, k, i);
-    __syncthreads();
-    fwd_stages(work, logn, polys, roots, precon, q, 1 << logn);
-    for (int e = threadIdx.x; e < words; e += blockDim.x) fa[e] = work[e];
-    __syncthreads();
-    load_tile(work, b, first, polys, batch, logn, k, i);
-    __syncthreads();
-    fwd_stages(work, logn, polys, roots, precon, q, 1 << logn);
-    const bool last = i == k - 1;
-    for (int e = threadIdx.x; e < words; e += blockDim.x) {
-      uint32_t term = ntt_mont_lazy(fa[e], work[e], q, qinv_neg);
-      if (i > 0) term = ntt_cond_sub(acc[e] + term, two_q);
-      if (last) {
-        work[e] = term;
-      } else {
-        acc[e] = term;
-      }
-    }
-    __syncthreads();
-  }
-  inv_stages(work, logn, polys, iroots, iprecon, q, su, sup, sv, svp,
-             1 << logn);
-  store_tile(out, work, first, polys, batch, logn);
-}
-
-// -- single prime (K1, K2, K3/K6a) ------------------------------------------
+// -- single prime (K1, K2) ----------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
@@ -312,19 +256,6 @@ inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
            int polys, uint32_t q, uint32_t su, uint32_t sup, uint32_t sv,
            uint32_t svp) {
   inv_body(x, y, iroots, iprecon, batch, logn, polys, q, su, sup, sv, svp);
-}
-
-__global__ void __launch_bounds__(kThreads)
-polydot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, uint32_t* scratch,
-               const uint32_t* __restrict__ roots,
-               const uint32_t* __restrict__ precon,
-               const uint32_t* __restrict__ iroots,
-               const uint32_t* __restrict__ iprecon, long long batch, int k,
-               int logn, int polys, uint32_t q, uint32_t qinv_neg,
-               uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp) {
-  polydot_body(a, b, out, scratch, roots, precon, iroots, iprecon, batch, k,
-               logn, polys, q, qinv_neg, su, sup, sv, svp);
 }
 
 // -- L primes (K4a, K4b, K5/K6b): channel l = blockIdx.y ---------------------
@@ -1009,13 +940,6 @@ cudaError_t rns_launch(bool inv, int channels, long long batch, int logn,
   return allow_cluster(rns_kernel(inv), d->sh.logc, d->bytes);
 }
 
-// Tiles the fused kernel keeps besides the working tile: fa, and acc if k > 1.
-int polydot_extra_tiles(int k) { return k > 1 ? 2 : 1; }
-
-bool polydot_fits_smem(int k, int words) {
-  return (size_t)(1 + polydot_extra_tiles(k)) * words * 4 <= kMaxSmemBytes;
-}
-
 }  // namespace
 
 extern "C" {
@@ -1046,32 +970,6 @@ int ntt_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
   if (err != cudaSuccess) return (int)err;
   inv_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
       x, y, iroots, iprecon, batch, logn, p.polys, q, su, sup, sv, svp);
-  return (int)cudaGetLastError();
-}
-
-// Words of device scratch ntt_polydot needs (0: all in shared memory).
-long long ntt_polydot_scratch_words(long long batch, int k, int logn) {
-  const Plan p = make_plan(batch, logn);
-  if (polydot_fits_smem(k, p.words)) return 0;
-  return (long long)p.grid * polydot_extra_tiles(k) * p.words;
-}
-
-int ntt_polydot(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                uint32_t* scratch, const uint32_t* roots,
-                const uint32_t* precon, const uint32_t* iroots,
-                const uint32_t* iprecon, long long batch, int k, int logn,
-                uint32_t q, uint32_t qinv_neg, uint32_t su, uint32_t sup,
-                uint32_t sv, uint32_t svp, void* stream) {
-  const Plan p = make_plan(batch, logn);
-  const bool in_smem = polydot_fits_smem(k, p.words);
-  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes =
-      (size_t)(in_smem ? 1 + polydot_extra_tiles(k) : 1) * p.words * 4;
-  cudaError_t err = allow_smem((const void*)polydot_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  polydot_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      a, b, out, in_smem ? nullptr : scratch, roots, precon, iroots, iprecon,
-      batch, k, logn, p.polys, q, qinv_neg, su, sup, sv, svp);
   return (int)cudaGetLastError();
 }
 
@@ -1136,7 +1034,8 @@ int ntt_rns_launch_info(int inv, int logn, int channels, long long batch,
   return (int)cudaSuccess;
 }
 
-// K5/K6b: one launch for every channel, no scratch.
+// K5/K6b (and K3/K6a, ntt_polydot): one launch for every channel, no
+// scratch.
 int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
                     const uint32_t* roots, const uint32_t* precon,
                     const uint32_t* iroots, const uint32_t* iprecon,
@@ -1155,9 +1054,22 @@ int ntt_polydot_rns(const uint32_t* a, const uint32_t* b, uint32_t* out,
   return (int)cudaGetLastError();
 }
 
-// K5/K6b's launch at n = 2^logn with k terms: info = {log2 of the CTAs a
-// polynomial (the cluster), log2 of the polynomials a CTA, shared memory
-// bytes a CTA, threads a CTA, CTAs an SM
+// K3/K6a: K5/K6b's kernel at one channel.  consts: device memory holding
+// (q, -q^-1 mod 2^32, su, su', sv, sv') of the polymul scale, read as the
+// kernel's (1,) qs, (1,) qinvs and (1, 4) scales; the (n,) twiddle tables
+// serve as its (1, n) tables.  No scratch at any n.
+int ntt_polydot(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                const uint32_t* roots, const uint32_t* precon,
+                const uint32_t* iroots, const uint32_t* iprecon,
+                const uint32_t* consts, long long batch, int k, int logn,
+                void* stream) {
+  return ntt_polydot_rns(a, b, out, roots, precon, iroots, iprecon, consts,
+                         consts + 1, consts + 2, 1, batch, k, logn, stream);
+}
+
+// K5/K6b's (and K3/K6a's) launch at n = 2^logn with k terms: info = {log2
+// of the CTAs a polynomial (the cluster), log2 of the polynomials a CTA,
+// shared memory bytes a CTA, threads a CTA, CTAs an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the most such clusters
 // the card runs at once (cudaOccupancyMaxActiveClusters)}.
 int ntt_polydot_rns_launch_info(int logn, int k, int* info) {

@@ -1,9 +1,14 @@
-// The multi-prime fused polydot (K6b, and K5 as its k = 1) on register-radix
-// passes with the lazy sum kept in registers:
+// The fused polydot (K6b, and K5 as its k = 1; at one channel K6a and K3)
+// on register-radix passes with the lazy sum kept in registers:
 //   polydot_rns_body <- _polydot_rns_kernel (K6b,
 //                       agilex_ntt_tpu/ops/ntt_kernel.py:646)
 //                    and _polymul_rns_kernel (K5,
 //                       agilex_ntt_tpu/ops/ntt_kernel.py:360)
+//                    and, launched with L = 1 on one prime's tables
+//                    (negacyclic or cyclic), _polydot_kernel (K6a,
+//                       agilex_ntt_tpu/ops/ntt_kernel.py:760)
+//                    and _polymul_kernel (K3,
+//                       agilex_ntt_tpu/ops/ntt_kernel.py:241)
 // Per channel l and polynomial b: sum_i a_i b_i mod (X^n + 1, q_l) for
 // (L, B, k, n) operands, out (L, B, n) in [0, q_l): per term the forward
 // transforms of a_i and b_i, their Montgomery product added to the lazy sum,
@@ -13,10 +18,11 @@
 // What bounds it on this card: int32 issue.  At the key switch's shape (L =
 // K = 5 primes, B = 64, k = dnum = 4, n = 16384) the 2k + 1 = 9 transforms
 // of 14 stages and the products need 0.0796 ms of issue against 0.057 ms to
-// move the bytes (chip_smoke.py computes both).  The walking kernel
-// (polydot_body: one CTA of 512 threads a polynomial, a radix-2 stage a
+// move the bytes (chip_smoke.py computes both).  The radix-2 kernel this
+// body replaced (one CTA of 512 threads a polynomial, a radix-2 stage a
 // barrier, the first transform parked in a second tile and the sum in a
-// third) ran at 5% of that bound, latency-bound with one CTA an SM.
+// third) ran at 5% of that bound (K3 and K6a at 10% of theirs),
+// latency-bound with one CTA an SM.
 //
 // Design:
 //   * A CTA holds S = kDotSumWords x threads words of each operand: 4096 at

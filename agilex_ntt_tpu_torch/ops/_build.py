@@ -37,10 +37,9 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "ntt_fwd": (_P, _P, _P, _P, _LL, _I, _U, _P),
     "ntt_inv": (_P, _P, _P, _P, _LL, _I, _U, _U, _U, _U, _U, _P),
-    "ntt_polydot": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-        _U, _U, _U, _U, _U, _U, _P,
-    ),
+    # a, b, out, roots, precon, iroots, iprecon, consts (q, -q^-1 and the
+    # scale's four words), batch, k, logn, stream
+    "ntt_polydot": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
     # x, y, roots, precon, qs, channels, batch, logn, stream
     "ntt_fwd_rns": (_P, _P, _P, _P, _P, _I, _LL, _I, _P),
     # x, y, iroots, iprecon, qs, scales, channels, batch, logn, stream
@@ -137,8 +136,6 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.ntt_polydot_scratch_words.argtypes = [_LL, _I, _I]
-    lib.ntt_polydot_scratch_words.restype = _LL
     lib.ntt_fourstep_cluster_log.argtypes = [_I, _I, _I]
     lib.ntt_fourstep_cluster_log.restype = _I
     lib.ntt_error_string.argtypes = [_I]

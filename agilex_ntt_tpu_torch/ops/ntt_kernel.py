@@ -142,30 +142,50 @@ def inv_ntt(
 
 
 def _polydot_launch(a, b, tables: RingTables, what: str) -> torch.Tensor:
-    """One launch of the fused kernel on (B, k, n) operands -> (B, n)."""
+    """One launch of the fused kernel on (B, k, n) operands -> (B, n): the
+    multi-prime polydot kernel at one channel, its constants
+    ``tables.dot_words``."""
     batch, k, n = a.shape
     out = torch.empty((batch, n), dtype=torch.uint32, device=a.device)
     lib = _build.load()
-    words = lib.ntt_polydot_scratch_words(batch, k, tables.log_n)
-    scratch = (
-        torch.empty(words, dtype=torch.uint32, device=a.device) if words else None
-    )
     with torch.cuda.device(a.device):
         rc = lib.ntt_polydot(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
             tables.roots.data_ptr(), tables.precon.data_ptr(),
             tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
-            batch, k, tables.log_n, tables.q, tables.qinv_neg,
-            *inv_scale_words(tables, tables.polymul_scale), _stream(a),
+            tables.dot_words.data_ptr(), batch, k, tables.log_n, _stream(a),
         )
     _build.check(lib, rc, what)
     return out
 
 
+def _dot_launch_info(log_n: int, k: int, what: str) -> dict:
+    lib = _build.load()
+    info = (ctypes.c_int * 6)()
+    _build.check(lib, lib.ntt_polydot_rns_launch_info(log_n, k, info), what)
+    return {"ctas": 1 << info[0], "polys": 1 << info[1],
+            "smem_bytes": info[2], "threads": info[3],
+            "ctas_per_sm": info[4], "max_active_clusters": info[5]}
+
+
+def polydot_launch_info(tables: RingTables, k: int = 2) -> dict:
+    """The launch of the single-prime fused kernel (K3 with ``k`` = 1, K6a)
+    at ``tables``' n, as ``polydot_rns_launch_info``: ``ctas`` a polynomial
+    (the cluster; 1: no cluster), ``polys`` a CTA, shared memory and threads
+    a CTA, CTAs an SM and the most such clusters the card runs at once."""
+    return _dot_launch_info(tables.log_n, k, "polydot_launch_info")
+
+
 def polymul_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch.Tensor:
-    """Negacyclic a * b mod (X^n + 1, q) of (B, n) operands in one kernel:
-    two forward transforms, the Montgomery product, the scaled inverse."""
+    """Negacyclic a * b mod (X^n + 1, q) of (B, n) operands in [0, 4q) in
+    one kernel: two forward transforms, the Montgomery product, the scaled
+    inverse (cyclic mod X^n - 1 on a ``CyclicRing``'s tables).
+
+    On the card the multi-prime polydot kernel at one channel and k = 1
+    (``polydot_launch_info``): a CTA holds 4096 words of each operand, a
+    polynomial of n > 4096 words on a cluster of n / 4096 CTAs, smaller
+    ones several to a CTA; no scratch at any n.  A launch the card refuses
+    raises."""
     _check_pair(a, b, tables, "polymul_fused", 2)
     if a.device.type == "cpu":
         return _u32(
@@ -177,8 +197,13 @@ def polymul_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch
 
 
 def polydot_fused(a: torch.Tensor, b: torch.Tensor, tables: RingTables) -> torch.Tensor:
-    """sum_i a_i * b_i mod (X^n + 1, q) of (B, k, n) operands -> (B, n) in
-    one kernel: 2k forward transforms, lazy accumulation, one inverse."""
+    """sum_i a_i * b_i mod (X^n + 1, q) of (B, k, n) operands in [0, 4q)
+    -> (B, n) in one kernel: 2k forward transforms, lazy accumulation, one
+    inverse.
+
+    On the card ``polymul_fused``'s kernel with k terms: register-radix
+    passes, the sum in registers, the next term's pair loaded by
+    ``cp.async`` while the current one is transformed."""
     _check_pair(a, b, tables, "polydot_fused", 3)
     if a.shape[1] == 0:
         raise ValueError("polydot_fused: k must be at least 1")
@@ -287,13 +312,7 @@ def polydot_rns_launch_info(tables: RNSTables, k: int = 2) -> dict:
     at ``tables``' n: ``ctas`` a polynomial (the cluster; 1: no cluster),
     ``polys`` a CTA, shared memory and threads a CTA, CTAs an SM and the
     most such clusters the card runs at once."""
-    lib = _build.load()
-    info = (ctypes.c_int * 6)()
-    _build.check(lib, lib.ntt_polydot_rns_launch_info(tables.log_n, k, info),
-                 "polydot_rns_launch_info")
-    return {"ctas": 1 << info[0], "polys": 1 << info[1],
-            "smem_bytes": info[2], "threads": info[3],
-            "ctas_per_sm": info[4], "max_active_clusters": info[5]}
+    return _dot_launch_info(tables.log_n, k, "polydot_rns_launch_info")
 
 
 def polymul_rns_fused(a: torch.Tensor, b: torch.Tensor, tables: RNSTables) -> torch.Tensor:

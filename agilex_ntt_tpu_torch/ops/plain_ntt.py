@@ -43,6 +43,10 @@ class RingTables:
     tables as ``torch.uint32`` tensors of shape (n,).  ``polymul_scale``
     folds n^-1 and the Montgomery R = 2**32 that the fused kernels' pointwise
     product leaves behind; ``inv_root1`` is the last inverse stage's twiddle.
+    ``dot_words`` holds the fused kernels' constants on the tables' device,
+    built once with the tables: (q, -q^-1 mod 2**32, su, su', sv, sv') of
+    ``polymul_scale``, the (L,), (L,) and (L, 4) arrays of the multi-prime
+    polydot kernel at L = 1.
     """
 
     n: int
@@ -56,6 +60,12 @@ class RingTables:
     precon: torch.Tensor
     inv_roots: torch.Tensor
     inv_precon: torch.Tensor
+    dot_words: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        words = (self.q, self.qinv_neg) + inv_scale_words(self, self.polymul_scale)
+        object.__setattr__(self, "dot_words", _u32_tensor(words, self.device))
 
     @property
     def device(self) -> torch.device:

@@ -1,9 +1,11 @@
 """Launch variants of the multi-prime polydot kernel (K5, K6b), timed side
-by side in one run.
+by side in one run, and the single-prime fused kernels (K3, K6a) as the
+package ships them.
 
 On a machine with a card, from the repository root:
 
     python3 -m agilex_ntt_tpu_torch.utils.polydot_probe
+    python3 -m agilex_ntt_tpu_torch.utils.polydot_probe --single
 
 Each variant is a copy of ``csrc/`` with a textual change or two, built by
 its own ``nvcc`` (all started together, ``cluster_probe.build_all``):
@@ -24,6 +26,12 @@ the first rows, prints its launch
 (CTAs a polynomial, CTAs an SM, clusters at once) and times it in turns
 (variants in order, then in reverse, CUDA events).  It measures the
 design, not the main path: nothing of the package calls it.
+
+``--single`` builds nothing of its own: it times the package's K3
+(``polymul_fused``) and K6a (``polydot_fused``) as they are at
+``SINGLE_SHAPES``, beside the card's name, holding the first rows against
+the plain versions, so that two checkouts can be timed alike in one call
+(it needs only ``Ring``, the two wrappers and their plain versions).
 """
 
 from __future__ import annotations
@@ -55,6 +63,10 @@ VARIANTS = {
 # (primes, batch, k, n): K6b at the key switch's shape, K5
 SHAPES = ((5, 64, 4, 16384), (3, 2048, 1, 4096))
 KERNEL = "polydot_rns_cluster_kernel"
+# (n, batch, k) of --single: K3 and K6a at the main path's shapes, K3 at
+# n = 32768 and 32, K6a at n = 16384 and with k = 8 terms
+SINGLE_SHAPES = ((4096, 8192, 1), (4096, 2048, 3), (32768, 1024, 1),
+                 (32, 65536, 1), (16384, 256, 3), (4096, 512, 8))
 
 
 def local_memory_ops(lib: Path, kernel: str = KERNEL) -> str:
@@ -74,7 +86,38 @@ def local_memory_ops(lib: Path, kernel: str = KERNEL) -> str:
     return f"{counts['STL']} STL, {counts['LDL']} LDL"
 
 
-def main() -> int:
+def single(dev) -> None:
+    """K3 and K6a of the package as it is, timed at ``SINGLE_SHAPES``."""
+    import torch
+
+    from .. import Ring
+    from ..ops import ntt_kernel as K
+    from ..ops import plain_ntt as P
+    from .profiling import cuda_time_ms
+
+    for n, batch, k in SINGLE_SHAPES:
+        ring = Ring(n, device=dev)
+        tabs = ring.tables
+        gen = torch.Generator(dev).manual_seed(n + k)
+        shape = (batch, n) if k == 1 else (batch, k, n)
+        a, b = (torch.randint(0, ring.q, shape, generator=gen,
+                              dtype=torch.int64, device=dev) for _ in range(2))
+        a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
+        fused, plain = ((K.polymul_fused, P.polymul_plain) if k == 1
+                        else (K.polydot_fused, P.polydot_plain))
+        got = fused(a32, b32, tabs)[:2].to(torch.int64)
+        if not torch.equal(got, plain(a[:2], b[:2], tabs)):
+            raise AssertionError(f"K3/K6a disagree at n={n} k={k}")
+        ms = cuda_time_ms(lambda: fused(a32, b32, tabs))
+        print(f"{'K3' if k == 1 else 'K6a'} B={batch} k={k} n={n}: "
+              f"{ms:.4f} ms", flush=True)
+        del a, b, a32, b32, got
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import sys
+
     import torch
 
     from .. import RNSRing
@@ -88,6 +131,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
+    if "--single" in (sys.argv[1:] if argv is None else argv):
+        single(torch.device("cuda"))
+        return 0
     libs = cluster_probe.build_all(VARIANTS, "polydot_rns_cluster")
     for name, (_, lines) in libs.items():
         for line in lines:

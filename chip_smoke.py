@@ -14,7 +14,11 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    on the same inputs on the card, bit for bit over the whole output
    (tolerance 0: integer arithmetic).  Single prime: at the main path's
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
-   n=32, and at two shapes that reach the kernels' other branches.  L
+   n=32, and at two shapes that reach the kernels' other branches; the
+   fused polymul (K3) and polydot (K6a), which run the multi-prime polydot
+   kernel at one channel, with a first operand over the lazy [0, 4q) and
+   the edge words 4q - 1, q - 1 and 0, also on ``CyclicRing``'s tables at
+   n = 2, 4 and 32768 and with k = 8 terms.  L
    primes: the "n4096" chain (L=3, batch 2048), the key-switch dot of the
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=8192 and n=32768,
    n=32 (L=3, batch 4096) and a ragged batch: K4a, K4b, K5 and K6b at
@@ -65,14 +69,15 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       equal word for word to the unsharded ring.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
-   (``bound_ms``), and K4a and K4b also at the key switch's shapes (n =
-   16384, K = 5 primes); the cluster and slab kernels' launch shapes (CTAs a
+   (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
+   16384, K = 5 primes), K3 and K6a also at n = 32768, 32 and 16384 and
+   with k = 8; the cluster and slab kernels' launch shapes (CTAs a
    cluster or slab width, shared memory, CTAs an SM,
-   ``cudaOccupancyMaxActiveClusters``, registers and spills; K4a's, K4b's,
-   K5's and K6b's cluster or polynomials a CTA, K4a's and K4b's clusters a
-   channel) and
-   the kernels ``torch.profiler`` sees run at 2^16 and 2^18 and for K4a,
-   K4b, K5 and K6b; the fused
+   ``cudaOccupancyMaxActiveClusters``, registers and spills; K3's, K4a's,
+   K4b's, K5's, K6a's and K6b's cluster or polynomials a CTA, K4a's and
+   K4b's clusters a channel) and
+   the kernels ``torch.profiler`` sees run at 2^16 and 2^18 and for K3,
+   K4a, K4b, K5, K6a and K6b; the fused
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
    set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
@@ -131,9 +136,17 @@ CHECK_SHAPES = (
     (MAIN_N, MAIN_BATCH, MAIN_K, MAIN_DOT_BATCH),
     (32768, 1024, MAIN_K, 1024),
     (32, 65536, MAIN_K, 65536),
-    (16384, 256, MAIN_K, 256),  # polydot with every tile in shared memory
+    (16384, 256, MAIN_K, 256),  # K3/K6a on clusters of 4 CTAs
     (256, 1001, 2, 333),  # several polynomials a block, a ragged last block
 )
+# K3 and K6a beyond CHECK_SHAPES: (n, batch, k, cyclic): CyclicRing's
+# rows of 2 and 4 words and its tables on clusters of 8 CTAs, and k = 8
+# terms through the polydot's cp.async pipeline
+FUSED_MORE_SHAPES = ((2, 65536, 1, True), (4, 65536, 1, True),
+                     (32768, 1024, 1, True), (MAIN_N, 512, 8, False))
+# K3 and K6a timed beyond the main shapes: (n, batch, k)
+FUSED_TIMED_SHAPES = ((32768, 1024, 1), (32, 65536, 1), (16384, 256, MAIN_K),
+                      (MAIN_N, 512, 8))
 GOLDEN_ROWS = 8
 DEVICE = "cuda"
 
@@ -190,7 +203,7 @@ BODY_SOURCE = {
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_rns_transform.cuh"
        for key in ("fwd_rns", "inv_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_polydot_cluster.cuh"
-       for key in ("polymul_rns", "polydot_rns")},
+       for key in ("polymul", "polydot", "polymul_rns", "polydot_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
        for key in ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv",
                    "flat_fwd", "flat_inv", "flat_polymul")},
@@ -318,7 +331,7 @@ def bound(words_moved: int, ops):
 
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
-    r"(?<![A-Za-z_])(fwd|inv|polydot|fwd4|inv4|polymul4|col_fwd4|col_inv4"
+    r"(?<![A-Za-z_])(fwd|inv|fwd4|inv4|polymul4|col_fwd4|col_inv4"
     r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
     r"|col_inv4_slab|polydot_rns_cluster|fwd_rns_cluster|inv_rns_cluster"
     r"|dit_inv|xchg)(_rns)?_kernel")
@@ -328,7 +341,8 @@ CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "polymul4": ("K8", "polymul4_cluster_kernel"),
                    "col_fwd": ("K9a", "col_fwd4_slab_kernel"),
                    "col_inv": ("K9b", "col_inv4_slab_kernel")}
-DOT_KERNEL = "polydot_rns_cluster_kernel"  # K5 and K6b
+# K5 and K6b, and K3 and K6a (the same kernel launched at one channel)
+DOT_KERNEL = "polydot_rns_cluster_kernel"
 RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
                "inv_rns": ("K4b", "inv_rns_cluster_kernel")}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
@@ -483,6 +497,23 @@ def main() -> int:
         if not np.array_equal(got_rows.cpu().numpy().astype(np.uint64), want):
             raise AssertionError(f"{what} disagrees with the golden model")
 
+    def lazy_pair(gen, q, shape):
+        """K3's and K6a's operands: a over the lazy [0, 4q) with 4q - 1 on
+        the first half of its first polynomial and 0 on the rest, b over
+        [0, q) with q - 1 and 0 alike."""
+        a, b = rand(gen, 4 * q, shape), rand(gen, q, shape)
+        half = shape[-1] // 2
+        a[0, ..., :half], a[0, ..., half:] = 4 * q - 1, 0
+        b[0, ..., :half], b[0, ..., half:] = q - 1, 0
+        return a, b
+
+    def one_dot_shape(tabs, k):
+        """Which launch shape K3 (k = 1) and K6a take at this n."""
+        info = K.polydot_launch_info(tabs, k)
+        if info["ctas"] > 1:
+            return f"cluster {info['ctas']}"
+        return f"{info['polys']} a CTA"
+
     log("kernels vs plain versions (tolerance 0: bit-exact), first rows vs golden:")
     for n, batch, k, dot_batch in CHECK_SHAPES:
         ring = Ring(n, device=dev)
@@ -503,9 +534,10 @@ def main() -> int:
                        "inv_ntt")
         del y, got
 
-        a, b = rand(gen, q, (batch, n)), rand(gen, q, (batch, n))
+        a, b = lazy_pair(gen, q, (batch, n))
         got = K.polymul_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
-        compare("polymul", got, P.polymul_plain(a, b, tabs), f"n={n} B={batch}")
+        compare("polymul", got, P.polymul_plain(a, b, tabs),
+                f"n={n} B={batch} {one_dot_shape(tabs, 1)}")
         same_as_golden(got[:g], golden_dot(a[:g, None], b[:g, None], params),
                        "polymul_fused")
         if n <= 256:  # the schoolbook product, an oracle sharing no transform
@@ -514,13 +546,38 @@ def main() -> int:
                 raise AssertionError("polymul_fused disagrees with schoolbook")
         del a, b, got
 
-        a = rand(gen, q, (dot_batch, k, n))
-        b = rand(gen, q, (dot_batch, k, n))
+        a, b = lazy_pair(gen, q, (dot_batch, k, n))
         got = K.polydot_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
         compare("polydot", got, P.polydot_plain(a, b, tabs),
-                f"n={n} B={dot_batch} k={k}")
+                f"n={n} B={dot_batch} k={k} {one_dot_shape(tabs, k)}")
         same_as_golden(got[:g], golden_dot(a[:g], b[:g], params),
                        "polydot_fused")
+        del a, b, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for n, batch, k, cyclic in FUSED_MORE_SHAPES:
+        ring = (CyclicRing if cyclic else Ring)(n, device=dev)
+        q, tabs = ring.q, ring.tables
+        gen = torch.Generator(dev).manual_seed(n + k + 5)
+        a, b = lazy_pair(gen, q, (batch, k, n))
+        note = (f"n={n} B={batch} k={k}{' cyclic' if cyclic else ''} "
+                f"{one_dot_shape(tabs, k)}")
+        if k == 1:
+            got = K.polymul_fused(a[:, 0].to(torch.uint32),
+                                  b[:, 0].to(torch.uint32), tabs)
+            compare("polymul", got, P.polymul_plain(a[:, 0], b[:, 0], tabs),
+                    note)
+        else:
+            got = K.polydot_fused(a.to(torch.uint32), b.to(torch.uint32), tabs)
+            compare("polydot", got, P.polydot_plain(a, b, tabs), note)
+        if cyclic and n <= 4:  # the schoolbook cyclic product of two rows
+            for row in (0, 1):
+                u, v = a[row, 0].tolist(), b[row, 0].tolist()
+                want = [sum(u[j] * v[(i - j) % n] for j in range(n)) % q
+                        for i in range(n)]
+                if got[row].to(torch.int64).tolist() != want:
+                    raise AssertionError(f"CyclicRing({n}) polymul disagrees "
+                                         "with schoolbook")
         del a, b, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1229,6 +1286,19 @@ def main() -> int:
             f"{info['ctas_per_sm']} CTAs an SM, at most "
             f"{info['max_active_clusters']} clusters at once")
     log(f"  ptxas {DOT_KERNEL}: {'; '.join(ptxas.get(DOT_KERNEL, ['not found']))}")
+    log(f"K3 and K6a ({DOT_KERNEL} at one channel) by n:")
+    for n_, k_, cyclic in ((MAIN_N, 1, False), (MAIN_N, MAIN_K, False),
+                           (MAIN_N, 8, False), (32768, 1, False),
+                           (16384, MAIN_K, False), (32, 1, False),
+                           (2, 1, True)):
+        r_ = (CyclicRing if cyclic else Ring)(n_, device=dev)
+        info = K.polydot_launch_info(r_.tables, k_)
+        log(f"  {'K3' if k_ == 1 else 'K6a'} n={n_} k={k_}"
+            f"{' cyclic' if cyclic else ''}: {info['ctas']} CTAs a cluster, "
+            f"{info['polys']} polynomials a CTA, {info['threads']} threads, "
+            f"{info['smem_bytes']} bytes of shared memory a CTA, "
+            f"{info['ctas_per_sm']} CTAs an SM, at most "
+            f"{info['max_active_clusters']} clusters at once")
     # K4a and K4b at the main shape and at the key switch's: its digits'
     # forward transform (K, B dnum, n) and its sum's inverse (K, B, n)
     gen = torch.Generator(dev).manual_seed(91)
@@ -1274,6 +1344,20 @@ def main() -> int:
         })
     log("library_ms: null for every kernel - no PyTorch call computes a "
         "negacyclic NTT mod q")
+    log(f"K3 and K6a beyond the main shapes on {card} (CUDA events, median "
+        "of 5 runs of 10 calls):")
+    gen = torch.Generator(dev).manual_seed(92)
+    for n_, b_, k_ in FUSED_TIMED_SHAPES:
+        r_ = Ring(n_, device=dev)
+        shape = (b_, n_) if k_ == 1 else (b_, k_, n_)
+        u, v = (rand(gen, r_.q, shape).to(torch.uint32) for _ in range(2))
+        fused = K.polymul_fused if k_ == 1 else K.polydot_fused
+        ms = cuda_time_ms(lambda: fused(u, v, r_.tables))
+        bound_ms, bound_by = bound((2 * k_ + 1) * b_ * n_, dot_ops(b_, k_, n_))
+        log(f"  {'K3' if k_ == 1 else 'K6a'} (B={b_}, k={k_}, n={n_}) "
+            f"{one_dot_shape(r_.tables, k_)}: {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+        del u, v
     log(f"K4a and K4b at the key switch's shapes on {card} (CUDA events, "
         "median of 5 runs of 10 calls):")
     for key, tabs_, v, b_, n_ in rns_shapes[2:]:
@@ -1503,6 +1587,10 @@ def main() -> int:
             if seen and not any(name in k for k, _, _ in seen):
                 raise AssertionError(f"{name} did not run at n={n_}")
     for what, call, kernel in (
+            (f"K3 (B={bsz}, n={n})", lambda: K.polymul_fused(a, b, tabs),
+             DOT_KERNEL),
+            (f"K6a (B={dbsz}, k={k}, n={n})",
+             lambda: K.polydot_fused(da, db, tabs), DOT_KERNEL),
             (f"K6b (K={ext_k}, B={KS_BATCH}, k={dnum}, n={KS_N})",
              lambda: K.polydot_rns_fused(dig32, kdot32, etabs), DOT_KERNEL),
             (f"K5 (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",

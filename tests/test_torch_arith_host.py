@@ -5,8 +5,8 @@ radix-4 and radix-8 groups of the four-step cluster kernels (K7a, K8:
 against the int64 butterflies stage by stage, and as whole size-4 and
 size-8 transforms against ``ops/plain_ntt.py``).  The bodies of the
 cluster kernels K7a, K7b, K8, of K9a's and K9b's slab kernels
-(``csrc/ntt_fourstep_cluster.cuh``) and of the multi-prime polydot K5/K6b
-(``csrc/ntt_polydot_cluster.cuh``) run here too: one host thread a GPU
+(``csrc/ntt_fourstep_cluster.cuh``) and of the polydot K5/K6b, and K3/K6a
+at one channel (``csrc/ntt_polydot_cluster.cuh``) run here too: one host thread a GPU
 thread, four a CTA (the polydot: a sixteenth of its words), ``std::barrier``
 for ``__syncthreads`` and for the cluster's barrier, each CTA's slab a host
 array that the others reach as through ``map_shared_rank``, in a spawned
@@ -473,7 +473,11 @@ def _cluster_bodies_match_plain(so):
     1024, L = 2, k = 1 and 3, on clusters of 1, 2 and 4 CTAs and with 4
     polynomials a CTA (a ragged last one), and at n = 8 and 4 (the turn pass
     holding every stage; rows of 4 words), its operands at q - 1 on half of
-    the words and 0 on a quarter, against ``polydot_rns_plain``; K4a's and
+    the words and 0 on a quarter, against ``polydot_rns_plain``; the same
+    body at one channel as K3 and K6a launch it, on single-prime negacyclic
+    and cyclic ``RingTables`` at n = 2, 4, 8, 256 and 1024, k = 1 and 3, on
+    inputs over [0, 4q) and [0, q) (their tops and 0 included), against
+    ``polymul_plain``/``polydot_plain``; K4a's and
     K4b's bodies on the same layouts and at n = 8 and 4, one cluster a
     unit as the launcher runs them, with ragged last units, on inputs over [0, 4q) and [0, 2q) (their tops included),
     K4b with the default and the polymul scale, against
@@ -599,6 +603,44 @@ def _cluster_bodies_match_plain(so):
                 2, batch, k, n.bit_length() - 1, logt)
             want = P.polydot_rns_plain(_t(a), _t(b), tabs).numpy()
             assert np.array_equal(out, want), ("polydot_rns", n, logt, k)
+
+    # K3/K6a: the same body at one channel on one prime's RingTables,
+    # negacyclic and cyclic, its constants ``dot_words`` read at the offsets
+    # the launcher passes (q, -q^-1, the four scale words) and the (n,)
+    # tables as (1, n); (n, log2 of the threads a CTA, batch): at n = 2 rows
+    # of 2 words, 8 and 32 polynomials a CTA; n = 4, 8 several a CTA; at
+    # n = 256 a cluster of 2 and 4 polynomials a CTA, at n = 1024 a cluster
+    # of 4 and one polynomial a CTA; ragged last CTAs.  a over K3's lazy
+    # [0, 4q) (4q - 1 and 0 on quarters), b over [0, q) (q - 1 and 0)
+    from agilex_ntt_tpu_torch import CyclicRing
+
+    for n, logt, batch in ((2, 0, 5), (2, 2, 3), (4, 1, 7), (8, 0, 3),
+                           (256, 3, 2), (256, 6, 5), (1024, 4, 1),
+                           (1024, 6, 2)):
+        q = find_primes(n, 1)[0]
+        for cyclic in (False, True):
+            rt = (CyclicRing(n, q, device="cpu").tables if cyclic
+                  else P.make_tables(make_params(n, q), "cpu"))
+            rng = np.random.default_rng(3 * n + logt + cyclic)
+            base = rt.dot_words.data_ptr()
+            for k in (1, 3):
+                a = rng.integers(0, 4 * q, size=(batch, k, n))
+                b = rng.integers(0, q, size=(batch, k, n))
+                m = a.size // 4
+                a.reshape(-1)[:m], a.reshape(-1)[3 * m:] = 4 * q - 1, 0
+                b.reshape(-1)[:m], b.reshape(-1)[2 * m: 3 * m] = q - 1, 0
+                a32, b32 = a.astype(np.uint32), b.astype(np.uint32)
+                out = np.zeros((batch, n), dtype=np.uint32)
+                h.h_polydot_rns(
+                    _ptr(a32), _ptr(b32), _ptr(out),
+                    *(t.data_ptr() for t in (
+                        rt.roots, rt.precon, rt.inv_roots, rt.inv_precon)),
+                    base, base + 4, base + 8, 1, batch, k, n.bit_length() - 1,
+                    logt)
+                want = (P.polymul_plain(_t(a[:, 0]), _t(b[:, 0]), rt) if k == 1
+                        else P.polydot_plain(_t(a), _t(b), rt)).numpy()
+                assert np.array_equal(out, want), ("polydot", n, logt, k,
+                                                   cyclic)
 
     # K4a/K4b on the same layout: (n, log2 of the threads a CTA, batch); at
     # n = 256 clusters of 4, 2 and 1 CTAs and 4 polynomials a CTA, at

@@ -54,24 +54,48 @@ def test_transforms_match_plain(cuda, n, batch):
     assert np.array_equal(got_f[:2].cpu().numpy(), golden)
 
 
+# K3's and K6a's cases that the parametrized ones below do not reach, run
+# inside the first case: (n, batch, k, cyclic): CyclicRing's rows of 2 and
+# 4 words, a cluster of 2 CTAs (n = 8192), k = 8 terms through the cp.async
+# pipeline, and the cyclic tables on a cluster of 8 CTAs
+FUSED_MORE = ((2, 4097, 1, True), (4, 1001, 3, True), (8192, 5, 1, False),
+              (8192, 3, 8, False), (4096, 33, 8, False), (32768, 2, 1, True))
+
+
 @pytest.mark.parametrize("n,batch,k", [(32, 999, 1), (32, 999, 3),
                                        (4096, 16, 1), (4096, 16, 3),
                                        (16384, 4, 3), (32768, 3, 1),
                                        (32768, 3, 2)])
 def test_fused_match_plain(cuda, n, batch, k):
-    ring = Ring(n, device=cuda)
-    gen = torch.Generator(cuda).manual_seed(n + k)
-    a = _rand(gen, ring.q, (batch, k, n), cuda)
-    b = _rand(gen, ring.q, (batch, k, n), cuda)
-    a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
-    if k == 1:
-        got = K.polymul_fused(a32[:, 0], b32[:, 0], ring.tables)
-        want = P.polymul_plain(a[:, 0], b[:, 0], ring.tables)
-    else:
-        got = K.polydot_fused(a32, b32, ring.tables)
-        want = P.polydot_plain(a, b, ring.tables)
-    torch.cuda.synchronize()
-    assert torch.equal(got.to(torch.int64), want)
+    """K3 (k = 1) and K6a against their plain versions on the polydot
+    kernel at one channel: a over the lazy [0, 4q) with 4q - 1 and 0 in its
+    first polynomial, b over [0, q) with q - 1 and 0; the launch info's
+    shape (a CTA holds 4096 words), one launch a call."""
+    cases = ((n, batch, k, False),)
+    if (n, batch, k) == (32, 999, 1):
+        cases += FUSED_MORE
+    for n, batch, k, cyclic in cases:
+        ring = (CyclicRing if cyclic else Ring)(n, device=cuda)
+        gen = torch.Generator(cuda).manual_seed(n + k)
+        a = _rand(gen, 4 * ring.q, (batch, k, n), cuda)
+        b = _rand(gen, ring.q, (batch, k, n), cuda)
+        a[0, :, : n // 2], a[0, :, n // 2:] = 4 * ring.q - 1, 0
+        b[0, :, : n // 2], b[0, :, n // 2:] = ring.q - 1, 0
+        a32, b32 = a.to(torch.uint32), b.to(torch.uint32)
+        before = dict(K.LAUNCHES)
+        if k == 1:
+            got = K.polymul_fused(a32[:, 0], b32[:, 0], ring.tables)
+            want = P.polymul_plain(a[:, 0], b[:, 0], ring.tables)
+        else:
+            got = K.polydot_fused(a32, b32, ring.tables)
+            want = P.polydot_plain(a, b, ring.tables)
+        torch.cuda.synchronize()
+        key = "polymul" if k == 1 else "polydot"
+        assert K.LAUNCHES[key] == before[key] + 1
+        assert torch.equal(got.to(torch.int64), want), (n, batch, k, cyclic)
+        info = K.polydot_launch_info(ring.tables, k)
+        assert (info["ctas"], info["polys"], info["threads"]) == (
+            max(1, n // 4096), max(1, 4096 // n), 256), (n, info)
 
 
 def test_wrappers_refuse_mixed_devices(cuda):

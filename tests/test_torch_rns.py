@@ -37,6 +37,20 @@ def _jax_mont_lazy(a, b):
     ])
 
 
+def _jax_methods(cache, a, b):
+    """The JAX ``RNSRing`` of QS[:2] with its ring arguments: each method
+    (its autotune cache read from ``cache``, a miss), its channels'
+    methods and its polymul of a, b."""
+    import os
+
+    os.environ["NTT_TPU_AUTOTUNE_CACHE"] = cache
+    out = {}
+    for method in ("auto", "fourstep"):
+        ring = JRNSRing(N, qs=QS[:2], method=method)
+        out[method] = ([r.method for r in ring.rings], ring.polymul(a, b))
+    return out
+
+
 def _jax_chain():
     ring = _jax_ring()
     return ring.modulus, ring.qs, ring.drop_prime().qs
@@ -299,9 +313,13 @@ def test_wrappers_check_channels_and_count_no_cpu_launch(rings):
         ring.ntt(np.zeros((2, N), dtype=np.uint32))
 
 
-def test_rns_ring_defaults_to_the_card():
+def test_rns_ring_defaults_to_the_card(jax_ref, tmp_path):
     """device=None means CUDA: without a card it raises, with no silent CPU
-    path; device="cpu" gives the plain versions on the default chain."""
+    path; device="cpu" gives the plain versions on the default chain.  The
+    ring arguments go to every channel's ring as in the JAX package
+    (``method="auto"`` on a cache miss, and "fourstep"); the multi-prime
+    kernels' tables exist where every channel is radix-2; the TPU-only
+    arguments raise a ``TypeError`` naming them."""
     if torch.cuda.is_available():
         assert RNSRing(N, 3).device.type == "cuda"
     else:
@@ -309,3 +327,15 @@ def test_rns_ring_defaults_to_the_card():
             RNSRing(N, 3)
     default = RNSRing(N, 3, device="cpu")
     assert default.qs == find_primes(N, 3) == QS
+    a, b = _residues((2, N), 70, qs=QS[:2]), _residues((2, N), 71, qs=QS[:2])
+    want = jax_ref.run(_jax_methods, str(tmp_path / "autotune.json"), a, b)
+    for method, (methods, prod) in want.items():
+        ring = RNSRing(N, qs=QS[:2], method=method, device="cpu")
+        assert [r.method for r in ring.rings] == methods
+        assert (ring.tables is None) == (methods[0] == "fourstep")
+        assert _same(ring.polymul(a, b), prod), method
+    for name, value in (("backend", "xla"), ("block_rows", 8),
+                        ("interpret", True)):
+        with pytest.raises(TypeError, match=f"RNSRing: {name}= is one of the "
+                           "JAX package's TPU-only options"):
+            RNSRing(N, qs=QS, device="cpu", **{name: value})
