@@ -4,7 +4,8 @@ Counterpart of ``agilex_ntt_tpu/api.py::Ring``, ``CyclicRing`` and
 ``RNSRing``, with the same public layout: (..., n) in, (..., n) out, and
 (..., k, n) for ``polydot``; an ``RNSRing`` puts its L prime channels
 first, (L, ..., n).  Values are ``torch.uint32``.  Sizes up to 32768 run the
-radix-2 kernels; larger ones (and ``method="fourstep"`` at any size) the
+radix-2 transform (K1, K2 on register-radix passes); larger ones (and
+``method="fourstep"`` at any size) the
 four-step kernels of ``ops/fourstep.py``, with the tiled (..., n1, n2) API
 beside the flat one.
 

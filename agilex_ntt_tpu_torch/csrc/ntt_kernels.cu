@@ -2,14 +2,17 @@
 // radix-2 and four-step.
 //
 // Replaces eight Pallas TPU kernels of agilex_ntt_tpu/ops/ntt_kernel.py:
-//   fwd_kernel      <- _fwd_kernel      (K1, forward Cooley-Tukey NTT)
-//   inv_kernel      <- _inv_kernel      (K2, Gentleman-Sande inverse, scale
-//                                        folded into the last stage)
-//   fwd_rns_cluster_kernel <- _fwd_rns_kernel (K4a, K1 over L primes)
-//   inv_rns_cluster_kernel <- _inv_rns_kernel (K4b, K2 over L primes, a
-//                                        scale per channel; both on the
-//                                        polydot's register-radix passes,
-//                                        see ntt_rns_transform.cuh)
+//   fwd_rns_cluster_kernel <- _fwd_rns_kernel (K4a, the forward
+//                                        Cooley-Tukey NTT over L primes)
+//   inv_rns_cluster_kernel <- _inv_rns_kernel (K4b, the Gentleman-Sande
+//                                        inverse over L primes, a scale per
+//                                        channel folded into the last
+//                                        stage; both on the polydot's
+//                                        register-radix passes, see
+//                                        ntt_rns_transform.cuh)
+//                   and, launched at one channel (L = 1),
+//                       _fwd_kernel       (K1, ntt_fwd)
+//                   and _inv_kernel       (K2, ntt_inv)
 //   polydot_rns_cluster_kernel <- _polymul_rns_kernel (K5, k = 1)
 //                   and _polydot_rns_kernel   (K6b, K6a over L primes; see
 //                                        ntt_polydot_cluster.cuh for its
@@ -61,17 +64,15 @@
 //
 // Design against that bound: each polynomial is read from device memory
 // once and written once, and no butterfly is computed twice.  The
-// single-prime transforms (K1, K2 on fwd_body and inv_body) hold one
-// polynomial a thread block in shared memory (16 KiB at n = 4096, 128 KiB
-// at n = 32768) and run all log2(n) stages there, separated by
-// __syncthreads(); below n = 1024 several polynomials share a block so it
-// still has 512 threads.  Twiddles come from the n-word tables in device
-// memory, which stay in L2.  They run at a fifth of that bound on an H100
-// (PERF.md): every stage goes through shared memory and a block-wide
-// barrier.  The other kernels run register-radix passes instead: the
-// polydot (K5, K6b, and K3, K6a at one channel) with the sum in registers
-// (ntt_polydot_cluster.cuh), the multi-prime transforms (K4a, K4b) on the
-// same passes with one operand (ntt_rns_transform.cuh).
+// transforms and the fused kernels run register-radix passes on slabs of
+// 4096 words a CTA (a polynomial of n > 4096 words on a cluster of n / 4096
+// CTAs, smaller ones several to a CTA): the polydot (K5, K6b, and K3, K6a
+// at one channel) with the sum in registers (ntt_polydot_cluster.cuh), the
+// transforms (K4a, K4b, and K1, K2 at one channel) on the same passes with
+// one operand (ntt_rns_transform.cuh).  Twiddles come from the n-word
+// tables in device memory, which stay in L2.  The DIT inverse (K12) and the
+// walking four-step kernels still run the radix-2 stages below, one
+// block-wide barrier a stage, every stage through shared memory.
 //
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
@@ -87,6 +88,7 @@
 
 namespace {
 
+// The radix-2 block of K12: 512 threads, one or more polynomials.
 constexpr int kThreads = 512;
 // Below this many words a block holds several polynomials.
 constexpr int kMinBlockWords = 1024;
@@ -110,27 +112,6 @@ Plan make_plan(long long batch, int logn) {
   p.words = p.polys * n;
   p.grid = (unsigned)((batch + p.polys - 1) / p.polys);
   return p;
-}
-
-// Tile of `polys` polynomials starting at polynomial `first`: element e of
-// the tile is word e of the (batch, n) operand from polynomial `first` on.
-// Polynomials past the batch read as zero.
-__device__ void load_tile(uint32_t* tile, const uint32_t* __restrict__ g,
-                          long long first, int polys, long long batch,
-                          int logn) {
-  const int words = polys << logn;
-  for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    tile[e] = first + (e >> logn) < batch ? g[(first << logn) + e] : 0u;
-  }
-}
-
-__device__ void store_tile(uint32_t* __restrict__ g, const uint32_t* tile,
-                           long long first, int polys, long long batch,
-                           int logn) {
-  const int words = polys << logn;
-  for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    if (first + (e >> logn) < batch) g[(first << logn) + e] = tile[e];
-  }
 }
 
 // Forward stages m = 1, 2, ..., n/2 (stride t = n/2m) on every polynomial of
@@ -210,61 +191,15 @@ __device__ void inv_stages(uint32_t* tile, int logn, int polys,
   }
 }
 
-// One tile's forward transform: blocks along x cover the batch.
-__device__ void fwd_body(const uint32_t* __restrict__ x,
-                         uint32_t* __restrict__ y,
-                         const uint32_t* __restrict__ roots,
-                         const uint32_t* __restrict__ precon, long long batch,
-                         int logn, int polys, uint32_t q) {
-  extern __shared__ uint32_t smem[];
-  const long long first = (long long)blockIdx.x * polys;
-  load_tile(smem, x, first, polys, batch, logn);
-  __syncthreads();
-  fwd_stages(smem, logn, polys, roots, precon, q, 1 << logn);
-  store_tile(y, smem, first, polys, batch, logn);
-}
-
-__device__ void inv_body(const uint32_t* __restrict__ x,
-                         uint32_t* __restrict__ y,
-                         const uint32_t* __restrict__ iroots,
-                         const uint32_t* __restrict__ iprecon, long long batch,
-                         int logn, int polys, uint32_t q, uint32_t su,
-                         uint32_t sup, uint32_t sv, uint32_t svp) {
-  extern __shared__ uint32_t smem[];
-  const long long first = (long long)blockIdx.x * polys;
-  load_tile(smem, x, first, polys, batch, logn);
-  __syncthreads();
-  inv_stages(smem, logn, polys, iroots, iprecon, q, su, sup, sv, svp,
-             1 << logn);
-  store_tile(y, smem, first, polys, batch, logn);
-}
-
-// -- single prime (K1, K2) ----------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-           const uint32_t* __restrict__ roots,
-           const uint32_t* __restrict__ precon, long long batch, int logn,
-           int polys, uint32_t q) {
-  fwd_body(x, y, roots, precon, batch, logn, polys, q);
-}
-
-__global__ void __launch_bounds__(kThreads)
-inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-           const uint32_t* __restrict__ iroots,
-           const uint32_t* __restrict__ iprecon, long long batch, int logn,
-           int polys, uint32_t q, uint32_t su, uint32_t sup, uint32_t sv,
-           uint32_t svp) {
-  inv_body(x, y, iroots, iprecon, batch, logn, polys, q, su, sup, sv, svp);
-}
-
 // -- L primes (K4a, K4b, K5/K6b): channel l = blockIdx.y ---------------------
 //
 // Channel l's data starts at l * batch * n (l * batch * k * n for the dot's
 // operands), its tables at row l of the (L, n) tables, and its scalars are
 // qs[l], qinvs[l] and scales[4 l .. 4 l + 3] = (su, su', sv, sv').  All
 // four run on clusters: fwd_rns_cluster_kernel, inv_rns_cluster_kernel and
-// polydot_rns_cluster_kernel, after the four-step section.
+// polydot_rns_cluster_kernel, after the four-step section.  The
+// single-prime K1, K2, K3 and K6a are these kernels at L = 1, their (n,)
+// tables read as (1, n) and their scalars from device memory.
 
 // -- DIT inverse (K12) --------------------------------------------------------
 //
@@ -274,7 +209,7 @@ inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 // loading, runs fwd_stages on inv_roots (forward order, lazy [0, 4q): no
 // final reduction), and multiplies by the post row n^-1 inv_roots[m] with
 // one conditional subtraction while storing (the output gather follows
-// outside).  Bound on this card as fwd_kernel: bytes, 2 B n 4 plus the
+// outside).  Bound on this card as K1: bytes, 2 B n 4 plus the
 // rows; the two rows stay in L2.  rows: (4, n) words pre, pre', post,
 // post'.
 
@@ -384,7 +319,7 @@ xchg_kernel(const uint32_t* __restrict__ x,
 //     by __syncthreads() since no other block touches it;
 //   row tiles of whole rows.
 // K9a/K9b are the column pass alone, one block a column tile; their row
-// pass is fwd_kernel/inv_kernel on (B n1, n2) rows with the cyclic tables.
+// pass is K1/K2 (ntt_fwd/ntt_inv) on (B n1, n2) rows with the cyclic tables.
 // K8 keeps the first operand's transform in a scratch buffer in device
 // memory (B n words) and multiplies (Montgomery) while loading the inverse's
 // row tiles.
@@ -948,31 +883,6 @@ const char* ntt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int ntt_fwd(const uint32_t* x, uint32_t* y, const uint32_t* roots,
-            const uint32_t* precon, long long batch, int logn, uint32_t q,
-            void* stream) {
-  const Plan p = make_plan(batch, logn);
-  const size_t bytes = (size_t)p.words * 4;
-  cudaError_t err = allow_smem((const void*)fwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fwd_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, y, roots, precon, batch, logn, p.polys, q);
-  return (int)cudaGetLastError();
-}
-
-int ntt_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
-            const uint32_t* iprecon, long long batch, int logn, uint32_t q,
-            uint32_t su, uint32_t sup, uint32_t sv, uint32_t svp,
-            void* stream) {
-  const Plan p = make_plan(batch, logn);
-  const size_t bytes = (size_t)p.words * 4;
-  cudaError_t err = allow_smem((const void*)inv_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  inv_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, y, iroots, iprecon, batch, logn, p.polys, q, su, sup, sv, svp);
-  return (int)cudaGetLastError();
-}
-
 // K4a, K4b: one launch for every channel.
 int ntt_fwd_rns(const uint32_t* x, uint32_t* y, const uint32_t* roots,
                 const uint32_t* precon, const uint32_t* qs, int channels,
@@ -1003,7 +913,24 @@ int ntt_inv_rns(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
   return (int)cudaGetLastError();
 }
 
-// K4a's (inv = 0) or K4b's (1) launch for (channels, batch, n = 2^logn):
+// K1, K2: K4a's and K4b's kernels at one channel.  qs: device memory whose
+// word 0 is q (RingTables.dot_words); scales: device memory holding the
+// inverse's (su, su', sv, sv'); the (n,) twiddle tables serve as (1, n).
+int ntt_fwd(const uint32_t* x, uint32_t* y, const uint32_t* roots,
+            const uint32_t* precon, const uint32_t* qs, long long batch,
+            int logn, void* stream) {
+  return ntt_fwd_rns(x, y, roots, precon, qs, 1, batch, logn, stream);
+}
+
+int ntt_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
+            const uint32_t* iprecon, const uint32_t* qs,
+            const uint32_t* scales, long long batch, int logn, void* stream) {
+  return ntt_inv_rns(x, y, iroots, iprecon, qs, scales, 1, batch, logn,
+                     stream);
+}
+
+// K4a's (inv = 0) or K4b's (1) launch for (channels, batch, n = 2^logn),
+// K1's and K2's at channels = 1:
 // info = {log2 of the CTAs a polynomial (the cluster), log2 of the
 // polynomials a CTA, shared memory bytes a CTA, threads a CTA, registers a
 // thread, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the

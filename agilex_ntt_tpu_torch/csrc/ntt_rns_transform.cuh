@@ -4,6 +4,11 @@
 //                   agilex_ntt_tpu/ops/ntt_kernel.py:340)
 //   inv_rns_body <- _inv_rns_kernel (K4b,
 //                   agilex_ntt_tpu/ops/ntt_kernel.py:350)
+// and, at one channel, the single-prime transforms (ntt_fwd, ntt_inv):
+//   fwd_rns_body <- _fwd_kernel (K1, agilex_ntt_tpu/ops/ntt_kernel.py:97)
+//   inv_rns_body <- _inv_kernel (K2, agilex_ntt_tpu/ops/ntt_kernel.py:110)
+// on the negacyclic, cyclic (CyclicRing, the four-step row pass),
+// stage-shard and four-step column tables of their callers.
 // Per channel l and polynomial b of (L, B, n): the forward negacyclic NTT,
 // any word in [0, 4 q_l) in, [0, q_l) out in the HEXL bit-reversed order of
 // the radix-2 network; the inverse, [0, 2 q_l) in, [0, q_l) out, its last

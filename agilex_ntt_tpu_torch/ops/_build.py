@@ -35,8 +35,11 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint32
 SIGNATURES = {
-    "ntt_fwd": (_P, _P, _P, _P, _LL, _I, _U, _P),
-    "ntt_inv": (_P, _P, _P, _P, _LL, _I, _U, _U, _U, _U, _U, _P),
+    # x, y, roots, precon, qs (q at word 0), batch, logn, stream
+    "ntt_fwd": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    # x, y, iroots, iprecon, qs, scales (su, su', sv, sv'), batch, logn,
+    # stream
+    "ntt_inv": (_P, _P, _P, _P, _P, _P, _LL, _I, _P),
     # a, b, out, roots, precon, iroots, iprecon, consts (q, -q^-1 and the
     # scale's four words), batch, k, logn, stream
     "ntt_polydot": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),

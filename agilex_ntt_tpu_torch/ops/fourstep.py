@@ -19,7 +19,7 @@ tiled layouts run the same kernels (``Ring(..., fourstep_kernel="flat")``
 exists for the JAX package's API; it has no kernel of its own here).  The
 dispatch has the JAX package's shape, with caps measured on the H100: one
 fused kernel while the matrix is at most ``FULL_FUSE_BYTES`` (K7a/K7b),
-else the column kernel (K9a/K9b) and the row pass on the radix-2 kernels
+else the column kernel (K9a/K9b) and the row pass on the transform kernels
 (K1/K2) with the cyclic row tables; the fused polymul (K8) while the matrix
 is at most ``POLYMUL_FUSE_BYTES``, else two forward transforms, the
 Montgomery product and a scaled inverse.
@@ -53,14 +53,15 @@ from .plain_ntt import FourStepTables
 # card's crossovers (chip_smoke.py phase 4, NVIDIA H100 80GB HBM3 at
 # 700.00 W, 128 MiB an operand; PERF.md section 5).  The fused transforms
 # K7a + K7b, both on thread-block clusters up to 2^19, beat the two-kernel
-# route (K9a + K1 rows, K2 rows + K9b) up to 2^19 (2 MiB: 0.61 + 0.66
-# against 0.75 + 0.90 ms at B=64) and lose at 2^20, where both are the
-# walking kernels (3.97 + 3.35 against 0.78 + 0.96 ms at B=32).  The fused
+# route (K9a + K1 rows, K2 rows + K9b, K1 and K2 on the register-radix
+# transform kernels) up to 2^17 (512 KiB: 0.34 + 0.36 against 0.37 + 0.37
+# ms at B=256) and lose from 2^18 on (1 MiB: 0.40 + 0.43 against 0.37 +
+# 0.37 at B=128; 2^19: 0.62 + 0.65 against 0.41 + 0.41).  The fused
 # polymul K8 beats the composed polymul (two transforms, the int64
 # Montgomery product, the scaled inverse) up to 2^19 (2 MiB; K8 on the
-# walking kernel there: 5.44 against 6.40 ms) and loses at 2^20 (10.93
-# against 7.04).  Every route is bit-exact, so the caps move only time.
-FULL_FUSE_BYTES = 2 << 20
+# walking kernel there: 5.41 against 6.40 ms) and loses at 2^20 (10.93
+# against 5.89).  Every route is bit-exact, so the caps move only time.
+FULL_FUSE_BYTES = 512 << 10
 POLYMUL_FUSE_BYTES = 2 << 20
 
 

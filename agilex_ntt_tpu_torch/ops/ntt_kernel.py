@@ -101,7 +101,14 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_ntt(x: torch.Tensor, tables: RingTables) -> torch.Tensor:
-    """Forward negacyclic NTT of (B, n) in [0, 4q) -> [0, q), HEXL order."""
+    """Forward NTT of (B, n) in [0, 4q) -> [0, q), HEXL order: negacyclic,
+    or cyclic on cyclic tables (a ``CyclicRing``'s, the four-step row
+    pass's).
+
+    On the card the multi-prime transform kernel at one channel
+    (``launch_info``): a CTA holds 4096 words, a polynomial of n > 4096
+    words on a cluster of n / 4096 CTAs, smaller ones several to a CTA; q
+    is ``tables.dot_words`` word 0."""
     _check(x, tables, "fwd_ntt", 2)
     if x.device.type == "cpu":
         return _u32(plain.fwd_ntt_plain(x.to(torch.int64), tables))
@@ -111,7 +118,7 @@ def fwd_ntt(x: torch.Tensor, tables: RingTables) -> torch.Tensor:
         rc = lib.ntt_fwd(
             x.data_ptr(), y.data_ptr(),
             tables.roots.data_ptr(), tables.precon.data_ptr(),
-            x.shape[0], tables.log_n, tables.q, _stream(x),
+            tables.dot_words.data_ptr(), x.shape[0], tables.log_n, _stream(x),
         )
     _build.check(lib, rc, "fwd_ntt")
     LAUNCHES["fwd"] += 1
@@ -121,24 +128,36 @@ def fwd_ntt(x: torch.Tensor, tables: RingTables) -> torch.Tensor:
 def inv_ntt(
     x: torch.Tensor, tables: RingTables, *, scale: Optional[int] = None
 ) -> torch.Tensor:
-    """Inverse negacyclic NTT of (B, n) in [0, 2q) -> [0, q).  ``scale``
-    replaces the final n^-1 (for example n^-1 * 2**32 to absorb a Montgomery
-    factor); it is folded into the last stage."""
+    """Inverse NTT of (B, n) in [0, 2q) -> [0, q).  ``scale`` replaces the
+    final n^-1 (for example n^-1 * 2**32 to absorb a Montgomery factor); it
+    is folded into the last stage.  On the card ``fwd_ntt``'s launch, the
+    passes in the mirror order; the scale's four words come from
+    ``tables.scale_words`` (uploaded at a scale's first use only)."""
     _check(x, tables, "inv_ntt", 2)
     if x.device.type == "cpu":
         return _u32(plain.inv_ntt_plain(x.to(torch.int64), tables, scale))
+    words = tables.scale_words(scale)
     y = torch.empty_like(x)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.ntt_inv(
             x.data_ptr(), y.data_ptr(),
             tables.inv_roots.data_ptr(), tables.inv_precon.data_ptr(),
-            x.shape[0], tables.log_n, tables.q,
-            *inv_scale_words(tables, scale), _stream(x),
+            tables.dot_words.data_ptr(), words.data_ptr(), x.shape[0],
+            tables.log_n, _stream(x),
         )
     _build.check(lib, rc, "inv_ntt")
     LAUNCHES["inv"] += 1
     return y
+
+
+def launch_info(tables: RingTables, which: str = "fwd", batch: int = 1) -> dict:
+    """The launch of ``fwd_ntt`` (``which`` = ``"fwd"``: K1) or ``inv_ntt``
+    (``"inv"``: K2) on (``batch``, n) at ``tables``' n: the multi-prime
+    transform kernel's ``rns_launch_info`` at one channel."""
+    if which not in ("fwd", "inv"):
+        raise ValueError(f"launch_info: unknown kernel {which!r}")
+    return _rns_info(int(which == "inv"), tables.log_n, 1, batch, "launch_info")
 
 
 def _polydot_launch(a, b, tables: RingTables, what: str) -> torch.Tensor:
@@ -278,11 +297,15 @@ def rns_launch_info(tables: RNSTables, which: str = "fwd_rns",
     polynomials, or one polynomial on a cluster)."""
     if which not in ("fwd_rns", "inv_rns"):
         raise ValueError(f"rns_launch_info: unknown kernel {which!r}")
+    return _rns_info(int(which == "inv_rns"), tables.log_n, tables.L, batch,
+                     "rns_launch_info")
+
+
+def _rns_info(inv: int, log_n: int, channels: int, batch: int, what: str) -> dict:
     lib = _build.load()
     info = (ctypes.c_int * 8)()
-    _build.check(lib, lib.ntt_rns_launch_info(int(which == "inv_rns"),
-                                              tables.log_n, tables.L, batch,
-                                              info), "rns_launch_info")
+    _build.check(lib, lib.ntt_rns_launch_info(inv, log_n, channels, batch, info),
+                 what)
     return {"ctas": 1 << info[0], "polys": 1 << info[1],
             "smem_bytes": info[2], "threads": info[3],
             "registers": info[4], "ctas_per_sm": info[5],

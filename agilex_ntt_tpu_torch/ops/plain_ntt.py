@@ -46,7 +46,10 @@ class RingTables:
     ``dot_words`` holds the fused kernels' constants on the tables' device,
     built once with the tables: (q, -q^-1 mod 2**32, su, su', sv, sv') of
     ``polymul_scale``, the (L,), (L,) and (L, 4) arrays of the multi-prime
-    polydot kernel at L = 1.
+    polydot kernel at L = 1; word 0 is also the transforms' (1,) q.
+    ``scale_words(scale)`` gives the inverse's (4,) last-stage constants on
+    the device, cached per scale: n^-1 built with the tables, any other
+    uploaded at its first use.
     """
 
     n: int
@@ -62,14 +65,29 @@ class RingTables:
     inv_precon: torch.Tensor
     dot_words: torch.Tensor = dataclasses.field(init=False, repr=False,
                                                 compare=False)
+    _scales: Dict[int, torch.Tensor] = dataclasses.field(
+        init=False, repr=False, compare=False
+    )
 
     def __post_init__(self):
         words = (self.q, self.qinv_neg) + inv_scale_words(self, self.polymul_scale)
         object.__setattr__(self, "dot_words", _u32_tensor(words, self.device))
+        object.__setattr__(self, "_scales", {})
+        self.scale_words()
 
     @property
     def device(self) -> torch.device:
         return self.roots.device
+
+    def scale_words(self, scale: Optional[int] = None) -> torch.Tensor:
+        """(4,) uint32 constants (su, su', sv, sv') of the last inverse
+        stage for ``scale`` (default n^-1), on the tables' device."""
+        key = (self.n_inv if scale is None else int(scale)) % self.q
+        hit = self._scales.get(key)
+        if hit is None:
+            hit = _u32_tensor(inv_scale_words(self, key), self.device)
+            self._scales[key] = hit
+        return hit
 
 
 def make_tables(params: NTTParams, device) -> RingTables:

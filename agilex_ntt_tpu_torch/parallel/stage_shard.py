@@ -11,7 +11,8 @@ shard.  Forward stages run in HEXL order, t = n/2 -> 1:
     twiddle one value a shard and stage.
   * t < S: purely local.  For shard d these are an S-point transform whose
     table is roots'[m' + i'] = roots[(P + d) m' + i'] (m' = 2^(s - log2 P)),
-    so they run on the radix-2 kernel K1 with derived per-shard tables.
+    so they run on the transform kernel K1 with derived per-shard tables
+    (built once per shard and device: ``_shard_tables`` is cached).
 
 The inverse mirrors this: local Gentleman-Sande stages first on K2 with the
 per-shard inverse tables (K2's last stage is then scaled by 1 and

@@ -15,6 +15,11 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    (tolerance 0: integer arithmetic).  Single prime: at the main path's
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
    n=32, and at two shapes that reach the kernels' other branches; the
+   transforms (K1, K2), which run the multi-prime transform kernels at one
+   channel, also on their other callers' tables (``TRANSFORM_MORE``:
+   ``CyclicRing``'s at n = 2, 4 and 32768, the stage-shard tables of the
+   sharded ring, the four-step row pass's at 2^20 and 2^21 and the sharded
+   four-step's column tables) with each scale those callers pass; the
    fused polymul (K3) and polydot (K6a), which run the multi-prime polydot
    kernel at one channel, with a first operand over the lazy [0, 4q) and
    the edge words 4q - 1, q - 1 and 0, also on ``CyclicRing``'s tables at
@@ -75,9 +80,12 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    cluster or slab width, shared memory, CTAs an SM,
    ``cudaOccupancyMaxActiveClusters``, registers and spills; K3's, K4a's,
    K4b's, K5's, K6a's and K6b's cluster or polynomials a CTA, K4a's and
-   K4b's clusters a channel) and
-   the kernels ``torch.profiler`` sees run at 2^16 and 2^18 and for K3,
-   K4a, K4b, K5, K6a and K6b; the fused
+   K4b's clusters a channel, K1's and K2's at their callers' shapes), the
+   row pass alone at 2^20 and 2^21, and
+   the kernels ``torch.profiler`` sees run at 2^16 and 2^18 and for K1,
+   K2 (also on the row pass), K3, K4a, K4b, K5, K6a and K6b, with no
+   host-to-device copy in a ``Ring.intt(scale=...)`` call after the first
+   with that scale (nor in ``Ring(2^21)``'s transforms); the fused
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
    set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
@@ -147,6 +155,16 @@ FUSED_MORE_SHAPES = ((2, 65536, 1, True), (4, 65536, 1, True),
 # K3 and K6a timed beyond the main shapes: (n, batch, k)
 FUSED_TIMED_SHAPES = ((32768, 1024, 1), (32, 65536, 1), (16384, 256, MAIN_K),
                       (MAIN_N, 512, 8))
+# K1 and K2 on their other callers' tables beyond CHECK_SHAPES: (what, n,
+# batch); "cyclic": CyclicRing's rows of 2 and 4 words (2048 and 1024
+# polynomials a CTA) and a cluster of 8; "shard": the stage-shard tables of
+# the sharded ring's shards (Ring(SHARD_N) over SHARD_SP, every d); "row":
+# the four-step row pass's cyclic tables of Ring(n) at (B n1, n2); "col":
+# the sharded four-step's column tables of Ring(n) at its (B n2 / sp, n1)
+TRANSFORM_MORE = (("cyclic", 2, 1 << 21), ("cyclic", 4, 1 << 20),
+                  ("cyclic", 32768, 256), ("shard", 32768, 512),
+                  ("row", 1 << 20, 32), ("row", 1 << 21, 16),
+                  ("col", 1 << 16, 512))
 GOLDEN_ROWS = 8
 DEVICE = "cuda"
 
@@ -201,7 +219,7 @@ KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
 # rows whose kernel body lives in a header beside it
 BODY_SOURCE = {
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_rns_transform.cuh"
-       for key in ("fwd_rns", "inv_rns")},
+       for key in ("fwd", "inv", "fwd_rns", "inv_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_polydot_cluster.cuh"
        for key in ("polymul", "polydot", "polymul_rns", "polydot_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
@@ -331,10 +349,10 @@ def bound(words_moved: int, ops):
 
 # names of ntt_kernels.cu's kernels, demangled or not
 OUR_KERNEL = re.compile(
-    r"(?<![A-Za-z_])(fwd|inv|fwd4|inv4|polymul4|col_fwd4|col_inv4"
+    r"(?<![A-Za-z_])(fwd4|inv4|polymul4|col_fwd4|col_inv4"
     r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
     r"|col_inv4_slab|polydot_rns_cluster|fwd_rns_cluster|inv_rns_cluster"
-    r"|dit_inv|xchg)(_rns)?_kernel")
+    r"|dit_inv|xchg)_kernel")
 # wrapper counter -> (TPU kernel, its cluster or slab kernel)
 CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "inv4": ("K7b", "inv4_cluster_kernel"),
@@ -343,8 +361,11 @@ CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "col_inv": ("K9b", "col_inv4_slab_kernel")}
 # K5 and K6b, and K3 and K6a (the same kernel launched at one channel)
 DOT_KERNEL = "polydot_rns_cluster_kernel"
+# K4a and K4b, and K1 and K2 (the same kernels launched at one channel)
 RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
                "inv_rns": ("K4b", "inv_rns_cluster_kernel")}
+ONE_KERNELS = {"fwd": ("K1", "fwd_rns_cluster_kernel"),
+               "inv": ("K2", "inv_rns_cluster_kernel")}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
 
 
@@ -507,6 +528,13 @@ def main() -> int:
         b[0, ..., :half], b[0, ..., half:] = q - 1, 0
         return a, b
 
+    def one_shape(tabs, which, batch):
+        """Which launch shape K1 ("fwd") or K2 ("inv") takes at (batch, n)."""
+        info = K.launch_info(tabs, which, batch)
+        if info["ctas"] > 1:
+            return f"cluster {info['ctas']}"
+        return f"{info['polys']} a CTA"
+
     def one_dot_shape(tabs, k):
         """Which launch shape K3 (k = 1) and K6a take at this n."""
         info = K.polydot_launch_info(tabs, k)
@@ -523,15 +551,20 @@ def main() -> int:
 
         x = rand(gen, 4 * q, (batch, n))  # lazy forward range [0, 4q)
         got = K.fwd_ntt(x.to(torch.uint32), tabs)
-        compare("fwd", got, P.fwd_ntt_plain(x, tabs), f"n={n} B={batch}")
+        compare("fwd", got, P.fwd_ntt_plain(x, tabs),
+                f"n={n} B={batch} {one_shape(tabs, 'fwd', batch)}")
         same_as_golden(got[:g], golden_fwd(x[:g], params), "fwd_ntt")
         del x, got
 
         y = rand(gen, 2 * q, (batch, n))  # lazy inverse range [0, 2q)
         got = K.inv_ntt(y.to(torch.uint32), tabs)
-        compare("inv", got, P.inv_ntt_plain(y, tabs), f"n={n} B={batch}")
+        compare("inv", got, P.inv_ntt_plain(y, tabs),
+                f"n={n} B={batch} {one_shape(tabs, 'inv', batch)}")
         same_as_golden(got[:g], G.inv_ntt_u64(y[:g].cpu().numpy(), params),
                        "inv_ntt")
+        got = K.inv_ntt(y.to(torch.uint32), tabs, scale=ring.polymul_scale)
+        compare("inv", got, P.inv_ntt_plain(y, tabs, ring.polymul_scale),
+                f"n={n} B={batch} polymul_scale")
         del y, got
 
         a, b = lazy_pair(gen, q, (batch, n))
@@ -579,6 +612,48 @@ def main() -> int:
                     raise AssertionError(f"CyclicRing({n}) polymul disagrees "
                                          "with schoolbook")
         del a, b, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # K1 and K2 on their other callers' tables, each scale its callers pass
+    from agilex_ntt_tpu_torch.parallel import stage_shard as SS
+
+    def transform_tables(what, n, batch):
+        """[(note, RingTables, rows, inverse scales)] of a TRANSFORM_MORE
+        row."""
+        if what == "cyclic":
+            t = CyclicRing(n, device=dev).tables
+            return [(f"cyclic n={n}", t, batch, (None, t.polymul_scale))]
+        ring_ = Ring(n, device=dev)
+        if what == "shard":
+            return [(f"shard {d} of {SHARD_SP}, n={n}",
+                     SS._shard_tables(ring_.params, SHARD_SP, d, dev), batch,
+                     (1, None)) for d in range(SHARD_SP)]
+        ft = ring_.fourstep
+        if what == "row":
+            return [(f"row pass of n={n}", ft.row, batch * ft.n1, (None,))]
+        return [(f"columns of n={n} sp={SHARD_SP}", ft.col,
+                 batch * ft.n2 // SHARD_SP,
+                 (ft.col_scale(), ft.col_scale(ft.polymul_scale)))]
+
+    for what, n, batch in TRANSFORM_MORE:
+        for note, t, rows_, scales in transform_tables(what, n, batch):
+            q = t.q
+            gen = torch.Generator(dev).manual_seed(t.n + rows_)
+            x = rand(gen, 4 * q, (rows_, t.n))
+            y = rand(gen, 2 * q, (rows_, t.n))
+            # the tops of the lazy ranges on the first quarter, 0 last
+            x.view(-1)[: x.numel() // 4], x.view(-1)[-t.n:] = 4 * q - 1, 0
+            y.view(-1)[: y.numel() // 4], y.view(-1)[-t.n:] = 2 * q - 1, 0
+            compare("fwd", K.fwd_ntt(x.to(torch.uint32), t),
+                    P.fwd_ntt_plain(x, t),
+                    f"{note} B={rows_} {one_shape(t, 'fwd', rows_)}")
+            for sc in scales:
+                compare("inv", K.inv_ntt(y.to(torch.uint32), t, scale=sc),
+                        P.inv_ntt_plain(y, t, sc),
+                        f"{note} B={rows_} scale "
+                        f"{'n^-1' if sc is None else sc}")
+            del x, y
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
@@ -1252,10 +1327,13 @@ def main() -> int:
                      words_x, scaled(XCHG_ROWS * XCHG_WIDTH, OPS_XCHG_INV),
                      xshape + " v"),
     })
-    path_of = {key: launches for key in SINGLE}
-    path_of.update({key: slice_launches for key in SLICE})
-    path_of.update({key: rns_launches for key in MULTI})
-    path_of.update({key: fs_launches for key in FOURSTEP})
+    # a kernel's launches over every path of phase 3 (the flat path's are
+    # the flat rows')
+    paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
+             "3e": slice_launches}
+    for key, (what, _) in ONE_KERNELS.items():
+        log(f"{what} launches by path: " + ", ".join(
+            f"{p} {c[key]}" for p, c in paths.items()))
     log("cluster kernels (K7a, K7b: one matrix, K8: two) and K9a's and "
         "K9b's slab kernels by matrix, and ptxas:")
     for n_, _ in FS_ROUTE_SHAPES + ((1 << 21, 16),):
@@ -1321,6 +1399,26 @@ def main() -> int:
             f"{info['clusters']} clusters a channel")
     for _, name in RNS_KERNELS.values():
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
+    log("K1 and K2 (the same kernels at one channel) by caller's shape:")
+    f20 = fs_rings[2].fourstep
+    for what, tabs_, b_ in (
+            ("Ring", tabs, MAIN_BATCH),
+            ("Ring(32768)", Ring(32768, device=dev).tables, 1024),
+            ("CyclicRing(2)", CyclicRing(2, device=dev).tables, 1 << 21),
+            ("row pass of 2^20", f20.row, 32 * f20.n1),
+            ("row pass of 2^21", f21.row, 16 * f21.n1),
+            (f"shard of Ring({SHARD_N}) over sp={SHARD_SP}",
+             SS._shard_tables(sring.params, SHARD_SP, 0, dev),
+             SHARD_BATCH // SHARD_DP)):
+        for key, (k_name, _) in ONE_KERNELS.items():
+            info = K.launch_info(tabs_, key, b_)
+            log(f"  {k_name} {what} (B={b_}, n={tabs_.n}): {info['ctas']} CTAs "
+                f"a polynomial, {info['polys']} polynomials a CTA, "
+                f"{info['threads']} threads, {info['registers']} registers, "
+                f"{info['smem_bytes']} bytes of shared memory a CTA, "
+                f"{info['ctas_per_sm']} CTAs an SM, at most "
+                f"{info['max_active_clusters']} clusters at once; "
+                f"{info['clusters']} clusters")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -1333,7 +1431,7 @@ def main() -> int:
             f"{ops[0]} multiplies, {ops[1]} compares, {ops[2]} adds), "
             f"{bound_ms / ms:.1%} of bound")
         count = (flat_launches[FLAT[key]] if key in FLAT
-                 else path_of[key][key])
+                 else sum(c[key] for c in paths.values()))
         rows.append({
             "name": name, "route": "cuda",
             "source": BODY_SOURCE.get(key, KERNEL_SOURCE),
@@ -1427,15 +1525,21 @@ def main() -> int:
         f"polymul at {wins['polymul']} bytes; ops/fourstep.py caps: "
         f"FULL_FUSE_BYTES={FS.FULL_FUSE_BYTES}, "
         f"POLYMUL_FUSE_BYTES={FS.POLYMUL_FUSE_BYTES}")
-    rows21 = y21.view(-1, f21.n2)
-    for name, call in (("fwd_ntt row pass", lambda: K.fwd_ntt(rows21, f21.row)),
-                       ("inv_ntt row pass", lambda: K.inv_ntt(rows21, f21.row))):
-        ms = cuda_time_ms(call)
-        bound_ms, bound_by = bound(2 * rows21.numel() + 4 * f21.n2,
-                                   (fwd_ops if "fwd" in name else inv_ops)(
-                                       rows21.shape[0], f21.n2))
-        log(f"  {name:30s} ({rows21.shape[0]}, {f21.n2}) {ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+    # the row pass alone (K1, K2 on the cyclic row tables), on Ring.ntt's
+    # words of 2^20 and 2^21 (any words below 2q)
+    for i in (2, 3):
+        ft = fs_rings[i].fourstep
+        rows_ = fs_out[i][0].view(-1, ft.n2)
+        for name, call in (
+                ("fwd_ntt row pass", lambda: K.fwd_ntt(rows_, ft.row)),
+                ("inv_ntt row pass", lambda: K.inv_ntt(rows_, ft.row))):
+            ms = cuda_time_ms(call)
+            bound_ms, bound_by = bound(2 * rows_.numel() + 2 * ft.n2,
+                                       (fwd_ops if "fwd" in name else inv_ops)(
+                                           rows_.shape[0], ft.n2))
+            log(f"  {name:20s} of n={ft.n} ({rows_.shape[0]}, {ft.n2}) "
+                f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{bound_ms / ms:.1%} of bound")
     # K11 at the overlap path's chunk shape beside the whole shard: most of
     # its launches on the sharded path are chunks
     cshape = f"(B={XCHG_CHUNK_ROWS}, S={XCHG_WIDTH})"
@@ -1586,7 +1690,16 @@ def main() -> int:
                 ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
             if seen and not any(name in k for k, _, _ in seen):
                 raise AssertionError(f"{name} did not run at n={n_}")
+    rows21 = fs_out[3][0].view(-1, f21.n2)
     for what, call, kernel in (
+            (f"K1 (B={bsz}, n={n})", lambda: K.fwd_ntt(x, tabs),
+             ONE_KERNELS["fwd"][1]),
+            (f"K2 (B={bsz}, n={n})", lambda: K.inv_ntt(c, tabs),
+             ONE_KERNELS["inv"][1]),
+            (f"K1 row pass of n={f21.n} {tuple(rows21.shape)}",
+             lambda: K.fwd_ntt(rows21, f21.row), ONE_KERNELS["fwd"][1]),
+            (f"K2 row pass of n={f21.n} {tuple(rows21.shape)}",
+             lambda: K.inv_ntt(rows21, f21.row), ONE_KERNELS["inv"][1]),
             (f"K3 (B={bsz}, n={n})", lambda: K.polymul_fused(a, b, tabs),
              DOT_KERNEL),
             (f"K6a (B={dbsz}, k={k}, n={n})",
@@ -1604,6 +1717,30 @@ def main() -> int:
                                       for k, c, ms in seen))
         if seen and not any(kernel in k for k, _, _ in seen):
             raise AssertionError(f"{kernel} did not run for {what}")
+    # the scale's words are uploaded at its first use only: no later call
+    # copies anything to the card (the profiler must first see the copy of
+    # a host tensor)
+    log("host-to-device copies in a call after the first (torch.profiler):")
+
+    def copies_in(call):
+        return [(k, c) for k, c, _ in kernels_seen(torch, call) if "HtoD" in k]
+
+    control = copies_in(lambda: torch.ones(4, dtype=torch.int32).to(dev))
+    log(f"  control, a host tensor to the card: {control}")
+    if not control:
+        raise AssertionError("the profiler shows no host-to-device copy")
+    odd = (3 * ring.polymul_scale + 1) % ring.q  # a scale no table holds
+    big21 = fs_rings[3]
+    for what, call in (
+            (f"Ring({n}).intt(scale={odd})", lambda: ring.intt(y, scale=odd)),
+            (f"Ring({n}).intt(scale=polymul_scale)",
+             lambda: ring.intt(y, scale=ring.polymul_scale)),
+            (f"Ring({big21.n}).ntt", lambda: big21.ntt(fs_in[3][0])),
+            (f"Ring({big21.n}).intt", lambda: big21.intt(fs_out[3][0]))):
+        copies = copies_in(call)
+        log(f"  {what}: {copies if copies else 'none'}")
+        if copies:
+            raise AssertionError(f"{what} copies to the card on every call")
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
         kernel_share(torch, lambda: sr.ntt(sx),

@@ -481,7 +481,10 @@ def _cluster_bodies_match_plain(so):
     K4b's bodies on the same layouts and at n = 8 and 4, one cluster a
     unit as the launcher runs them, with ragged last units, on inputs over [0, 4q) and [0, 2q) (their tops included),
     K4b with the default and the polymul scale, against
-    ``fwd_ntt_rns_plain``/``inv_ntt_rns_plain``; and the polydot's launch
+    ``fwd_ntt_rns_plain``/``inv_ntt_rns_plain``; the same bodies at one
+    channel as K1 and K2 launch them, on single-prime negacyclic, cyclic,
+    stage-shard and four-step row and column tables with their callers'
+    scales, against ``fwd_ntt_plain``/``inv_ntt_plain``; and the polydot's launch
     shape (cluster, polynomials a CTA, shared memory) at 256 threads a CTA.
     Runs in a child process: ``so`` is the library's path."""
     from agilex_ntt_tpu_torch.ops import fourstep as FS
@@ -675,6 +678,59 @@ def _cluster_bodies_match_plain(so):
                     tw[1].data_ptr(), tabs.q_words.data_ptr(),
                     scales.data_ptr(), 2, batch, n.bit_length() - 1, logt)
             assert np.array_equal(got, want.numpy()), ("rns", inv, n, logt)
+
+    # K1/K2: the same bodies at one channel on single-prime RingTables, as
+    # ntt_fwd/ntt_inv launch them: q from ``dot_words`` word 0, the scale's
+    # words from ``scale_words``, the (n,) tables as (1, n).  The callers'
+    # tables: negacyclic and CyclicRing's (n = 2 rows of 2 words with 8 and
+    # 32 polynomials a CTA, 4, 8, 256 and 1024 on clusters and several a
+    # CTA), a Ring(1024)'s stage-shard tables over 4 shards (every d), a
+    # four-step ring's row and column tables; each with its callers'
+    # scales.  Inputs over [0, 4q) and [0, 2q) with their tops and 0 on
+    # quarters, ragged last units.
+    from agilex_ntt_tpu_torch.parallel import stage_shard as SS
+
+    one = []  # (what, RingTables, logt, batch, inverse scales)
+    for n, logts, batch in ((2, (0, 2), 37), (4, (1,), 19), (8, (0, 3), 7),
+                            (256, (2, 4, 6), 5), (1024, (4, 6, 7), 3)):
+        q = find_primes(n, 1)[0]
+        for cyclic in (False, True):
+            rt = (CyclicRing(n, q, device="cpu").tables if cyclic
+                  else P.make_tables(make_params(n, q), "cpu"))
+            for logt in logts:
+                one.append((("cyclic" if cyclic else "ring", n), rt, logt,
+                            batch, (None, rt.polymul_scale, 1)))
+    params = make_params(1024, find_primes(1024, 1)[0])
+    for d in range(4):
+        st = SS._shard_tables(params, 4, d, torch.device("cpu"))
+        assert st is SS._shard_tables(params, 4, d, torch.device("cpu"))
+        one.append((("shard", d), st, 2, 3, (1, None)))
+    for n, n1 in ((1024, 32), (4096, 256)):
+        ft = P.make_fourstep_tables(
+            FS.make_plan(n, find_primes(n, 1)[0], None, n1), "cpu")
+        one.append((("row", n), ft.row, 0, 9, (None,)))
+        one.append((("col", n), ft.col, 2, 3,
+                    (ft.col_scale(), ft.col_scale(ft.polymul_scale))))
+    for what, rt, logt, batch, scales in one:
+        q, n = rt.q, rt.n
+        rng = np.random.default_rng(n + logt + batch)
+        x = rng.integers(0, 4 * q, size=(batch, n))
+        xi = rng.integers(0, 2 * q, size=(batch, n))
+        m = x.size // 4
+        x.reshape(-1)[:m], x.reshape(-1)[2 * m: 3 * m] = 4 * q - 1, 0
+        xi.reshape(-1)[:m], xi.reshape(-1)[2 * m: 3 * m] = 2 * q - 1, 0
+        got = np.zeros((batch, n), dtype=np.uint32)
+        runs = [(0, x, rt.roots, rt.precon, None)]
+        runs += [(1, xi, rt.inv_roots, rt.inv_precon, sc) for sc in scales]
+        for inv, v, w, wp, sc in runs:
+            v32 = v.astype(np.uint32)
+            got[:] = 0
+            h.h_rns(inv, _ptr(v32), _ptr(got), w.data_ptr(), wp.data_ptr(),
+                    rt.dot_words.data_ptr(), rt.scale_words(sc).data_ptr(), 1,
+                    batch, n.bit_length() - 1, logt)
+            want = (P.inv_ntt_plain(_t(v), rt, sc) if inv
+                    else P.fwd_ntt_plain(_t(v), rt))
+            assert np.array_equal(got, want.numpy()), (what, inv, logt, sc)
     # its shape at 256 threads: (cluster log, polynomials log, row log, rows
     # log, bytes at k = 1 and k > 1) at the key switch's 16384, K5's 4096,
     # 32768 and 256

@@ -34,24 +34,66 @@ def _rand(gen, bound, shape, device):
     )
 
 
+def _transform_tables(device):
+    """The tables K1 and K2 take from their callers beyond ``Ring``'s, as
+    (what, RingTables, batch, inverse scales): ``CyclicRing``'s at n = 2
+    to 1024 (rows of 2 and 4 words), a Ring(1024)'s stage-shard tables over
+    4 shards, and the four-step row tables (at 2^20's n2 = 1024) and column
+    tables of ``Ring(2^16)`` with their scales."""
+    out = []
+    for n, batch in ((2, 4097), (4, 1001), (8, 33), (256, 37), (1024, 5)):
+        rt = CyclicRing(n, device=device).tables
+        out.append((f"cyclic n={n}", rt, batch, (None, rt.polymul_scale)))
+    from agilex_ntt_tpu_torch.parallel import stage_shard as SS
+    params = Ring(1024, device=device).params
+    for d in range(4):
+        out.append((f"shard {d}", SS._shard_tables(params, 4, d, device), 7,
+                    (1, None)))
+    ft = Ring(1 << 16, device=device).fourstep
+    row = Ring(1 << 20, device=device).fourstep.row
+    out.append(("row n2=1024", row, 65, (None,)))
+    out.append(("col n1=256", ft.col, 19,
+                (ft.col_scale(), ft.col_scale(ft.polymul_scale))))
+    return out
+
+
 @pytest.mark.parametrize("n,batch", [(8, 5), (32, 1000), (256, 1001),
                                      (4096, 64), (16384, 8), (32768, 4)])
 def test_transforms_match_plain(cuda, n, batch):
+    """K1 and K2 against their plain versions on the multi-prime transform
+    kernels at one channel (``launch_info``: a CTA holds 4096 words), one
+    launch a call; inputs over [0, 4q) and [0, 2q) with their tops and 0.
+    The first case also runs the other callers' tables
+    (``_transform_tables``)."""
     ring = Ring(n, device=cuda)
-    gen = torch.Generator(cuda).manual_seed(n)
-    x = _rand(gen, 4 * ring.q, (batch, n), cuda)
-    y = _rand(gen, 2 * ring.q, (batch, n), cuda)
-    before = dict(K.LAUNCHES)
-    got_f = K.fwd_ntt(x.to(torch.uint32), ring.tables)
-    got_i = K.inv_ntt(y.to(torch.uint32), ring.tables, scale=ring.polymul_scale)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["fwd"] == before["fwd"] + 1
-    assert K.LAUNCHES["inv"] == before["inv"] + 1
-    assert torch.equal(got_f.to(torch.int64), P.fwd_ntt_plain(x, ring.tables))
-    want_i = P.inv_ntt_plain(y, ring.tables, ring.polymul_scale)
-    assert torch.equal(got_i.to(torch.int64), want_i)
-    golden = G.fwd_ntt_u32(x[:2].cpu().numpy().astype(np.uint32), ring.params)
-    assert np.array_equal(got_f[:2].cpu().numpy(), golden)
+    cases = [(f"ring n={n}", ring.tables, batch, (ring.polymul_scale,))]
+    if (n, batch) == (8, 5):
+        cases += _transform_tables(cuda)
+    for what, tabs, batch, scales in cases:
+        n, q = tabs.n, tabs.q
+        gen = torch.Generator(cuda).manual_seed(n + batch)
+        x = _rand(gen, 4 * q, (batch, n), cuda)
+        y = _rand(gen, 2 * q, (batch, n), cuda)
+        x.view(-1)[: x.numel() // 4], x.view(-1)[-2:] = 4 * q - 1, 0
+        y.view(-1)[: y.numel() // 4], y.view(-1)[-2:] = 2 * q - 1, 0
+        for which in ("fwd", "inv"):
+            info = K.launch_info(tabs, which, batch)
+            assert (info["ctas"], info["polys"], info["threads"]) == (
+                max(1, n // 4096), max(1, 4096 // n), 256), (what, info)
+        before = dict(K.LAUNCHES)
+        got_f = K.fwd_ntt(x.to(torch.uint32), tabs)
+        got_i = [K.inv_ntt(y.to(torch.uint32), tabs, scale=s) for s in scales]
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fwd"] == before["fwd"] + 1
+        assert K.LAUNCHES["inv"] == before["inv"] + len(scales)
+        assert torch.equal(got_f.to(torch.int64), P.fwd_ntt_plain(x, tabs)), what
+        for s, got in zip(scales, got_i):
+            want_i = P.inv_ntt_plain(y, tabs, s)
+            assert torch.equal(got.to(torch.int64), want_i), (what, s)
+        if tabs is ring.tables:
+            golden = G.fwd_ntt_u32(x[:2].cpu().numpy().astype(np.uint32),
+                                   ring.params)
+            assert np.array_equal(got_f[:2].cpu().numpy(), golden)
 
 
 # K3's and K6a's cases that the parametrized ones below do not reach, run
