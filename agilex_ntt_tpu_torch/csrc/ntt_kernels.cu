@@ -21,9 +21,13 @@
 //                       _polymul_kernel   (K3, k = 1)
 //                   and _polydot_kernel   (K6a, sum of k products)
 // the DIT inverse of agilex_ntt_tpu/ops/dit_inv.py and the cross-device
-// stage of agilex_ntt_tpu/parallel/overlap.py (see their sections below):
-//   dit_inv_kernel  <- _dit_inv_kernel  (K12)
-//   xchg_kernel     <- kernel in _xchg_call (K11)
+// stage of agilex_ntt_tpu/parallel/overlap.py:
+//   dit_inv_cluster_kernel <- _dit_inv_kernel (K12, on the forward
+//                                        transform's register-radix passes;
+//                                        see ntt_rns_transform.cuh)
+//   xchg_group_kernel      <- kernel in _xchg_call (K11, a group of
+//                                        butterfly pairs a launch; see
+//                                        ntt_xchg.cuh)
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
 // four-step section below and ntt_fourstep_cluster.cuh for their design):
 //   fwd4_cluster_kernel, where the matrix fits in a cluster, else
@@ -69,10 +73,11 @@
 // CTAs, smaller ones several to a CTA): the polydot (K5, K6b, and K3, K6a
 // at one channel) with the sum in registers (ntt_polydot_cluster.cuh), the
 // transforms (K4a, K4b, and K1, K2 at one channel) on the same passes with
-// one operand (ntt_rns_transform.cuh).  Twiddles come from the n-word
-// tables in device memory, which stay in L2.  The DIT inverse (K12) and the
-// walking four-step kernels still run the radix-2 stages below, one
-// block-wide barrier a stage, every stage through shared memory.
+// one operand (ntt_rns_transform.cuh), and the DIT inverse (K12) on the
+// forward passes.  Twiddles come from the n-word tables in device memory,
+// which stay in L2.  The walking four-step kernels still run the radix-2
+// stages below, one block-wide barrier a stage, every stage through shared
+// memory.
 //
 // Every launcher returns cudaGetLastError(): a launch the card refuses (too
 // much shared memory, a bad configuration) never runs, and a later
@@ -85,13 +90,10 @@
 #include "ntt_fourstep_cluster.cuh"
 #include "ntt_polydot_cluster.cuh"
 #include "ntt_rns_transform.cuh"
+#include "ntt_xchg.cuh"
 
 namespace {
 
-// The radix-2 block of K12: 512 threads, one or more polynomials.
-constexpr int kThreads = 512;
-// Below this many words a block holds several polynomials.
-constexpr int kMinBlockWords = 1024;
 // Shared memory a block may opt in to on sm_90 (227 KB).
 constexpr size_t kMaxSmemBytes = 232448;
 // Above this a kernel needs cudaFuncAttributeMaxDynamicSharedMemorySize.
@@ -99,31 +101,15 @@ constexpr size_t kDefaultSmemBytes = 48 * 1024;
 // Most channels a multi-prime launch takes: gridDim.y.
 constexpr int kMaxChannels = 65535;
 
-struct Plan {
-  int polys;      // polynomials per block
-  int words;      // polys * n: words of one tile
-  unsigned grid;  // blocks
-};
-
-Plan make_plan(long long batch, int logn) {
-  Plan p;
-  const int n = 1 << logn;
-  p.polys = n >= kMinBlockWords ? 1 : kMinBlockWords / n;
-  p.words = p.polys * n;
-  p.grid = (unsigned)((batch + p.polys - 1) / p.polys);
-  return p;
-}
-
 // Forward stages m = 1, 2, ..., n/2 (stride t = n/2m) on every polynomial of
 // the tile; polynomial p starts at word p * pitch (pitch >= n: the
 // four-step column tiles pad each column to n1 + 1 words, so that a warp
 // storing one row of a transposed tile hits 32 different banks).  In
-// [0, 4q), out [0, q), or lazy [0, 4q) without `reduce_last`.  Ends on a
-// __syncthreads().
+// [0, 4q), out [0, q).  Ends on a __syncthreads().
 __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
                            const uint32_t* __restrict__ roots,
                            const uint32_t* __restrict__ precon, uint32_t q,
-                           int pitch, bool reduce_last = true) {
+                           int pitch) {
   const int half = 1 << (logn - 1);
   const int butterflies = polys * half;
   const uint32_t two_q = 2u * q;
@@ -131,7 +117,7 @@ __device__ void fwd_stages(uint32_t* tile, int logn, int polys,
     const int m = 1 << s;
     const int logt = logn - 1 - s;
     const int t = 1 << logt;
-    const bool last = reduce_last && s == logn - 1;
+    const bool last = s == logn - 1;
     for (int j = threadIdx.x; j < butterflies; j += blockDim.x) {
       const int b = j & (half - 1);
       const int i = b >> logt;
@@ -199,106 +185,8 @@ __device__ void inv_stages(uint32_t* tile, int logn, int polys,
 // four run on clusters: fwd_rns_cluster_kernel, inv_rns_cluster_kernel and
 // polydot_rns_cluster_kernel, after the four-step section.  The
 // single-prime K1, K2, K3 and K6a are these kernels at L = 1, their (n,)
-// tables read as (1, n) and their scalars from device memory.
-
-// -- DIT inverse (K12) --------------------------------------------------------
-//
-// The inverse NTT as the forward network run on psi^-1 tables
-// (agilex_ntt_tpu/ops/dit_inv.py): the input is already bit-reversed
-// outside the kernel; the block multiplies it by the pre row psi^k while
-// loading, runs fwd_stages on inv_roots (forward order, lazy [0, 4q): no
-// final reduction), and multiplies by the post row n^-1 inv_roots[m] with
-// one conditional subtraction while storing (the output gather follows
-// outside).  Bound on this card as K1: bytes, 2 B n 4 plus the
-// rows; the two rows stay in L2.  rows: (4, n) words pre, pre', post,
-// post'.
-
-__global__ void __launch_bounds__(kThreads)
-dit_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const uint32_t* __restrict__ iroots,
-               const uint32_t* __restrict__ iprecon,
-               const uint32_t* __restrict__ rows, long long batch, int logn,
-               int polys, uint32_t q) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << logn;
-  const int words = polys << logn;
-  const long long first = (long long)blockIdx.x * polys;
-  const uint32_t* pre = rows;
-  const uint32_t* pre_p = rows + n;
-  const uint32_t* post = rows + 2 * n;
-  const uint32_t* post_p = rows + 3 * n;
-  for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    const int k = e & (n - 1);
-    const long long poly = first + (e >> logn);
-    smem[e] = poly < batch ? ntt_shoup_lazy(x[(first << logn) + e],
-                                            __ldg(pre + k), __ldg(pre_p + k), q)
-                           : 0u;
-  }
-  __syncthreads();
-  fwd_stages(smem, logn, polys, iroots, iprecon, q, n, false);
-  for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    const int k = e & (n - 1);
-    if (first + (e >> logn) < batch)
-      y[(first << logn) + e] =
-          ntt_scale_reduce(smem[e], __ldg(post + k), __ldg(post_p + k), q);
-  }
-}
-
-// -- cross-device stage (K11) --------------------------------------------------
-//
-// One butterfly stage whose partner lives on another shard
-// (agilex_ntt_tpu/parallel/overlap.py): out = step(x, partner) word by word,
-// with the shard's u/v role one scalar.  The TPU kernel pulls the partner's
-// rows into VMEM by remote DMA, one semaphore a batch chunk, and computes
-// chunk c while later chunks fly.  Here `partner` is a device pointer: a
-// buffer on the same card, or on a peer card with P2P access enabled, read
-// directly, so its loads stream behind the arithmetic by construction; the
-// host launches one kernel a batch chunk and orders the chunks across
-// cards with events (parallel/overlap.py).  Out-of-place: every shard's
-// launch must read its partner's words from before the stage.  Bound by
-// bytes: x and partner read once, out written once (12 bytes a word), the
-// positional rows w, w' stay in L2.  With `last`, the forward reduces to
-// [0, q) and the inverse multiplies by the scale s (Shoup constant sp) and
-// reduces, the stage-sharded inverse's final n^-1.
-
-constexpr int kXchgThreads = 256;
-
-template <bool kFwd>
-__global__ void __launch_bounds__(kXchgThreads)
-xchg_kernel(const uint32_t* __restrict__ x,
-            const uint32_t* __restrict__ partner,
-            const uint32_t* __restrict__ w, const uint32_t* __restrict__ wp,
-            uint32_t* __restrict__ out, long long quads, int width4,
-            uint32_t q, bool is_u, bool last, uint32_t s, uint32_t sp) {
-  const uint4* x4 = reinterpret_cast<const uint4*>(x);
-  const uint4* p4 = reinterpret_cast<const uint4*>(partner);
-  const uint4* w4 = reinterpret_cast<const uint4*>(w);
-  const uint4* wp4 = reinterpret_cast<const uint4*>(wp);
-  uint4* o4 = reinterpret_cast<uint4*>(out);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < quads; i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % width4);
-    const uint4 a = x4[i];
-    const uint4 b = p4[i];
-    const uint4 tw = __ldg(w4 + c);
-    const uint4 tp = __ldg(wp4 + c);
-    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
-    const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
-    const uint32_t wv[4] = {tw.x, tw.y, tw.z, tw.w};
-    const uint32_t pv[4] = {tp.x, tp.y, tp.z, tp.w};
-    uint32_t ov[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (kFwd) {
-        ov[j] = ntt_xchg_fwd(av[j], bv[j], is_u, wv[j], pv[j], q, last);
-      } else {
-        const uint32_t v = ntt_xchg_inv(av[j], bv[j], is_u, wv[j], pv[j], q);
-        ov[j] = last ? ntt_scale_reduce(v, s, sp, q) : v;
-      }
-    }
-    o4[i] = make_uint4(ov[0], ov[1], ov[2], ov[3]);
-  }
-}
+// tables read as (1, n) and their scalars from device memory.  K12
+// (dit_inv_cluster_kernel) takes K1's launch.
 
 // -- four-step, n = n1 * n2 (K7a, K7b, K8, K9a, K9b) ---------------------------
 //
@@ -850,9 +738,32 @@ inv_rns_cluster_kernel(const uint32_t* __restrict__ x,
                __ldg(qs + l), scales + 4 * l);
 }
 
-const void* rns_kernel(bool inv) {
-  return inv ? (const void*)inv_rns_cluster_kernel
-             : (const void*)fwd_rns_cluster_kernel;
+// K12 on K1's launch: unit blockIdx.x >> logc of (B, n) z, bit-reversed,
+// -> y in [0, q); roots, precon: the cyclic tables of omega = psi^-2 (the
+// forward network on the psi^-1 tables with the pre row psi^k folded in);
+// rows: the (4, n) scale rows (pre, pre', post, post'), of which the
+// kernel reads the post row.
+__global__ void __launch_bounds__(1 << kRnsLogThreads, kRnsCtasPerSm)
+dit_inv_cluster_kernel(const uint32_t* __restrict__ x,
+                       uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ roots,
+                       const uint32_t* __restrict__ precon,
+                       const uint32_t* __restrict__ rows, long long batch,
+                       uint32_t q, DotShape sh) {
+  extern __shared__ uint32_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const size_t n = (size_t)1 << sh.logn;
+  dit_inv_rns_body(cl, smem, x, y, roots, precon, rows + 2 * n, rows + 3 * n,
+                   batch, sh, (int)cl.block_rank(), blockIdx.x >> sh.logc, q);
+}
+
+// The transform kernels by launch: 0 K4a (K1), 1 K4b (K2), 2 K12.
+enum RnsKernel { kRnsFwd = 0, kRnsInv = 1, kRnsDit = 2 };
+
+const void* rns_kernel(int which) {
+  return which == kRnsInv   ? (const void*)inv_rns_cluster_kernel
+         : which == kRnsDit ? (const void*)dit_inv_cluster_kernel
+                            : (const void*)fwd_rns_cluster_kernel;
 }
 
 // A transform launch at (L, B, n): the shape, the clusters a channel (one
@@ -863,16 +774,27 @@ struct RnsLaunch {
   size_t bytes;
 };
 
-cudaError_t rns_launch(bool inv, int channels, long long batch, int logn,
+cudaError_t rns_launch(int which, int channels, long long batch, int logn,
                        RnsLaunch* d) {
-  if (channels < 1 || channels > kMaxChannels || batch < 1 || logn < 1)
+  if (which < kRnsFwd || which > kRnsDit || channels < 1 ||
+      channels > kMaxChannels || batch < 1 || logn < 1)
     return cudaErrorInvalidValue;
   d->sh = make_dot_shape(logn, kRnsLogThreads);
   if (d->sh.logc > kDotMaxClusterLog) return cudaErrorInvalidValue;
   d->bytes = rns_smem_bytes(d->sh);
   d->clusters = rns_units(d->sh, batch);
   if (!cluster_grid_ok(d->clusters, d->sh.logc)) return cudaErrorInvalidValue;
-  return allow_cluster(rns_kernel(inv), d->sh.logc, d->bytes);
+  return allow_cluster(rns_kernel(which), d->sh.logc, d->bytes);
+}
+
+// K11 (ntt_xchg.cuh): the threads of entry blockIdx.y stride over its
+// quads, one a thread a turn.
+template <bool kFwd>
+__global__ void __launch_bounds__(kXchgThreads)
+xchg_group_kernel(const __grid_constant__ XchgStage st) {
+  for (long long i = (long long)blockIdx.x * kXchgThreads + threadIdx.x;
+       i < st.quads; i += (long long)gridDim.x * kXchgThreads)
+    xchg_group_body<kFwd>(st, blockIdx.y, i);
 }
 
 }  // namespace
@@ -888,7 +810,7 @@ int ntt_fwd_rns(const uint32_t* x, uint32_t* y, const uint32_t* roots,
                 const uint32_t* precon, const uint32_t* qs, int channels,
                 long long batch, int logn, void* stream) {
   RnsLaunch d;
-  cudaError_t err = rns_launch(false, channels, batch, logn, &d);
+  cudaError_t err = rns_launch(kRnsFwd, channels, batch, logn, &d);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kRnsLogThreads, d.bytes,
                        stream, (unsigned)channels);
@@ -903,7 +825,7 @@ int ntt_inv_rns(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
                 const uint32_t* scales, int channels, long long batch,
                 int logn, void* stream) {
   RnsLaunch d;
-  cudaError_t err = rns_launch(true, channels, batch, logn, &d);
+  cudaError_t err = rns_launch(kRnsInv, channels, batch, logn, &d);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kRnsLogThreads, d.bytes,
                        stream, (unsigned)channels);
@@ -929,32 +851,50 @@ int ntt_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
                      stream);
 }
 
-// K4a's (inv = 0) or K4b's (1) launch for (channels, batch, n = 2^logn),
-// K1's and K2's at channels = 1:
+// K12 (dit_inv_cluster_kernel) on K1's launch at one channel: x (B, n)
+// already bit-reversed, any words below 4q, -> y in [0, q); roots, precon:
+// the cyclic tables of omega = psi^-2; rows: the (4, n) scale rows; q by
+// value.  The output gather follows outside (ops/dit_inv.py).
+int ntt_dit_inv(const uint32_t* x, uint32_t* y, const uint32_t* roots,
+                const uint32_t* precon, const uint32_t* rows,
+                long long batch, int logn, uint32_t q, void* stream) {
+  RnsLaunch d;
+  cudaError_t err = rns_launch(kRnsDit, 1, batch, logn, &d);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(d.clusters, d.sh.logc, 1 << kRnsLogThreads, d.bytes,
+                       stream);
+  err = cudaLaunchKernelEx(&launch.cfg, dit_inv_cluster_kernel, x, y, roots,
+                           precon, rows, batch, q, d.sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The launch of kernel `which` (0 K4a, 1 K4b, 2 K12) for (channels, batch,
+// n = 2^logn), K1's and K2's at channels = 1:
 // info = {log2 of the CTAs a polynomial (the cluster), log2 of the
 // polynomials a CTA, shared memory bytes a CTA, threads a CTA, registers a
 // thread, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
 // most such clusters the card runs at once, the clusters a channel
 // launched}.
-int ntt_rns_launch_info(int inv, int logn, int channels, long long batch,
+int ntt_rns_launch_info(int which, int logn, int channels, long long batch,
                         int* info) {
   for (int i = 0; i < 8; ++i) info[i] = 0;
   RnsLaunch d;
-  cudaError_t err = rns_launch(inv != 0, channels, batch, logn, &d);
+  cudaError_t err = rns_launch(which, channels, batch, logn, &d);
   if (err != cudaSuccess) return (int)err;
   info[0] = d.sh.logc;
   info[1] = d.sh.logp;
   info[2] = (int)d.bytes;
   info[3] = 1 << kRnsLogThreads;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, rns_kernel(inv != 0));
+  err = cudaFuncGetAttributes(&attr, rns_kernel(which));
   if (err != cudaSuccess) return (int)err;
   info[4] = attr.numRegs;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[5], rns_kernel(inv != 0), info[3], d.bytes);
+      &info[5], rns_kernel(which), info[3], d.bytes);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch launch(1, d.sh.logc, info[3], d.bytes, nullptr);
-  err = cudaOccupancyMaxActiveClusters(&info[6], rns_kernel(inv != 0),
+  err = cudaOccupancyMaxActiveClusters(&info[6], rns_kernel(which),
                                        &launch.cfg);
   if (err != cudaSuccess) return (int)err;
   info[7] = (int)d.clusters;
@@ -1197,43 +1137,51 @@ int ntt_col_inv4(const uint32_t* x, uint32_t* y, const void* const* tabs,
   return (int)cudaGetLastError();
 }
 
-// -- DIT inverse (K12) and cross-device stage (K11) ----------------------------
+// -- cross-device stage (K11) ------------------------------------------------
 
-int ntt_dit_inv(const uint32_t* x, uint32_t* y, const uint32_t* iroots,
-                const uint32_t* iprecon, const uint32_t* rows,
-                long long batch, int logn, uint32_t q, void* stream) {
-  const Plan p = make_plan(batch, logn);
-  const size_t bytes = (size_t)p.words * 4;
-  cudaError_t err = allow_smem((const void*)dit_inv_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dit_inv_kernel<<<p.grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, y, iroots, iprecon, rows, batch, logn, p.polys, q);
-  return (int)cudaGetLastError();
-}
-
-// x, partner, out: (rows, width) words, 16-byte aligned, width % 4 == 0;
-// w, wp: (width,) rows.  partner may live on a peer card
-// (ntt_enable_peer first).
-int ntt_xchg(const uint32_t* x, const uint32_t* partner, const uint32_t* w,
-             const uint32_t* wp, uint32_t* out, long long rows, int width,
-             uint32_t q, int fwd, int is_u, int last, uint32_t s,
-             uint32_t sp, void* stream) {
-  if (rows < 1 || width < 4 || width % 4) return (int)cudaErrorInvalidValue;
-  const long long quads = rows * (width / 4);
-  long long blocks = (quads + kXchgThreads - 1) / kXchgThreads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  if (fwd) {
-    xchg_kernel<true><<<(unsigned)blocks, kXchgThreads, 0,
-                        (cudaStream_t)stream>>>(
-        x, partner, w, wp, out, quads, width / 4, q, is_u != 0, last != 0, s,
-        sp);
-  } else {
-    xchg_kernel<false><<<(unsigned)blocks, kXchgThreads, 0,
-                         (cudaStream_t)stream>>>(
-        x, partner, w, wp, out, quads, width / 4, q, is_u != 0, last != 0, s,
-        sp);
+// One cross stage over `count` entries: table holds, for each, six device
+// addresses (u, v, out_u, out_v, w, wp; a null out is not written); every
+// u, v and out is (rows, width) words, 16-byte aligned, width % 4 == 0,
+// and w, wp are (width,) rows.  An input may live on a peer card
+// (ntt_enable_peer first).  One launch a kXchgMaxEntries entries;
+// *launches says how many.
+int ntt_xchg_group(const uint64_t* table, int count, long long rows,
+                   int width, uint32_t q, int fwd, int last, uint32_t s,
+                   uint32_t sp, void* stream, int* launches) {
+  *launches = 0;
+  if (count < 1 || rows < 1 || width < 4 || width % 4)
+    return (int)cudaErrorInvalidValue;
+  XchgStage st;
+  st.width4 = width / 4;
+  st.quads = rows * st.width4;
+  st.q = q;
+  st.s = s;
+  st.sp = sp;
+  st.last = last != 0;
+  long long blocks = (st.quads + kXchgThreads - 1) / kXchgThreads;
+  if (blocks > kXchgMaxBlocks) blocks = kXchgMaxBlocks;
+  for (int first = 0; first < count; first += kXchgMaxEntries) {
+    const int m = count - first < kXchgMaxEntries ? count - first
+                                                  : kXchgMaxEntries;
+    for (int i = 0; i < m; ++i) {
+      const uint64_t* t = table + 6 * (first + i);
+      st.e[i] = XchgEntry{(const uint32_t*)t[0], (const uint32_t*)t[1],
+                          (uint32_t*)t[2],       (uint32_t*)t[3],
+                          (const uint32_t*)t[4], (const uint32_t*)t[5]};
+    }
+    const dim3 grid((unsigned)blocks, (unsigned)m);
+    if (fwd) {
+      xchg_group_kernel<true>
+          <<<grid, kXchgThreads, 0, (cudaStream_t)stream>>>(st);
+    } else {
+      xchg_group_kernel<false>
+          <<<grid, kXchgThreads, 0, (cudaStream_t)stream>>>(st);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // Let `device` read `peer`'s memory (NVLink or PCIe P2P).  Returns 0, or

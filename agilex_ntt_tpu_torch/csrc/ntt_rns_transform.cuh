@@ -8,7 +8,10 @@
 //   fwd_rns_body <- _fwd_kernel (K1, agilex_ntt_tpu/ops/ntt_kernel.py:97)
 //   inv_rns_body <- _inv_kernel (K2, agilex_ntt_tpu/ops/ntt_kernel.py:110)
 // on the negacyclic, cyclic (CyclicRing, the four-step row pass),
-// stage-shard and four-step column tables of their callers.
+// stage-shard and four-step column tables of their callers; and the DIT
+// inverse on the forward passes:
+//   dit_inv_rns_body <- _dit_inv_kernel (K12,
+//                       agilex_ntt_tpu/ops/dit_inv.py:121)
 // Per channel l and polynomial b of (L, B, n): the forward negacyclic NTT,
 // any word in [0, 4 q_l) in, [0, q_l) out in the HEXL bit-reversed order of
 // the radix-2 network; the inverse, [0, 2 q_l) in, [0, q_l) out, its last
@@ -50,6 +53,15 @@
 //     folds the scale and stores, a warp on 32 consecutive words), and with
 //     a cluster the radix-C group across it, which folds the scale and
 //     stores.
+//   * K12: the forward order on a cyclic table, the post row folded into
+//     the row pass's store.  The TPU kernel multiplies the bit-reversed
+//     input by the pre row psi^k and runs the forward network on the psi^-1
+//     tables; with z_k = x_k psi^k that network gives
+//     sum_k x_k psi^-(2 br(m)) k, the cyclic transform of omega = psi^-2.
+//     So the body runs fwd_rns_body's passes on the cyclic tables of omega
+//     (DitTables.cyclic) with no pre row: a Shoup product and two row reads
+//     a word fewer.  The row pass then multiplies by the post row n^-1
+//     inv_roots[k] (Shoup) and reduces once, to [0, q).
 // The output words are canonical, so they equal the plain version's and the
 // TPU kernel's.
 //
@@ -169,6 +181,64 @@ __device__ __forceinline__ void rns_fwd_row_pass(
   }
 }
 
+// A row's 2^K words from device memory at src (16-byte aligned for K >= 2),
+// through the read-only cache: 16-byte loads on the card.
+template <int K>
+__device__ __forceinline__ void rns_load_row(uint32_t* v,
+                                             const uint32_t* __restrict__ src) {
+#ifdef __CUDA_ARCH__
+  if constexpr (K >= 2) {
+    NTT_UNROLL
+    for (int j = 0; j < (1 << K); j += 4) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src + j));
+      v[j] = a.x;
+      v[j + 1] = a.y;
+      v[j + 2] = a.z;
+      v[j + 3] = a.w;
+    }
+    return;
+  }
+#endif
+  NTT_UNROLL
+  for (int j = 0; j < (1 << K); ++j) v[j] = __ldg(src + j);
+}
+
+// K12's row pass: rns_fwd_row_pass's stages, then, in place of the final
+// reduction, the post row (post[k] = n^-1 inv_roots[k] at the word's index
+// k in its polynomial, Shoup constant post_p[k]) with one conditional
+// subtraction, to [0, q), stored as that pass stores.  The post row is read
+// a half row at a time, after the twiddles are dead.
+template <int K>
+__device__ __forceinline__ void rns_dit_row_pass(
+    const uint32_t* sa, uint32_t* __restrict__ dst, const DotShape& s,
+    int rank, int valid, const uint32_t* __restrict__ roots,
+    const uint32_t* __restrict__ precon, const uint32_t* __restrict__ post,
+    const uint32_t* __restrict__ post_p, uint32_t q) {
+  const int st = s.logc + s.logr;
+  const int nmask = (1 << s.logn) - 1;
+  constexpr int kHalf = K >= 3 ? 4 : 1 << K;
+  for (int r = dot_tid(); r < (1 << (s.logs - K)); r += blockDim.x) {
+    const int gblk = (rank << s.logr) + (r & ((1 << s.logr) - 1));
+    uint32_t v[1 << K];
+    NTT_UNROLL
+    for (int j = 0; j < (1 << K); ++j) v[j] = sa[r * s.pitch + j];
+    uint32_t w[(1 << K) - 1], wp[(1 << K) - 1];
+    load_group_twiddles<K>(w, wp, roots, precon, st, gblk);
+    ntt_ct_radix<K>(v, w, wp, q);
+    const int k0 = ((rank << s.logs) + (r << K)) & nmask;
+    NTT_UNROLL
+    for (int h = 0; h < (1 << K); h += kHalf) {
+      uint32_t p[kHalf], pp[kHalf];
+      rns_load_row<K >= 3 ? 2 : K>(p, post + k0 + h);
+      rns_load_row<K >= 3 ? 2 : K>(pp, post_p + k0 + h);
+      NTT_UNROLL
+      for (int j = 0; j < kHalf; ++j)
+        v[h + j] = ntt_scale_reduce(v[h + j], p[j], pp[j], q);
+    }
+    if ((r << K) < valid) rns_store_row<K>(dst + (r << K), v);
+  }
+}
+
 // The inverse row pass, the same stages: row r of slab sa back into the
 // slab, or, when these are all the stages (n <= 8), scaled and stored to
 // the part's words (dst, valid).
@@ -222,15 +292,16 @@ __device__ __forceinline__ void rns_col_inv_store_pass(
   }
 }
 
-// One channel's forward transforms of unit u (this CTA is `rank` of its
-// cluster): x, y (B, n) of the channel, its tables and q.  Every thread of
-// the cluster calls it.
+// The forward passes but the row pass, on unit u (this CTA is `rank` of
+// its cluster) of x (B, n) of the channel, with its tables and q: the
+// load, the cross stages and the column passes, into the slab sa.  Returns
+// the part of unit u this CTA stores.  Every thread of the cluster calls
+// it.
 template <class Cluster>
-__device__ __forceinline__ void fwd_rns_body(
+__device__ __forceinline__ RnsPart fwd_rns_passes(
     Cluster& cl, uint32_t* sa, const uint32_t* __restrict__ x,
-    uint32_t* __restrict__ y, const uint32_t* __restrict__ roots,
-    const uint32_t* __restrict__ precon, long long batch, const DotShape& s,
-    int rank, long long u, uint32_t q) {
+    const uint32_t* __restrict__ roots, const uint32_t* __restrict__ precon,
+    long long batch, const DotShape& s, int rank, long long u, uint32_t q) {
   const int top = s.logc + s.logr;  // the row pass's first stage
   const RnsPart part = rns_part(s, rank, u, batch);
   rns_load(sa, x + part.base, s, part.valid);
@@ -254,9 +325,42 @@ __device__ __forceinline__ void fwd_rns_body(
     st += kk;
     __syncthreads();
   }
+  return part;
+}
+
+// One channel's forward transforms of unit u: fwd_rns_passes, then the row
+// pass, which stores to y (B, n).
+template <class Cluster>
+__device__ __forceinline__ void fwd_rns_body(
+    Cluster& cl, uint32_t* sa, const uint32_t* __restrict__ x,
+    uint32_t* __restrict__ y, const uint32_t* __restrict__ roots,
+    const uint32_t* __restrict__ precon, long long batch, const DotShape& s,
+    int rank, long long u, uint32_t q) {
+  const RnsPart part =
+      fwd_rns_passes(cl, sa, x, roots, precon, batch, s, rank, u, q);
   with_radix<kDotLogRow>(s.logw, [&](auto r) {
     rns_fwd_row_pass<decltype(r)::value>(sa, y + part.base, s, rank,
                                          part.valid, roots, precon, q);
+  });
+}
+
+// K12, the DIT inverse between its bit-reversals, on unit u of (B, n) z
+// (already bit-reversed, any words below 4q) -> y in [0, q): fwd_rns_passes
+// on the cyclic tables of omega = psi^-2 (roots, precon), then
+// rns_dit_row_pass with the post row (post, post_p).
+template <class Cluster>
+__device__ __forceinline__ void dit_inv_rns_body(
+    Cluster& cl, uint32_t* sa, const uint32_t* __restrict__ x,
+    uint32_t* __restrict__ y, const uint32_t* __restrict__ roots,
+    const uint32_t* __restrict__ precon, const uint32_t* __restrict__ post,
+    const uint32_t* __restrict__ post_p, long long batch, const DotShape& s,
+    int rank, long long u, uint32_t q) {
+  const RnsPart part =
+      fwd_rns_passes(cl, sa, x, roots, precon, batch, s, rank, u, q);
+  with_radix<kDotLogRow>(s.logw, [&](auto r) {
+    rns_dit_row_pass<decltype(r)::value>(sa, y + part.base, s, rank,
+                                         part.valid, roots, precon, post,
+                                         post_p, q);
   });
 }
 

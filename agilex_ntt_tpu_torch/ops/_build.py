@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh",
            "ntt_polydot_cluster.cuh", "ntt_rns_transform.cuh",
-           "ntt_kernels.cu")
+           "ntt_xchg.cuh", "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libntt_kernels.so"
 NVCC_FLAGS = (
@@ -54,7 +54,8 @@ SIGNATURES = {
     ),
     # logn, k, info (6 ints)
     "ntt_polydot_rns_launch_info": (_I, _I, _P),
-    # inv, logn, channels, batch, info (9 ints)
+    # kernel (0 K4a/K1, 1 K4b/K2, 2 K12), logn, channels, batch, info (8
+    # ints)
     "ntt_rns_launch_info": (_I, _I, _I, _LL, _P),
     # four-step: tabs is a host array of six device pointers, the scales
     # host arrays of four words.
@@ -69,11 +70,12 @@ SIGNATURES = {
     "ntt_col_fwd4": (_P, _P, _P, _LL, _I, _I, _U, _P),
     # x, y, tabs, col_scale, batch, logn1, logn2, q, stream
     "ntt_col_inv4": (_P, _P, _P, _P, _LL, _I, _I, _U, _P),
-    # x, y, iroots, iprecon, rows (pre, pre', post, post'), batch, logn, q,
-    # stream
+    # x, y, roots, precon (the cyclic tables of psi^-2), rows (pre, pre',
+    # post, post'), batch, logn, q, stream
     "ntt_dit_inv": (_P, _P, _P, _P, _P, _LL, _I, _U, _P),
-    # x, partner, w, wp, out, rows, width, q, fwd, is_u, last, s, sp, stream
-    "ntt_xchg": (_P, _P, _P, _P, _P, _LL, _I, _U, _I, _I, _I, _U, _U, _P),
+    # table (six words an entry: x, partner, out, w, wp, is_u), entries,
+    # rows, width, q, fwd, last, s, sp, stream, launches (one int out)
+    "ntt_xchg_group": (_P, _I, _LL, _I, _U, _I, _I, _U, _U, _P, _P),
     # device, peer
     "ntt_enable_peer": (_I, _I),
     # kernel (0 K7a, 1 K7b, 2 K8, 3 K9a, 4 K9b), logn1, logn2, info (5 ints)

@@ -7,13 +7,17 @@ and ``F`` the forward network on the tables of psi' = psi^-1,
 
     x[j] = n^-1 psi^-j F(z)[br(j)],   z[k] = X[br(k)] psi^k,
 
-so the kernel (K12, ``dit_inv_core``) multiplies the bit-reversed input by
-the pre row psi^k, runs the forward stages on ``inv_roots`` without a final
-reduction, and multiplies by the post row n^-1 inv_roots[m] (the post row
-is applied before the output gather, so it lands as n^-1 psi^-j after it),
-with one conditional subtraction to [0, q).  The two bit-reversals stay
-PyTorch gathers (``index_select``) outside the kernel, as they are XLA
-gathers outside the Pallas kernel in the JAX package.
+so the TPU kernel multiplies the bit-reversed input by the pre row psi^k,
+runs the forward stages on ``inv_roots`` without a final reduction, and
+multiplies by the post row n^-1 inv_roots[m] (the post row is applied
+before the output gather, so it lands as n^-1 psi^-j after it), with one
+conditional subtraction to [0, q).  The pre row and that network together
+are the cyclic forward transform of omega = psi^-2, so the Hopper kernel
+(K12, ``dit_inv_core``) runs the forward transform's register-radix passes
+on the cyclic tables of omega (``DitTables.cyclic``) with no pre row, and
+folds the post row into its store.  The two bit-reversals stay PyTorch
+gathers (``index_select``) outside the kernel, as they are XLA gathers
+outside the Pallas kernel in the JAX package.
 
 Nothing dispatches to it: ``Ring.intt`` runs the Gentleman-Sande inverse
 (K2), as the JAX package's does.  On the TPU the descending form was an

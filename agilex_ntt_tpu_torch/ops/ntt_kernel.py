@@ -13,9 +13,10 @@ fits, ``fourstep_cluster``) and
 ``fwd_col_fourstep``/``inv_col_fourstep`` (the column pass and the twiddle
 alone; ``ops/fourstep.py`` runs the row pass on ``fwd_ntt``/``inv_ntt``);
 ``dit_inv_core``, the DIT inverse of ``agilex_ntt_tpu/ops/dit_inv.py``
-between its two bit-reversals (``ops/dit_inv.py``); and ``xchg_step``, one
-cross-device butterfly stage of ``agilex_ntt_tpu/parallel/overlap.py``
-(``parallel/``).
+between its two bit-reversals (``ops/dit_inv.py``); and ``xchg_group``, one
+cross-device butterfly stage of ``agilex_ntt_tpu/parallel/overlap.py`` over
+a group of butterfly pairs in one launch, into outputs the caller gives,
+with ``xchg_step`` one shard's half (``parallel/``).
 The kernels are hand-written CUDA in ``csrc/ntt_kernels.cu``, built for
 ``sm_90a`` at first use (``_build.py``).
 
@@ -151,13 +152,18 @@ def inv_ntt(
     return y
 
 
+# the transform kernels by launch (ntt_kernels.cu RnsKernel)
+_RNS_KERNEL = {"fwd": 0, "inv": 1, "dit_inv": 2}
+
+
 def launch_info(tables: RingTables, which: str = "fwd", batch: int = 1) -> dict:
-    """The launch of ``fwd_ntt`` (``which`` = ``"fwd"``: K1) or ``inv_ntt``
-    (``"inv"``: K2) on (``batch``, n) at ``tables``' n: the multi-prime
-    transform kernel's ``rns_launch_info`` at one channel."""
-    if which not in ("fwd", "inv"):
+    """The launch of ``fwd_ntt`` (``which`` = ``"fwd"``: K1), ``inv_ntt``
+    (``"inv"``: K2) or ``dit_inv_core`` (``"dit_inv"``: K12, on K1's
+    launch) on (``batch``, n) at ``tables``' n: the multi-prime transform
+    kernel's ``rns_launch_info`` at one channel."""
+    if which not in _RNS_KERNEL:
         raise ValueError(f"launch_info: unknown kernel {which!r}")
-    return _rns_info(int(which == "inv"), tables.log_n, 1, batch, "launch_info")
+    return _rns_info(_RNS_KERNEL[which], tables.log_n, 1, batch, "launch_info")
 
 
 def _polydot_launch(a, b, tables: RingTables, what: str) -> torch.Tensor:
@@ -301,11 +307,12 @@ def rns_launch_info(tables: RNSTables, which: str = "fwd_rns",
                      "rns_launch_info")
 
 
-def _rns_info(inv: int, log_n: int, channels: int, batch: int, what: str) -> dict:
+def _rns_info(which: int, log_n: int, channels: int, batch: int,
+              what: str) -> dict:
     lib = _build.load()
     info = (ctypes.c_int * 8)()
-    _build.check(lib, lib.ntt_rns_launch_info(inv, log_n, channels, batch, info),
-                 what)
+    _build.check(lib, lib.ntt_rns_launch_info(which, log_n, channels, batch,
+                                              info), what)
     return {"ctas": 1 << info[0], "polys": 1 << info[1],
             "smem_bytes": info[2], "threads": info[3],
             "registers": info[4], "ctas_per_sm": info[5],
@@ -606,7 +613,12 @@ def inv_col_fourstep(
 def dit_inv_core(x: torch.Tensor, dt: DitTables) -> torch.Tensor:
     """The DIT inverse between its bit-reversals (K12): (B, n) already
     bit-reversed, in [0, 2q) -> [0, q): the pre row psi^k, the forward
-    stages on the psi^-1 tables, the post row n^-1 inv_roots[m]."""
+    stages on the psi^-1 tables, the post row n^-1 inv_roots[m].
+
+    On the card ``fwd_ntt``'s launch (``launch_info(dt.ring, "dit_inv")``)
+    of its own kernel: the forward passes on ``dt.cyclic``, the cyclic
+    tables of psi^-2 (that network with the pre row folded in), the post row
+    folded into the store."""
     _check(x, dt.ring, "dit_inv_core", 2)
     if x.device.type == "cpu":
         return _u32(plain.dit_inv_core_plain(x.to(torch.int64), dt))
@@ -614,8 +626,8 @@ def dit_inv_core(x: torch.Tensor, dt: DitTables) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.ntt_dit_inv(
-            x.data_ptr(), y.data_ptr(), dt.ring.roots.data_ptr(),
-            dt.ring.precon.data_ptr(), dt.rows.data_ptr(), x.shape[0],
+            x.data_ptr(), y.data_ptr(), dt.cyclic.roots.data_ptr(),
+            dt.cyclic.precon.data_ptr(), dt.rows.data_ptr(), x.shape[0],
             dt.ring.log_n, dt.ring.q, _stream(x),
         )
     _build.check(lib, rc, "dit_inv_core")
@@ -639,31 +651,123 @@ def enable_peer(device: torch.device, peer: torch.device) -> None:
     _PEERS_ENABLED.add(key)
 
 
-def _check_xchg(x, partner, w, wp, out) -> None:
-    for name, t in (("x", x), ("partner", partner), ("w", w), ("wp", wp)):
+def _check_xchg(entry, shape, device) -> None:
+    u, v, w, wp, out_u, out_v = entry
+    for name, t in (("u", u), ("v", v), ("w", w), ("wp", wp),
+                    ("out_u", out_u), ("out_v", out_v)):
+        if t is None and name.startswith("out"):
+            continue
         if not isinstance(t, torch.Tensor) or t.dtype != torch.uint32:
-            raise TypeError(f"xchg_step: {name} must be a torch.uint32 tensor")
+            raise TypeError(f"xchg_group: {name} must be a torch.uint32 tensor")
         if not t.is_contiguous():
-            raise ValueError(f"xchg_step: {name} must be contiguous")
-    if x.dim() != 2 or x.shape[0] == 0 or partner.shape != x.shape:
-        raise ValueError(
-            f"xchg_step: x and partner must be one (B >= 1, S) shape, got "
-            f"{tuple(x.shape)} and {tuple(partner.shape)}"
+            raise ValueError(f"xchg_group: {name} must be contiguous")
+    if out_u is None and out_v is None:
+        raise ValueError("xchg_group: an entry writes out_u, out_v or both")
+    for name, t in (("u", u), ("v", v), ("out_u", out_u), ("out_v", out_v)):
+        if t is not None and t.shape != shape:
+            raise ValueError(f"xchg_group: every shard must be one "
+                             f"{tuple(shape)} shape, got {name} "
+                             f"{tuple(t.shape)}")
+    for name, t in (("out_u", out_u), ("out_v", out_v), ("w", w), ("wp", wp)):
+        if t is not None and t.device != device:
+            raise ValueError(f"xchg_group: {name} on {t.device}, the "
+                             f"launch on {device}")
+    for name, t in (("u", u), ("v", v)):
+        if t.device.type != device.type:
+            raise ValueError(f"xchg_group: {name} on {t.device}, the "
+                             f"launch on {device}")
+    if w.shape != (shape[1],) or wp.shape != w.shape:
+        raise ValueError(f"xchg_group: w and wp must be ({shape[1]},) rows")
+
+
+def xchg_group(
+    entries: Sequence[tuple],
+    *,
+    q: int,
+    fwd: bool,
+    last: bool = False,
+    scale: Optional[int] = None,
+) -> None:
+    """One cross-device butterfly stage (K11) over a group of butterfly
+    pairs of (B, S) shards, one launch on the card.  Each entry is
+    ``(u, v, w, wp, out_u, out_v)``: the pair's u-half and v-half shards
+    (on the launch's device or a peer card, read in place), the (S,)
+    positional twiddle row and its Shoup precon, and the tensors that take
+    the new u-half and v-half, either of them None when that half is not
+    wanted.  The outputs and rows of every entry sit on one device, the
+    launch's.
+
+    Forward: u, v in [0, 4q) -> [0, 4q), or [0, q) when ``last``.
+    Inverse: u, v in [0, 2q) -> [0, 2q); with ``last`` the result is
+    multiplied by ``scale`` and reduced to [0, q) (the final n^-1).  No
+    output may alias an input: every entry reads its words from before the
+    stage.
+
+    On the card one launch of ``xchg_group_kernel`` a 64 entries (one
+    ``LAUNCHES["xchg_fwd"|"xchg_inv"]`` each); on the CPU the plain version,
+    half by half."""
+    if not entries:
+        raise ValueError("xchg_group: no entries")
+    u0, _, _, _, out_u0, out_v0 = entries[0]
+    shape = u0.shape
+    if len(shape) != 2 or shape[0] == 0:
+        raise ValueError(f"xchg_group: shards must be (B >= 1, S), got "
+                         f"{tuple(shape)}")
+    device = (out_u0 if out_u0 is not None else out_v0).device
+    for entry in entries:
+        _check_xchg(entry, shape, device)
+    if last and not fwd and scale is None:
+        raise ValueError("xchg_group: the last inverse stage needs its scale")
+    s = 0 if scale is None else scale % q
+    sp = (s << 32) // q
+    if device.type == "cpu":
+        for u, v, w, wp, out_u, out_v in entries:
+            for is_u, out in ((True, out_u), (False, out_v)):
+                if out is not None:
+                    out.copy_(_xchg_plain(u if is_u else v, v if is_u else u,
+                                          w, wp, is_u, q, fwd, last, s, sp))
+        return
+    table = []
+    for u, v, w, wp, out_u, out_v in entries:
+        for t in (u, v):
+            if t.device != device:
+                enable_peer(device, t.device)
+        ptrs = tuple(0 if t is None else t.data_ptr()
+                     for t in (u, v, out_u, out_v, w, wp))
+        if shape[1] % 4 or any(p % 16 for p in ptrs):
+            raise ValueError("xchg_group: the kernel takes 16-byte aligned "
+                             "rows of a multiple of 4 words")
+        table += ptrs
+    words = (ctypes.c_uint64 * len(table))(*table)
+    launched = ctypes.c_int(0)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        rc = lib.ntt_xchg_group(
+            words, len(entries), shape[0], shape[1], q, int(fwd), int(last),
+            s, sp, torch.cuda.current_stream(device).cuda_stream,
+            ctypes.byref(launched),
         )
-    if w.shape != (x.shape[1],) or wp.shape != w.shape:
-        raise ValueError(f"xchg_step: w and wp must be ({x.shape[1]},) rows")
-    if w.device != x.device or wp.device != x.device:
-        raise ValueError("xchg_step: the twiddle rows must be on x's device")
-    if partner.device.type != x.device.type:
-        raise ValueError(
-            f"xchg_step: x on {x.device}, partner on {partner.device}"
-        )
-    if out is not None and (
-        out.dtype != torch.uint32 or out.shape != x.shape
-        or out.device != x.device or not out.is_contiguous()
-    ):
-        raise ValueError("xchg_step: out must be a contiguous uint32 tensor "
-                         "of x's shape on x's device")
+    LAUNCHES["xchg_fwd" if fwd else "xchg_inv"] += launched.value
+    _build.check(lib, rc, "xchg_group")
+
+
+def _xchg_plain(x, partner, w, wp, is_u, q, fwd, last, s, sp):
+    """One half of a pair's stage (the plain version), as int64."""
+    wi, wpi = w.to(torch.int64), wp.to(torch.int64)
+    xi, pi = x.to(torch.int64), partner.to(torch.int64)
+    if fwd:
+        return plain.fwd_stage_step_plain(xi, pi, is_u, wi, wpi, q, last)
+    return plain.inv_stage_step_plain(
+        xi, pi, is_u, wi, wpi, q, (s, sp) if last else None
+    )
+
+
+def half_entry(x, partner, w, wp, is_u: bool, out) -> tuple:
+    """The ``xchg_group`` entry that writes shard ``x``'s own half into
+    ``out`` from ``x`` and its partner's shard ``partner``."""
+    if is_u:
+        return (x, partner, w, wp, out, None)
+    return (partner, x, w, wp, None, out)
 
 
 def xchg_step(
@@ -679,49 +783,11 @@ def xchg_step(
     scale: Optional[int] = None,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One cross-device butterfly stage (K11) of (B, S) shards: this shard
-    ``x`` and its partner's ``partner`` (on this card or a peer card, read
-    in place), the shard's u/v role ``is_u``, the (S,) positional twiddle
-    row ``w`` and its Shoup precon ``wp``.
-
-    Forward: x, partner in [0, 4q) -> [0, 4q), or [0, q) when ``last``.
-    Inverse: x, partner in [0, 2q) -> [0, 2q); with ``last`` the result is
-    multiplied by ``scale`` and reduced to [0, q) (the final n^-1).
-    Writes ``out`` (x's shape, on x's device) when given, else a new tensor.
-    """
-    _check_xchg(x, partner, w, wp, out)
-    if last and not fwd and scale is None:
-        raise ValueError("xchg_step: the last inverse stage needs its scale")
-    s = 0 if scale is None else scale % q
-    sp = (s << 32) // q
-    if x.device.type == "cpu":
-        wi, wpi = w.to(torch.int64), wp.to(torch.int64)
-        xi, pi = x.to(torch.int64), partner.to(torch.int64)
-        if fwd:
-            y = plain.fwd_stage_step_plain(xi, pi, is_u, wi, wpi, q, last)
-        else:
-            y = plain.inv_stage_step_plain(
-                xi, pi, is_u, wi, wpi, q, (s, sp) if last else None
-            )
-        if out is None:
-            return _u32(y)
-        out.copy_(y)
-        return out
-    if partner.device != x.device:
-        enable_peer(x.device, partner.device)
-    if any(t.data_ptr() % 16 for t in (x, partner, w, wp)) or (
-        out is not None and out.data_ptr() % 16
-    ) or x.shape[1] % 4:
-        raise ValueError("xchg_step: the kernel takes 16-byte aligned rows "
-                         "of a multiple of 4 words")
-    y = torch.empty_like(x) if out is None else out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        rc = lib.ntt_xchg(
-            x.data_ptr(), partner.data_ptr(), w.data_ptr(), wp.data_ptr(),
-            y.data_ptr(), x.shape[0], x.shape[1], q, int(fwd), int(is_u),
-            int(last), s, sp, _stream(x),
-        )
-    _build.check(lib, rc, "xchg_step")
-    LAUNCHES["xchg_fwd" if fwd else "xchg_inv"] += 1
-    return y
+    """``xchg_group`` of one shard's half: this shard ``x``, its partner's
+    ``partner``, the twiddle rows ``w``, ``wp`` and the role ``is_u``;
+    writes ``out`` when given, else a new tensor, and returns it."""
+    if out is None:
+        out = torch.empty_like(x)
+    xchg_group([half_entry(x, partner, w, wp, is_u, out)], q=q, fwd=fwd,
+               last=last, scale=scale)
+    return out

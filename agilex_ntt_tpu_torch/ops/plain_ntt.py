@@ -30,7 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..params import NTTParams
+from ..params import NTTParams, make_cyclic_params
 from . import modmul as mm
 from .modmul import mont_qinv_neg
 
@@ -421,11 +421,14 @@ class DitTables:
     forward slots (``roots``/``precon`` = ``inv_roots``/``inv_precon``): the
     forward network on psi^-1.  ``rows`` is the (4, n) ``torch.uint32``
     block of the two scale rows with their Shoup precons ``(v << 32) // q``:
-    pre[k] = psi^k, pre', post[m] = n^-1 inv_roots[m], post'.
+    pre[k] = psi^k, pre', post[m] = n^-1 inv_roots[m], post'.  ``cyclic``
+    holds the tables of the cyclic transform of omega = psi^-2, which is
+    that network with the pre row folded in: the kernel's forward tables.
     """
 
     ring: RingTables
     rows: torch.Tensor
+    cyclic: RingTables
 
 
 def make_dit_tables(params: NTTParams, device) -> DitTables:
@@ -440,7 +443,10 @@ def make_dit_tables(params: NTTParams, device) -> DitTables:
     post = params.inv_roots.astype(np.uint64) * np.uint64(params.n_inv) % np.uint64(q)
     q64 = np.uint64(q)
     rows = [pre, (pre << np.uint64(32)) // q64, post, (post << np.uint64(32)) // q64]
-    return DitTables(ring=ring, rows=_u32_tensor(np.stack(rows), device))
+    omega = pow(params.psi, -2, q)
+    return DitTables(ring=ring, rows=_u32_tensor(np.stack(rows), device),
+                     cyclic=make_tables(make_cyclic_params(params.n, q, omega),
+                                        device))
 
 
 def dit_inv_core_plain(x: torch.Tensor, dt: DitTables) -> torch.Tensor:

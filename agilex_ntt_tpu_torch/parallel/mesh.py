@@ -102,7 +102,7 @@ class ShardedRing:
         "fourstep": local column/row transforms with two retiles
                     (``fourstep_shard.py``); the default for four-step rings.
     sp_comm ("stage" only): "ppermute" copies the partner's whole shard
-        before each cross stage; "overlap" reads it in place, chunk by chunk
+        before each cross stage; "overlap" reads it in place
         (``overlap.py``).  Bit-identical.
     Either axis may be None.  Methods take the global (B, n) tensor (or the
     list ``dp_shard_batch`` gives) and return the global result on the

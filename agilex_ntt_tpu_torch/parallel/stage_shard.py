@@ -6,9 +6,9 @@ shard.  Forward stages run in HEXL order, t = n/2 -> 1:
 
   * t >= S (the first log2 P stages): the butterfly partner of shard d lives
     on shard d XOR t/S.  Each shard computes its half of every butterfly
-    from its own words and its partner's (K11, ``ntt_kernel.xchg_step``):
+    from its own words and its partner's (K11, ``ntt_kernel.xchg_group``):
     the same math as one card, with the u/v role one scalar a shard and the
-    twiddle one value a shard and stage.
+    twiddle one value a butterfly pair and stage.
   * t < S: purely local.  For shard d these are an S-point transform whose
     table is roots'[m' + i'] = roots[(P + d) m' + i'] (m' = 2^(s - log2 P)),
     so they run on the transform kernel K1 with derived per-shard tables
@@ -22,9 +22,12 @@ bit-identical to the single-device kernels: every stage computes the same
 values mod q, and the last step reduces them to [0, q).
 
 ``comm="ppermute"`` copies the partner's whole shard to the shard's own
-device (``copy_``) and then runs one K11 launch on the copy;
-``comm="overlap"`` reads the partner's shard in place, chunk by chunk
-(``overlap.py``).
+device (``copy_``, the collective) and then runs K11 on the copies, each
+shard writing its own half, one launch a stage for the shards of each
+device (the whole sp group when it sits on one card);
+``comm="overlap"`` reads the partner's shard in place: on one card one
+launch a stage, one entry a butterfly pair, across cards one launch a
+card (``overlap.py``).
 
 Every function here is single-controller, as the JAX package's: one process
 drives every device of the mesh.  ``fwd_grid``/``inv_grid`` transform a
@@ -96,28 +99,22 @@ def _check(params, num_devices: int, comm: str) -> None:
 
 
 def _cross_stage(xs, params, *, inverse, tdev, a_log, index_of, last, scale,
-                 comm, ready):
+                 comm):
     """One cross stage over the P shards ``xs`` of one sp group; returns the
-    new shards and, for ``comm="overlap"``, their per-chunk events."""
+    new shards."""
     S = xs[0].shape[1]
     rows = [_cross_row(params, index_of(d), S, inverse, x.device)
             for d, x in enumerate(xs)]
     roles = [((d >> a_log) & 1) == 0 for d in range(len(xs))]
-    kind = "inv" if inverse else "fwd"
+    kw = dict(fwd=not inverse, q=params.q, last=last, scale=scale)
     if comm == "overlap":
-        return overlap.xchg_stage(
-            xs, rows, roles, tdev=tdev, kind=kind, q=params.q, last=last,
-            scale=scale, ready=ready,
-        )
-    outs = []
-    for d, x in enumerate(xs):
-        recv = torch.empty_like(x)
-        shards.words(recv).copy_(shards.words(xs[d ^ tdev]))
-        outs.append(K.xchg_step(
-            x, recv, *rows[d], q=params.q, fwd=not inverse, is_u=roles[d],
-            last=last, scale=scale,
-        ))
-    return outs, None
+        return overlap.xchg_stage(xs, rows, roles, tdev=tdev, **kw)
+    recvs = [torch.empty_like(x) for x in xs]
+    # last shard first: the launch takes its entries in order, so the first
+    # entries find their copies still in L2
+    for d in reversed(range(len(xs))):
+        shards.words(recvs[d]).copy_(shards.words(xs[d ^ tdev]))
+    return overlap.launch_by_device(xs, recvs, rows, roles, **kw)
 
 
 def fwd_group(xs, params, comm: str = "ppermute"):
@@ -125,13 +122,12 @@ def fwd_group(xs, params, comm: str = "ppermute"):
     [0, 4q), shard d on its device) -> the P output shards in [0, q)."""
     P = len(xs)
     n_cross = _log2(P)
-    ready = None
     for s in range(n_cross):
         tdev = P >> (s + 1)  # t / S
-        xs, ready = _cross_stage(
+        xs = _cross_stage(
             xs, params, inverse=False, tdev=tdev, a_log=_log2(tdev),
             index_of=lambda d, s=s: (1 << s) + (d >> (n_cross - s)),
-            last=False, scale=None, comm=comm, ready=ready,
+            last=False, scale=None, comm=comm,
         )
     return [K.fwd_ntt(x, _shard_tables(params, P, d, x.device))
             for d, x in enumerate(xs)]
@@ -148,14 +144,12 @@ def inv_group(xs, params, scale: int, comm: str = "ppermute"):
     local_scale = 1 if n_cross else scale
     xs = [K.inv_ntt(x, _shard_tables(params, P, d, x.device), scale=local_scale)
           for d, x in enumerate(xs)]
-    ready = None
     for s in range(n_local, n_local + n_cross):
         tdev = 1 << (s - n_local)  # t / S
-        xs, ready = _cross_stage(
+        xs = _cross_stage(
             xs, params, inverse=True, tdev=tdev, a_log=_log2(tdev),
             index_of=lambda d, s=s: (n >> (s + 1)) + (d >> (s - n_local + 1)),
             last=s == n_local + n_cross - 1, scale=scale, comm=comm,
-            ready=ready,
         )
     return xs
 
@@ -199,7 +193,7 @@ def stage_sharded_fwd(
     kernel.
 
     comm: "ppermute" (whole-shard copy, then compute) or "overlap" (the
-    partner's shard read in place, chunk by chunk: ``overlap.py``)."""
+    partner's shard read in place: ``overlap.py``)."""
     return _run(x, params, mesh, axis, dp_axis, comm,
                 lambda grid: fwd_grid(grid, params, comm))
 

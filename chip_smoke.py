@@ -41,10 +41,13 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    (n2 = 64, 32 MiB an operand: slabs of 32 down to 2 columns, then the
    walking kernels), K9b on any 32-bit words with both scales; the first 2
    rows at n=2^16 against the golden model.  The
-   DIT inverse K12 at n=4096 (B=8192), 32 and 32768, with ``inv_ntt_dit``
+   DIT inverse K12 (``dit_inv_cluster_kernel``, K1's launch) at n=4096
+   (B=8192), 32, 32768 and a ragged batch at 256, with ``inv_ntt_dit``
    (direct and factored) equal to K2; the cross-device stage K11 (forward
-   and inverse, each role, with and without ``last``) on one shard of the
-   sharded path, (512, 8192).
+   and inverse, each role, with and without ``last``) on one shard's half
+   of the sharded path, (512, 8192), and as group launches of 2, 4 and 8
+   entries of such shards (``xchg_group``; an entry writes both halves of
+   its butterfly pair or one of them), every half held.
 3. Main paths, each with the launch counters set to 0 just before and read
    just after; every kernel of the path must have launched:
    a. ``Ring(4096)`` ntt -> intt -> polymul -> polydot at the main shapes,
@@ -71,7 +74,9 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       on K11, local stages on K1/K2), ``ShardedRing(Ring(2^16))`` over sp=4
       (four-step, B=512), the dp=8 polydot at n=4096 (K6a a shard), and
       ``inv_ntt_dit`` (K12) direct and factored at n=4096, B=8192; each
-      equal word for word to the unsharded ring.
+      equal word for word to the unsharded ring.  Then each sharded
+      ``ntt`` and ``intt`` alone, counted: K11 launches once a cross stage
+      and sp group on one card, 4 a call with either ``sp_comm``.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -89,13 +94,15 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    four-step kernels beside the two-kernel transforms and the composed
    polymul at 2^16 to 2^20 (128 MiB an operand), with the crossovers that
    set ``ops/fourstep.py``'s caps, and ``Ring.ntt``/``intt`` there through
-   the caps; K11 at the ``overlap`` path's chunk shape beside the whole
-   shard; the DIT inverse beside K2 and its
-   bit-reversals, the sharded calls beside
-   the unsharded ones with K11's share of their device time, the public
-   calls' throughput, and the key switch end to end.  One card measures
-   the sharded path's correctness and its cost on one card; what the
-   overlap gains across cards needs two or more and is not measured.
+   the caps; K11 by its device time (``torch.profiler``) at one shard's
+   half and at one cross stage of a group of 4 shards in one launch as
+   each ``sp_comm`` takes it on one card (two butterfly pairs, or four
+   halves from copies); K12's launch shape; the DIT inverse beside K2 and
+   its bit-reversals, the sharded calls beside the unsharded ones with
+   K11's share of their device time, the public calls' throughput, and the
+   key switch end to end.  One card measures the sharded path's
+   correctness and its cost on one card; the sharded ring across cards is
+   timed by ``utils/xchg_probe.py --cards 4``.
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -203,12 +210,16 @@ FS_DOT_BATCH, FS_DOT_K = 128, 3
 FS_RNS_L, FS_SMALL_BATCH = 3, 64
 FS_CROSS_N, FS_CROSS_BATCH = 32768, 1024
 
-# the DIT inverse (K12): (n, batch) of the checks; the main shape first
-DIT_CHECK_SHAPES = ((MAIN_N, MAIN_BATCH), (32, 65536), (32768, 1024))
-# the cross-device stage (K11): one shard (B_loc, S) of the sharded path,
-# and one chunk of it as the overlap path launches it (an eighth)
+# the DIT inverse (K12): (n, batch) of the checks; the main shape first,
+# then 128 polynomials a CTA, clusters of 8 and a ragged last CTA
+DIT_CHECK_SHAPES = ((MAIN_N, MAIN_BATCH), (32, 65536), (32768, 1024),
+                    (256, 1001))
+# the cross-device stage (K11): one shard (B_loc, S) of the sharded path
 XCHG_ROWS, XCHG_WIDTH = 512, 8192
-XCHG_CHUNK_ROWS = XCHG_ROWS // 8
+# K11's group launches checked: entries a table, and what entry d writes
+# (XCHG_HALVES[d % 3]: both halves of its pair, the u-half, the v-half)
+XCHG_GROUPS = (2, 4, 8)
+XCHG_HALVES = ("uv", "u", "v")
 # the sharded path on one card: Ring(32768) over dp=2 x sp=4 (a shard is
 # (512, 8192)), Ring(65536) over sp=4 (four-step), the dp-only polydot
 SHARD_N, SHARD_BATCH, SHARD_DP, SHARD_SP = 32768, 1024, 2, 4
@@ -219,7 +230,9 @@ KERNEL_SOURCE = "agilex_ntt_tpu_torch/csrc/ntt_kernels.cu"
 # rows whose kernel body lives in a header beside it
 BODY_SOURCE = {
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_rns_transform.cuh"
-       for key in ("fwd", "inv", "fwd_rns", "inv_rns")},
+       for key in ("fwd", "inv", "fwd_rns", "inv_rns", "dit_inv")},
+    **{key: "agilex_ntt_tpu_torch/csrc/ntt_xchg.cuh"
+       for key in ("xchg_fwd", "xchg_inv")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_polydot_cluster.cuh"
        for key in ("polymul", "polydot", "polymul_rns", "polydot_rns")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
@@ -247,8 +260,8 @@ KERNELS = {  # row -> (name, TPU kernel replaced)
     "flat_polymul": ("polymul_fourstep_fused (flat)",
                      "agilex_ntt_tpu/ops/flat_fuse.py:326"),
     "dit_inv": ("dit_inv_core", "agilex_ntt_tpu/ops/dit_inv.py:121"),
-    "xchg_fwd": ("xchg_step (fwd)", "agilex_ntt_tpu/parallel/overlap.py:89"),
-    "xchg_inv": ("xchg_step (inv)", "agilex_ntt_tpu/parallel/overlap.py:89"),
+    "xchg_fwd": ("xchg_group (fwd)", "agilex_ntt_tpu/parallel/overlap.py:89"),
+    "xchg_inv": ("xchg_group (inv)", "agilex_ntt_tpu/parallel/overlap.py:89"),
 }
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
@@ -352,7 +365,7 @@ OUR_KERNEL = re.compile(
     r"(?<![A-Za-z_])(fwd4|inv4|polymul4|col_fwd4|col_inv4"
     r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
     r"|col_inv4_slab|polydot_rns_cluster|fwd_rns_cluster|inv_rns_cluster"
-    r"|dit_inv|xchg)_kernel")
+    r"|dit_inv_cluster|xchg_group)_kernel")
 # wrapper counter -> (TPU kernel, its cluster or slab kernel)
 CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "inv4": ("K7b", "inv4_cluster_kernel"),
@@ -366,7 +379,8 @@ RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
                "inv_rns": ("K4b", "inv_rns_cluster_kernel")}
 ONE_KERNELS = {"fwd": ("K1", "fwd_rns_cluster_kernel"),
                "inv": ("K2", "inv_rns_cluster_kernel")}
-XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_kernel")
+XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_group_kernel")
+DIT_KERNEL = "dit_inv_cluster_kernel"
 
 
 def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> None:
@@ -463,6 +477,7 @@ def main() -> int:
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.ops import plain_ntt as P
     from agilex_ntt_tpu_torch.utils.profiling import cuda_time_ms
+    from agilex_ntt_tpu_torch.utils.xchg_probe import profiled
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -863,6 +878,40 @@ def main() -> int:
                         (scale, (scale << 32) // q) if last else None)
                 compare(key, got, want, f"(B={XCHG_ROWS}, S={XCHG_WIDTH}) "
                         f"{'u' if is_u else 'v'}{' last' if last else ''}")
+        # group launches: P entries a table, each with its own pair of
+        # shards and twiddle row, writing both halves or one
+        for P_ in XCHG_GROUPS:
+            ug = [rand(gen, (4 if fwd else 2) * q, shape) for _ in range(P_)]
+            vg = [rand(gen, (4 if fwd else 2) * q, shape) for _ in range(P_)]
+            wg = [rand(gen, q, (XCHG_WIDTH,)) for _ in range(P_)]
+            wpg = [(v << 32) // q for v in wg]
+            halves = [XCHG_HALVES[d % 3] for d in range(P_)]
+            for last in (False, True):
+                outs = [[torch.empty(shape, dtype=torch.uint32, device=dev)
+                         if h in halves[d] else None for h in "uv"]
+                        for d in range(P_)]
+                entries = [tuple(t.to(torch.uint32)
+                                 for t in (ug[d], vg[d], wg[d], wpg[d]))
+                           + tuple(outs[d]) for d in range(P_)]
+                before = K.LAUNCHES[key]
+                K.xchg_group(entries, q=q, fwd=fwd, last=last, scale=scale)
+                if K.LAUNCHES[key] != before + 1:
+                    raise AssertionError(f"{key}: a group of {P_} took "
+                                         f"{K.LAUNCHES[key] - before} launches")
+                for d in range(P_):
+                    for h, got in zip("uv", outs[d]):
+                        if got is None:
+                            continue
+                        mine, other = (ug[d], vg[d]) if h == "u" else (vg[d], ug[d])
+                        args = (mine, other, h == "u", wg[d], wpg[d], q)
+                        want = (P.fwd_stage_step_plain(*args, last) if fwd else
+                                P.inv_stage_step_plain(
+                                    *args, (scale, (scale << 32) // q) if last
+                                    else None))
+                        compare(key, got, want, f"group of {P_} (B={XCHG_ROWS}, "
+                                f"S={XCHG_WIDTH}) entry {d} {h}-half"
+                                f"{' last' if last else ''}")
+            del ug, vg, entries, outs
     del x, part, x32, p32, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1189,6 +1238,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("sharded path: every ShardedRing output equals the unsharded ring's "
         "words (K1, K2, K3, K7, K6a), inv_ntt_dit equals Ring.intt")
+    # K11 on one card: one launch a cross stage and sp group
+    want_xchg = SHARD_DP * (SHARD_SP.bit_length() - 1)
+    for comm, sr in srs.items():
+        for what, call in (("ntt", lambda: sr.ntt(sx)),
+                           ("intt", lambda: sr.intt(sx))):
+            torch.cuda.synchronize()
+            for key in K.LAUNCHES:
+                K.LAUNCHES[key] = 0
+            call()
+            torch.cuda.synchronize()
+            got = K.LAUNCHES["xchg_fwd"] + K.LAUNCHES["xchg_inv"]
+            log(f"  ShardedRing.{what} ({comm}): {got} K11 launches "
+                f"(dp={SHARD_DP} x {SHARD_SP.bit_length() - 1} cross stages)")
+            if got != want_xchg:
+                raise AssertionError(f"ShardedRing.{what} ({comm}) made {got} "
+                                     f"K11 launches, not {want_xchg}")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -1419,6 +1484,17 @@ def main() -> int:
                 f"{info['ctas_per_sm']} CTAs an SM, at most "
                 f"{info['max_active_clusters']} clusters at once; "
                 f"{info['clusters']} clusters")
+    log(f"K12 ({DIT_KERNEL}, K1's launch) by shape, and ptxas:")
+    for n_, b_ in DIT_CHECK_SHAPES:
+        info = K.launch_info(Ring(n_, device=dev).tables, "dit_inv", b_)
+        log(f"  K12 (B={b_}, n={n_}): {info['ctas']} CTAs a polynomial, "
+            f"{info['polys']} polynomials a CTA, {info['threads']} threads, "
+            f"{info['registers']} registers, {info['smem_bytes']} bytes of "
+            f"shared memory a CTA, {info['ctas_per_sm']} CTAs an SM, at most "
+            f"{info['max_active_clusters']} clusters at once; "
+            f"{info['clusters']} clusters")
+    for name in (DIT_KERNEL, "xchg_group_kernel"):
+        log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
     for key, (kern, plain, words, ops, shape) in timed.items():
@@ -1540,21 +1616,6 @@ def main() -> int:
             log(f"  {name:20s} of n={ft.n} ({rows_.shape[0]}, {ft.n2}) "
                 f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                 f"{bound_ms / ms:.1%} of bound")
-    # K11 at the overlap path's chunk shape beside the whole shard: most of
-    # its launches on the sharded path are chunks
-    cshape = f"(B={XCHG_CHUNK_ROWS}, S={XCHG_WIDTH})"
-    log(f"  K11 at the overlap chunk {cshape} and the whole shard {xshape}:")
-    chunk = [v[:XCHG_CHUNK_ROWS].contiguous() for v in x32s[:2]] + x32s[2:]
-    for key, fwd, is_u in (("xchg_fwd", True, True), ("xchg_inv", False, False)):
-        for what, args, rows_ in ((cshape, chunk, XCHG_CHUNK_ROWS),
-                                  (xshape, x32s, XCHG_ROWS)):
-            ms = cuda_time_ms(lambda: K.xchg_step(*args, q=xq, fwd=fwd,
-                                                  is_u=is_u))
-            bnd, by = bound(3 * rows_ * XCHG_WIDTH + 2 * XCHG_WIDTH,
-                            scaled(rows_ * XCHG_WIDTH,
-                                   OPS_XCHG_FWD if fwd else OPS_XCHG_INV))
-            log(f"    {KERNELS[key][0]:16s} {what:20s} {ms:.4f} ms, bound "
-                f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of bound")
     # the DIT inverse beside K2 and its two bit-reversal forms
     log(f"  DIT inverse against K2 (B={bsz}, n={n}):")
     for what, call, words in (
@@ -1711,7 +1772,12 @@ def main() -> int:
             (f"K4a (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
              lambda: K.fwd_ntt_rns(rx, rtabs), RNS_KERNELS["fwd_rns"][1]),
             (f"K4b (L={RNS_L}, B={RNS_BATCH}, n={RNS_N})",
-             lambda: K.inv_ntt_rns(rc, rtabs), RNS_KERNELS["inv_rns"][1])):
+             lambda: K.inv_ntt_rns(rc, rtabs), RNS_KERNELS["inv_rns"][1]),
+            (f"K12 (B={bsz}, n={n})", lambda: K.dit_inv_core(y, dt4),
+             DIT_KERNEL),
+            (f"K11 {xshape}", lambda: K.xchg_step(*x32s, q=xq, fwd=True,
+                                                  is_u=True),
+             "xchg_group_kernel")):
         seen = kernels_seen(torch, call)
         log(f"  {what}: " + ", ".join(f"{k} {c} x {ms:.4f} ms"
                                       for k, c, ms in seen))
@@ -1747,6 +1813,59 @@ def main() -> int:
                      f"ShardedRing.ntt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
         kernel_share(torch, lambda: sr.intt(sx),
                      f"ShardedRing.intt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
+    # K11 by its device time: CUDA events around back-to-back calls of a
+    # 15 us kernel time the wrapper's enqueue, not the kernel.  One shard's
+    # half (the launch of a shard on its own card), and one cross stage of
+    # one sp group of SHARD_SP shards on one card in one launch as each
+    # comm takes it: `overlap` one entry a butterfly pair, which reads each
+    # shard once; `ppermute` one entry a shard, from its partner's copy
+    gen = torch.Generator(dev).manual_seed(93)
+    grp, cps = ([rand(gen, 2 * xq, (XCHG_ROWS, XCHG_WIDTH)).to(torch.uint32)
+                 for _ in range(SHARD_SP)] for _ in range(2))
+    outs = [torch.empty_like(g) for g in grp]
+    xrow = x32s[2:]
+    cases = (
+        (f"one shard's half {xshape}",
+         [K.half_entry(*x32s[:2], *xrow, True, outs[0])]),
+        (f"overlap stage of {SHARD_SP} shards",
+         [(grp[d], grp[d ^ 1], *xrow, outs[d], outs[d ^ 1])
+          for d in range(0, SHARD_SP, 2)]),
+        (f"ppermute stage of {SHARD_SP} shards",
+         [K.half_entry(grp[d], cps[d], *xrow, d % 2 == 0, outs[d])
+          for d in range(SHARD_SP)]))
+    log(f"K11 by device time on {card} (torch.profiler, 10 calls after a "
+        f"warm-up):")
+    xchg_ms = {}
+    for key, fwd in (("xchg_fwd", True), ("xchg_inv", False)):
+        for what, entries in cases:
+            ms, per = profiled(torch, lambda: K.xchg_group(entries, q=xq,
+                                                           fwd=fwd),
+                               XCHG_KERNEL)
+            # each input shard read once, each half written once
+            halves = sum((e[4] is not None) + (e[5] is not None)
+                         for e in entries)
+            words = XCHG_ROWS * XCHG_WIDTH
+            bnd, by = bound((2 * len(entries) + halves) * words
+                            + 2 * len(entries) * XCHG_WIDTH,
+                            scaled(halves * words,
+                                   OPS_XCHG_FWD if fwd else OPS_XCHG_INV))
+            if ms != ms:
+                log(f"  {KERNELS[key][0]:16s} {what}: the profiler recorded "
+                    f"no device time")
+                continue
+            log(f"  {KERNELS[key][0]:16s} {what:34s} {ms:.4f} ms device time "
+                f"a call ({per:g} launches), bound {bnd:.4f} ms ({by}), "
+                f"{bnd / ms:.1%} of bound")
+            if what.startswith("one"):
+                xchg_ms[key] = ms
+    del grp, cps, outs
+    # the kernels line gives K11 its device time at the whole shard
+    for row in rows:
+        for key, ms in xchg_ms.items():
+            if row["name"] == KERNELS[key][0]:
+                log(f"  kernels line: {row['name']} ms {ms:.4f} (device time; "
+                    f"CUDA events {row['ms']:.4f})")
+                row["ms"] = ms
     torch.cuda.synchronize()
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -1,12 +1,14 @@
 """The CUDA kernels' arithmetic, compiled for the host and held bit for bit
 against the port's int64 helpers (``ops/modmul.py``) and the plain versions
-of the cross-device stage K11, the DIT inverse's scale rows (K12) and the
+of the cross-device stage K11 (also its group body, ``csrc/ntt_xchg.cuh``,
+over tables of 2, 4 and 8 butterfly pairs and halves), the DIT inverse's scale rows (K12) and the
 radix-4 and radix-8 groups of the four-step cluster kernels (K7a, K8:
 against the int64 butterflies stage by stage, and as whole size-4 and
 size-8 transforms against ``ops/plain_ntt.py``).  The bodies of the
 cluster kernels K7a, K7b, K8, of K9a's and K9b's slab kernels
-(``csrc/ntt_fourstep_cluster.cuh``) and of the polydot K5/K6b, and K3/K6a
-at one channel (``csrc/ntt_polydot_cluster.cuh``) run here too: one host thread a GPU
+(``csrc/ntt_fourstep_cluster.cuh``), of the polydot K5/K6b, and K3/K6a
+at one channel (``csrc/ntt_polydot_cluster.cuh``), and of the transforms
+K4a/K4b, K1/K2 and K12 (``csrc/ntt_rns_transform.cuh``) run here too: one host thread a GPU
 thread, four a CTA (the polydot: a sixteenth of its words), ``std::barrier``
 for ``__syncthreads`` and for the cluster's barrier, each CTA's slab a host
 array that the others reach as through ``map_shared_rank``, in a spawned
@@ -45,6 +47,7 @@ SHIM = r"""
 #define __device__
 #define __forceinline__ inline
 #include "ntt_arith.cuh"
+#include "ntt_xchg.cuh"
 
 extern "C" {
 void h_cond_sub(const uint32_t* x, uint32_t bound, uint32_t* out, long n) {
@@ -114,6 +117,30 @@ void h_xchg_inv(const uint32_t* x, const uint32_t* p, int is_u,
                 uint32_t* out, long n) {
   for (long i = 0; i < n; ++i)
     out[i] = ntt_xchg_inv(x[i], p[i], is_u != 0, w[i], wp[i], q);
+}
+// K11's group body over `count` entries (six words each: u, v, out_u,
+// out_v, w, wp; a null out is not written) of (rows, width) shards, every
+// (entry, quad) the launch has
+void h_xchg_group(int fwd, const uint64_t* table, int count, long long rows,
+                  int width, uint32_t q, int last, uint32_t s, uint32_t sp) {
+  XchgStage st;
+  st.width4 = width / 4;
+  st.quads = rows * st.width4;
+  st.q = q;
+  st.s = s;
+  st.sp = sp;
+  st.last = last;
+  for (int i = 0; i < count; ++i) {
+    const uint64_t* t = table + 6 * i;
+    st.e[i] = XchgEntry{(const uint32_t*)t[0], (const uint32_t*)t[1],
+                        (uint32_t*)t[2],       (uint32_t*)t[3],
+                        (const uint32_t*)t[4], (const uint32_t*)t[5]};
+  }
+  for (int i = 0; i < count; ++i)
+    for (long long k = 0; k < st.quads; ++k) {
+      if (fwd) xchg_group_body<true>(st, i, k);
+      else xchg_group_body<false>(st, i, k);
+    }
 }
 }
 """
@@ -288,6 +315,23 @@ void h_rns(int inv, const uint32_t* x, uint32_t* y, const uint32_t* roots,
   }
   blockDim.x = saved;
 }
+// K12 over (batch, 2^logn) z, CTAs of 2^logthreads threads, one cluster a
+// unit as the launcher runs them; roots, precon: DitTables.cyclic's; rows:
+// the (4, n) scale rows
+void h_dit(const uint32_t* x, uint32_t* y, const uint32_t* roots,
+           const uint32_t* precon, const uint32_t* rows, long long batch,
+           int logn, int logthreads, uint32_t q) {
+  const DotShape sh = make_dot_shape(logn, logthreads);
+  const unsigned saved = blockDim.x;
+  blockDim.x = 1u << logthreads;
+  const size_t n = (size_t)1 << logn;
+  run_clusters(rns_units(sh, batch), sh.logc, rns_smem_bytes(sh) / 4,
+               [&](HostCluster& cl, uint32_t* s, long long u) {
+                 dit_inv_rns_body(cl, s, x, y, roots, precon, rows + 2 * n,
+                                  rows + 3 * n, batch, sh, cl.rank, u, q);
+               });
+  blockDim.x = saved;
+}
 // K5/K6b's shape: {logc, logp, logw, logr, shared bytes with k = 1, k = 2}
 void h_dot_shape(int logn, int logthreads, long long* out) {
   const DotShape s = make_dot_shape(logn, logthreads);
@@ -337,6 +381,7 @@ def lib(tmp_path_factory):
     h.h_xchg_fwd.argtypes = [P, P, I, P, P, U, I, P, L]
     h.h_xchg_inv.argtypes = [P, P, I, P, P, U, P, L]
     h.h_reduce_4q.argtypes = [P, U, P, L]
+    h.h_xchg_group.argtypes = [I, P, I, ctypes.c_longlong, I, U, I, U, U]
     h.h_ct_radix.argtypes = [I, P, P, P, U, L]
     h.h_gs_radix.argtypes = [I, P, P, P, U, P, L]
     return h
@@ -391,6 +436,69 @@ def _host(fn, *args, outs=1):
     ptrs = [_ptr(a) if isinstance(a, np.ndarray) else a for a in args]
     fn(*ptrs, *(_ptr(r) for r in res), COUNT)
     return res
+
+
+# K11's group launches: entries a table, and (rows, width) of a shard
+XCHG_GROUPS, XCHG_SHAPE = (2, 4, 8), (9, 24)
+
+
+# what an entry writes: both halves of its pair, or one of them
+XCHG_HALVES = ("uv", "u", "v")
+UNWRITTEN = np.uint32(0xFFFFFFFF)
+
+
+def _xchg_group(lib, fwd, u, v, w, wp, halves, q, last, scale):
+    """K11's group body over P entries on the host: u, v (P, rows, width),
+    w, wp (P, width), halves (P,) from XCHG_HALVES; the two output arrays
+    (P, rows, width), UNWRITTEN where an entry writes no half."""
+    out_u = np.full_like(u, UNWRITTEN)
+    out_v = np.full_like(u, UNWRITTEN)
+    table = np.array([(a.ctypes.data, b.ctypes.data,
+                       ou.ctypes.data if "u" in h else 0,
+                       ov.ctypes.data if "v" in h else 0,
+                       c.ctypes.data, d.ctypes.data)
+                      for a, b, ou, ov, c, d, h
+                      in zip(u, v, out_u, out_v, w, wp, halves)],
+                     dtype=np.uint64)
+    s = scale % q
+    lib.h_xchg_group(int(fwd), _ptr(table), len(u), u.shape[1], u.shape[2],
+                     q, int(last), s, (s << 32) // q)
+    return out_u, out_v
+
+
+def _xchg_groups_match_plain(lib, q, fwd, bound, seed):
+    """The group body at P = 2, 4 and 8 entries, halves mixed (entry d
+    writes XCHG_HALVES[d % 3]), with and without ``last`` (the inverse's
+    with a scale), against the plain step of each half: the u-half of pair
+    (u, v) is step(u, v, u-role), the v-half step(v, u, v-role).  A half
+    that an entry does not write stays untouched."""
+    rng = np.random.default_rng(seed)
+    scale = int(rng.integers(1, q))
+    for P_ in XCHG_GROUPS:
+        shape = (P_,) + XCHG_SHAPE
+        u = rng.integers(0, bound, size=shape).astype(np.uint32)
+        v = rng.integers(0, bound, size=shape).astype(np.uint32)
+        u[0, 0, :4], v[-1, -1, -4:] = bound - 1, 0
+        w = rng.integers(0, q, size=(P_, XCHG_SHAPE[1])).astype(np.uint64)
+        wp = ((w << np.uint64(32)) // np.uint64(q)).astype(np.uint32)
+        w = w.astype(np.uint32)
+        halves = [XCHG_HALVES[d % 3] for d in range(P_)]
+        for last in (False, True):
+            got = _xchg_group(lib, fwd, u, v, w, wp, halves, q, last, scale)
+            for d in range(P_):
+                for half, mine, other, out in (("u", u, v, got[0]),
+                                               ("v", v, u, got[1])):
+                    if half not in halves[d]:
+                        assert (out[d] == UNWRITTEN).all(), (P_, d, half)
+                        continue
+                    args = (_t(mine[d]), _t(other[d]), half == "u",
+                            _t(w[d]), _t(wp[d]), q)
+                    want = (P.fwd_stage_step_plain(*args, last) if fwd else
+                            P.inv_stage_step_plain(
+                                *args, (scale, (scale << 32) // q) if last
+                                else None))
+                    assert np.array_equal(out[d], want.numpy()), (
+                        P_, d, half, last)
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -484,7 +592,11 @@ def _cluster_bodies_match_plain(so):
     ``fwd_ntt_rns_plain``/``inv_ntt_rns_plain``; the same bodies at one
     channel as K1 and K2 launch them, on single-prime negacyclic, cyclic,
     stage-shard and four-step row and column tables with their callers'
-    scales, against ``fwd_ntt_plain``/``inv_ntt_plain``; and the polydot's launch
+    scales, against ``fwd_ntt_plain``/``inv_ntt_plain``; K12's body on
+    ``make_dit_tables``' cyclic tables and post row at n = 8, 256 and 1024,
+    one CTA a polynomial, clusters of 2 and 4 and several polynomials a
+    CTA, ragged last units, inputs at 2q - 1, 0 and random on quarters,
+    against ``dit_inv_core_plain``; and the polydot's launch
     shape (cluster, polynomials a CTA, shared memory) at 256 threads a CTA.
     Runs in a child process: ``so`` is the library's path."""
     from agilex_ntt_tpu_torch.ops import fourstep as FS
@@ -500,6 +612,7 @@ def _cluster_bodies_match_plain(so):
     h.h_col_inv4.argtypes = [P_, P_, P_, P_, LL, I, I, I, U]
     h.h_polydot_rns.argtypes = [P_] * 10 + [I, LL, I, I, I]
     h.h_rns.argtypes = [I] + [P_] * 6 + [I, LL, I, I]
+    h.h_dit.argtypes = [P_] * 5 + [LL, I, I, U]
     h.h_dot_shape.argtypes = [I, I, P_]
     h.h_cluster_logc.argtypes = [I, I, I, LL]
     h.h_slab_logw.argtypes = [I, I, LL]
@@ -731,6 +844,27 @@ def _cluster_bodies_match_plain(so):
             want = (P.inv_ntt_plain(_t(v), rt, sc) if inv
                     else P.fwd_ntt_plain(_t(v), rt))
             assert np.array_equal(got, want.numpy()), (what, inv, logt, sc)
+    # K12's body as its launcher runs it, on make_dit_tables' cyclic tables
+    # of psi^-2 and post row: (n, log2 of the threads a CTA, batch); at
+    # n = 8 2 and 16 polynomials a CTA, at n = 256 and 1024 one CTA a
+    # polynomial, clusters of 2 and 4 and several polynomials a CTA; ragged
+    # last units.  Inputs over [0, 2q) with 2q - 1 and 0 on quarters
+    for n, logt, batch in ((8, 0, 7), (8, 3, 37), (256, 4, 3), (256, 3, 2),
+                           (256, 2, 2), (256, 6, 9), (1024, 6, 2),
+                           (1024, 5, 2), (1024, 4, 1), (1024, 7, 5)):
+        q = find_primes(n, 1)[0]
+        dt = P.make_dit_tables(make_params(n, q), "cpu")
+        rng = np.random.default_rng(5 * n + logt)
+        z = rng.integers(0, 2 * q, size=(batch, n))
+        m = z.size // 4
+        z.reshape(-1)[:m], z.reshape(-1)[2 * m: 3 * m] = 2 * q - 1, 0
+        z32 = z.astype(np.uint32)
+        got = np.zeros((batch, n), dtype=np.uint32)
+        h.h_dit(_ptr(z32), _ptr(got), dt.cyclic.roots.data_ptr(),
+                dt.cyclic.precon.data_ptr(), dt.rows.data_ptr(), batch,
+                n.bit_length() - 1, logt, q)
+        want = P.dit_inv_core_plain(_t(z), dt).numpy()
+        assert np.array_equal(got, want), ("dit_inv", n, logt)
     # its shape at 256 threads: (cluster log, polynomials log, row log, rows
     # log, bytes at k = 1 and k > 1) at the key switch's 16384, K5's 4096,
     # 32768 and 256
@@ -763,6 +897,8 @@ def test_ct_butterfly(lib, cluster_so, q):
                                       _host(lib.h_ct, y, x, w, wp, q, outs=2)[1])
             else:
                 assert int(got.max()) < q
+    # the group launch: several butterfly pairs and halves a table
+    _xchg_groups_match_plain(lib, q, True, 4 * q, 12)
     # the cluster kernels' radix-4 and radix-8 groups against the int64
     # butterflies stage by stage, then, on the ring's own twiddles (block 0,
     # stages 0..k-1), against the whole size-2^k transform
@@ -804,6 +940,9 @@ def test_gs_butterfly(lib, q):
         assert np.array_equal(got, want.numpy())
     assert np.array_equal(got_u, gx)
     assert np.array_equal(got_v, _host(lib.h_gs, y, x, w, wp, q, outs=2)[1])
+    # the group launch: several butterfly pairs and halves a table, the
+    # last stage scaled
+    _xchg_groups_match_plain(lib, q, False, 2 * q, 13)
     # the cluster kernels' inverse radix-4 and radix-8 groups, level k - 1
     # first, with and without the scaled last stage; then the whole
     # size-2^k inverse (scale n^-1) against the plain version

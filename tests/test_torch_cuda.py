@@ -391,12 +391,15 @@ def test_fourstep_rings_on_the_card_match_the_cpu(cuda):
 
 
 def test_exchange_and_dit_kernels_match_plain(cuda):
-    """K11 (forward, inverse, each role, with and without ``last``) and K12
-    against their plain versions; ``inv_ntt_dit`` against K2; the sharded
-    ring on ``["cuda:0"] * 4`` against ``Ring`` on the card (both
-    ``sp_comm`` forms, dp x sp, four-step sp), and, where the machine has
-    two or more cards, over distinct cards (K11 reading its partner
-    through P2P)."""
+    """K11 (forward, inverse, each role, with and without ``last``; one
+    shard's half, and group launches of 2, 4 and 8 entries, each writing
+    both halves of its pair or one, one launch each) and K12 (ragged
+    batches at n = 32 and 4096) against their plain versions;
+    ``inv_ntt_dit`` against K2; the sharded ring on ``["cuda:0"] * 4``
+    against ``Ring`` on the card (both ``sp_comm`` forms, dp x sp,
+    four-step sp; on one card one K11 launch a cross stage and sp group),
+    and, where the machine has two or more cards, over
+    distinct cards (K11 reading its partner through P2P for ``overlap``)."""
     from agilex_ntt_tpu_torch.ops import dit_inv as D
     from agilex_ntt_tpu_torch.parallel import ShardedRing, make_mesh
 
@@ -422,7 +425,40 @@ def test_exchange_and_dit_kernels_match_plain(cuda):
                         x, p, is_u, w, wp, q,
                         (777, (777 << 32) // q) if last else None)
                 assert torch.equal(got.to(torch.int64), want), (fwd, last, is_u)
-    for n, batch in ((32, 999), (256, 5), (4096, 16), (32768, 2)):
+        for P_ in (2, 4, 8):
+            # entry d writes both halves of its pair, the u-half or the
+            # v-half, in turn
+            bound = (4 if fwd else 2) * q
+            us = [_rand(gen, bound, (24, 1024), cuda) for _ in range(P_)]
+            vs = [_rand(gen, bound, (24, 1024), cuda) for _ in range(P_)]
+            ws = [_rand(gen, q, (1024,), cuda) for _ in range(P_)]
+            halves = [("uv", "u", "v")[d % 3] for d in range(P_)]
+            for last in (False, True):
+                outs = [[torch.empty((24, 1024), dtype=torch.uint32,
+                                     device=cuda) if h in halves[d] else None
+                         for h in "uv"] for d in range(P_)]
+                entries = [(us[d].to(torch.uint32), vs[d].to(torch.uint32),
+                            ws[d].to(torch.uint32),
+                            ((ws[d] << 32) // q).to(torch.uint32), *outs[d])
+                           for d in range(P_)]
+                before = dict(K.LAUNCHES)
+                K.xchg_group(entries, q=q, fwd=fwd, last=last, scale=777)
+                torch.cuda.synchronize()
+                key = "xchg_fwd" if fwd else "xchg_inv"
+                assert K.LAUNCHES[key] == before[key] + 1
+                for d in range(P_):
+                    for is_u, got in zip((True, False), outs[d]):
+                        if got is None:
+                            continue
+                        mine, other = (us[d], vs[d]) if is_u else (vs[d], us[d])
+                        args = (mine, other, is_u, ws[d], (ws[d] << 32) // q, q)
+                        want = (P.fwd_stage_step_plain(*args, last) if fwd else
+                                P.inv_stage_step_plain(
+                                    *args, (777, (777 << 32) // q) if last
+                                    else None))
+                        assert torch.equal(got.to(torch.int64), want), (
+                            P_, d, is_u, last)
+    for n, batch in ((32, 999), (256, 5), (4096, 17), (32768, 2)):
         ring = Ring(n, device=cuda)
         dt = D._dit_tables(ring.params, cuda)
         y = _rand(gen, 2 * ring.q, (batch, n), cuda)
@@ -447,7 +483,12 @@ def test_exchange_and_dit_kernels_match_plain(cuda):
                              (dict(dp=2, sp=2), dict(sp_axis="sp"))):
                 sr = ShardedRing(ring, make_mesh(devices=devices, **axes),
                                  sp_comm=comm, **kw)
+                before = K.LAUNCHES["xchg_fwd"]
                 assert torch.equal(sr.ntt(x), ring.ntt(x)), (devices, comm)
+                if len(set(devices)) == 1:  # a launch a stage and group
+                    groups = axes.get("dp", 1)
+                    stages = axes["sp"].bit_length() - 1
+                    assert K.LAUNCHES["xchg_fwd"] == before + groups * stages
                 assert torch.equal(sr.intt(x), ring.intt(x)), (devices, comm)
                 assert torch.equal(sr.polymul(x, b), ring.polymul(x, b))
         sr = ShardedRing(big, make_mesh(sp=4, devices=devices), dp_axis=None,
