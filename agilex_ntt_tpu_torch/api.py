@@ -801,6 +801,44 @@ class RNSRing:
             out = ntt_kernel.polydot_rns_fused(af, bf, self.tables)
         return out.view(a.shape[:-2] + (self.n,))
 
+    def polydot_multi(self, a, ws_ntt) -> torch.Tensor:
+        """Inner products out[j] = sum_i a_i * w_{j,i} against g weight
+        bundles, with the bundle ``a`` transformed once (the BSGS matvec's
+        giant steps share their baby bundle).
+
+        a: (L, ..., k, n) coefficients.
+        ws_ntt: (L, g, k, n) evaluation-domain weights (``ntt`` once, ahead).
+        One forward launch of ``a``, per bundle the lazy Montgomery dot in
+        ascending term order, one inverse launch for all g sums scaled by
+        ``polymul_scale``.  Returns (g, L, ..., n).
+        """
+        a, ws = self._as_u32(a), self._as_u32(ws_ntt)
+        self._check(a)
+        if a.dim() < 3:
+            raise ValueError(f"a must be (L, ..., k, n), got {tuple(a.shape)}")
+        if (ws.dim() != 4 or ws.shape[0] != self.L
+                or tuple(ws.shape[2:]) != tuple(a.shape[-2:])):
+            raise ValueError(
+                f"ws_ntt must be (L={self.L}, g, k={a.shape[-2]}, "
+                f"n={self.n}), got {tuple(ws.shape)}"
+            )
+        k, g = a.shape[-2], ws.shape[1]
+        fa = self.ntt(a).to(torch.int64)  # (L, ..., k, n)
+        wshape = (self.L,) + (1,) * (fa.dim() - 3) + (k, self.n)
+        two_q = 2 * self._qcol(fa.dim() - 1)
+        sums = []
+        for j in range(g):
+            t = self._mont_lazy(fa, ws[:, j].reshape(wshape).to(torch.int64))
+            acc = t[..., 0, :]
+            for i in range(1, k):
+                acc = mm.cond_sub(acc + t[..., i, :], two_q)
+            sums.append(acc)
+        # one stray R^-1 from the Montgomery dot: polymul_scale folds it
+        out = self._intt_scaled(
+            torch.stack(sums, dim=1).to(torch.uint32), self.polymul_scale
+        )
+        return out.movedim(1, 0)
+
     def _i64(self, x) -> torch.Tensor:
         x = self._as_u32(x)
         self._check(x)
@@ -1118,6 +1156,98 @@ class RNSRing:
             prod = self._evaldot_intt(ext_ring, pd, kj, d)
             outs.append(self._down(prod, qs_ext, plain_mod))
         return torch.stack(outs).to(torch.uint32)
+
+    def hoisted_linear_sum(
+        self, c0, c1, pts, ksks_b, ksks_a, ks, ext, dnum: int, *,
+        correction: str = "float", ksk_domain: str = "coeff",
+        pt_domain: str = "coeff", plain_mod: Optional[int] = None,
+    ):
+        """The BSGS linear transform sum_j pt_j * tau_{k_j}(ct) of a
+        ciphertext ct = (c0, c1), with the key switch hoisted and the ModDown
+        deferred: one gadget decomposition and one forward launch of the
+        digits for every term; per term the slot permutation, the two lazy
+        digit dots and the plaintext's Montgomery product, summed in the
+        extended basis; then one inverse launch and one ModDown for both
+        sums.  The c0 part runs on this ring at ``polymul_scale``.
+
+        c0, c1: (L, ..., n) coefficients.
+        pts: (nk, K, n) weights in the extended basis (the first L rows
+          serve the c0 part); pt_domain="ntt" takes
+          ``ksk_to_ntt(pts, ext, ch_axis=1)``.
+        ksks_b, ksks_a: (nk, dnum, K, n) rotation-key halves; ksk_domain="ntt"
+          takes ``ksk_to_ntt(..., ch_axis=2)``.
+        ks: odd Galois exponents, one a term.
+        Returns (out0, out1), each (L, ..., n).
+        """
+        c0, c1 = self._as_u32(c0), self._as_u32(c1)
+        self._check(c0)
+        self._check(c1)
+        pts = self._as_u32(pts)
+        ksks_b, ksks_a = self._as_u32(ksks_b), self._as_u32(ksks_a)
+        for name, dom in (("ksk_domain", ksk_domain), ("pt_domain", pt_domain)):
+            if dom not in ("coeff", "ntt"):
+                raise ValueError(f"unknown {name} {dom!r}")
+        ks = tuple(int(k) % (2 * self.n) for k in ks)
+        for k in ks:
+            if k % 2 == 0:
+                raise ValueError(f"Galois exponents must be odd, got {k}")
+        qs_ext = self._check_ext(ext)
+        K, d, nk, n = len(qs_ext), int(dnum), len(ks), self.n
+        for name, arr in (("ksks_b", ksks_b), ("ksks_a", ksks_a)):
+            if tuple(arr.shape) != (nk, d, K, n):
+                raise ValueError(
+                    f"{name} must be (nk={nk}, dnum={d}, K={K}, n={n}), got "
+                    f"{tuple(arr.shape)}"
+                )
+        if tuple(pts.shape) != (nk, K, n):
+            raise ValueError(
+                f"pts must be (nk={nk}, K={K}, n={n}), got {tuple(pts.shape)}"
+            )
+        ext_ring = self._ext(ext)
+        dig = self._decompose(c1, qs_ext, d, correction)
+        dnt = ext_ring.ntt(dig.movedim(0, 1).to(torch.uint32)).to(torch.int64)
+        keys = torch.stack([ksks_b, ksks_a]).movedim(3, 0)  # (K, 2, nk, d, n)
+        if ksk_domain == "coeff":
+            keys = ext_ring.ntt(keys)
+        keys = keys.to(torch.int64)
+        ptt = pts.movedim(1, 0)  # (K, nk, n)
+        if pt_domain == "coeff":
+            ptt = ext_ring.ntt(ptt)
+        ptt = ptt.to(torch.int64)
+        c0nt = self.ntt(c0).to(torch.int64)
+        mid = dnt.dim() - 3  # the ciphertext's lead dims after the channel
+        kshape = (K, d) + (1,) * mid + (n,)
+        pshape = (K,) + (1,) * mid + (n,)
+        two_q = 2 * ext_ring._qcol(mid + 2)
+        acc_b = acc_a = acc_c = None
+        for j, k in enumerate(ks):
+            perm = ext_ring.rings[0]._auto_tables(k)[2]
+            pd = dnt.index_select(-1, perm)  # (K, d, ..., n)
+            pj = ptt[:, j].reshape(pshape)
+            sums = []
+            for half in range(2):
+                t = ext_ring._mont_lazy(pd, keys[:, half, j].reshape(kshape))
+                dot = t[:, 0]
+                for dd in range(1, d):
+                    dot = mm.cond_sub(dot + t[:, dd], two_q)
+                sums.append(ext_ring._mont_lazy(pj, dot))
+            vc = self._mont_lazy(pj[: self.L], c0nt.index_select(-1, perm))
+            if acc_b is None:
+                acc_b, acc_a, acc_c = sums[0], sums[1], vc
+            else:
+                acc_b = mm.cond_sub(acc_b + sums[0], two_q)
+                acc_a = mm.cond_sub(acc_a + sums[1], two_q)
+                acc_c = mm.cond_sub(acc_c + vc, two_q[: self.L])
+        # two stray R^-1 (the digit dot and the weight's product): n^-1 R^2
+        scales = tuple(r.n_inv * r.r2_mod_q % r.q for r in ext_ring.rings)
+        ext_sums = ext_ring._intt_scaled(
+            torch.stack([acc_b, acc_a], dim=1).to(torch.uint32), scales
+        )
+        down = self._down(ext_sums.to(torch.int64), qs_ext, plain_mod)
+        # one stray R^-1 in the c0 part: polymul_scale
+        csum = self._intt_scaled(acc_c.to(torch.uint32), self.polymul_scale)
+        out0 = mm.cond_sub(csum.to(torch.int64) + down[:, 0], self._qcol(mid + 2))
+        return out0.to(torch.uint32), down[:, 1].to(torch.uint32)
 
     def __repr__(self):
         return (

@@ -76,7 +76,19 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       ``inv_ntt_dit`` (K12) direct and factored at n=4096, B=8192; each
       equal word for word to the unsharded ring.  Then each sharded
       ``ntt`` and ``intt`` alone, counted: K11 launches once a cross stage
-      and sp group on one card, 4 a call with either ``sp_comm``.
+      and sp group on one card, 4 a call with either ``sp_comm``;
+   f. RNS-CKKS through ``agilex_ntt_tpu_torch.schemes.CKKSContext`` on the
+      "n16384" chain (L=4, one special prime) from a seed: keygen, encode
+      and encrypt of 64 ciphertexts ((4, 64, 16384) a part), multiply,
+      rescale, rotate by 1 and -3, conjugate, a four-term
+      ``apply_linear``, ``poly_eval`` in both bases at the highest degree
+      the chain reaches (printed), and ``make_matvec``/``apply_matvec`` on
+      the "n4096" chain (L=3) with its full 2048 x 2048 slot matrix and
+      the default BSGS split.  K4a, K4b and K5 must launch; the first
+      ciphertexts decode within the JAX tests' tolerances of numpy (their
+      largest, 5e-2, where a key switch's noise is not rescaled away); a
+      second context on the CPU, same seeds and calls, holds the same key
+      words, encryptions and, on the first ciphertext, every op's words.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -99,8 +111,10 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    each ``sp_comm`` takes it on one card (two butterfly pairs, or four
    halves from copies); K12's launch shape; the DIT inverse beside K2 and
    its bit-reversals, the sharded calls beside the unsharded ones with
-   K11's share of their device time, the public calls' throughput, and the
-   key switch end to end.  One card measures the sharded path's
+   K11's share of their device time, the public calls' throughput, the
+   key switch and the CKKS ops end to end (NTT-kernel launches a call,
+   device busy and idle share by ``torch.profiler``, which must see K4a,
+   K4b and the polydot kernel in them).  One card measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4``.
 
@@ -263,6 +277,25 @@ KERNELS = {  # row -> (name, TPU kernel replaced)
     "xchg_fwd": ("xchg_group (fwd)", "agilex_ntt_tpu/parallel/overlap.py:89"),
     "xchg_inv": ("xchg_group (inv)", "agilex_ntt_tpu/parallel/overlap.py:89"),
 }
+# the CKKS phase (3f): the "n16384" chain (KS_N, KS_L, one special prime) at
+# CKKS_BATCH ciphertexts, rotations by CKKS_ROT, a linear transform of the
+# steps CKKS_LIN; the matvec on the "n4096" chain (L = 3) with its full
+# 2048 x 2048 slot matrix and the default BSGS split
+CKKS_BATCH, CKKS_SEED = 64, 20261019
+CKKS_ROT = (1, -3)
+CKKS_LIN = (0, 1, -3, 2)
+CKKS_STEPS = (1, -3, 2)
+MV_N, MV_L = RNS_N, RNS_L
+CKKS_TOL = 1e-3  # tests/test_ckks.py
+CKKS_POLY_TOL = {"power": 2e-2, "chebyshev": 5e-2}  # tests/test_polyeval.py
+# rotate, conjugate and apply_linear's rotated terms carry a key switch's
+# noise that no rescale divides (apply_linear's rescale takes back only its
+# weights' scale).  TOL was set at n = 256, where a switch adds about 1e-5
+# to a slot; at n = 16384 it adds 3e-3 to 1.1e-2 (the CPU plain versions,
+# whose words the card's equal), so these are held to the JAX tests'
+# largest atol
+CKKS_KS_TOL = 5e-2
+CKKS_DECODED = 2  # ciphertexts of each output decoded (host CRT)
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
@@ -383,12 +416,13 @@ XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_group_kernel")
 DIT_KERNEL = "dit_inv_cluster_kernel"
 
 
-def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> None:
+def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5):
     """Where one call's device time goes, from ``torch.profiler``: the
     kernels' device time (each kernel counted once, by its own event),
     split into this repository's NTT kernels and the PyTorch operations
     around them, against ``call_ms``, the call's unprofiled time on CUDA
-    events; and the PyTorch operations that launched the most of it."""
+    events; and the PyTorch operations that launched the most of it.
+    Returns the names of the kernels that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -401,7 +435,7 @@ def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> No
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(f"  {what}: the profiler recorded no device time")
-        return
+        return []
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ntt = sum(e.self_device_time_total for e in kernels
               if OUR_KERNEL.search(e.key)) / 1e3
@@ -414,6 +448,7 @@ def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5) -> No
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.key:24s} {e.count:5d} calls, {e.self_device_time_total / 1e3:.4f} "
             f"ms on the device")
+    return [e.key for e in kernels]
 
 
 def kernels_seen(torch, call):
@@ -457,6 +492,182 @@ def kernel_share(torch, call, what: str) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]:
         log(f"    {e.key[:60]:60s} {e.count:5d} x, "
             f"{e.self_device_time_total / 1e3:.4f} ms")
+
+
+def ckks_path(np, CKKSContext, device, rows=None) -> dict:
+    """The CKKS main path (phase 3f) on ``device`` through the public calls:
+    keygen, encode, encrypt of CKKS_BATCH ciphertexts, then multiply,
+    rescale, rotations, conjugate, a four-term linear transform, poly_eval
+    in both bases at the highest degree the chain reaches, and the full
+    matvec of the "n4096" chain.  ``rows`` keeps the first ``rows``
+    ciphertexts for the ops after encryption (the CPU twin's B = 1).
+    Returns the contexts, keys, inputs, outputs, the expected slots and the
+    calls (for timing)."""
+    from fractions import Fraction
+
+    from agilex_ntt_tpu_torch.schemes.ckks import Ciphertext
+
+    def first(ct):
+        if rows is None:
+            return ct
+        return Ciphertext(ct.c0[:, :rows], ct.c1[:, :rows], ct.level, ct.scale)
+
+    data = np.random.default_rng(CKKS_SEED + 1)  # slots and weights
+
+    def slots(n_slots, lo, hi, cplx=True):
+        z = data.uniform(lo, hi, (CKKS_BATCH, n_slots))
+        return z + 1j * data.uniform(lo, hi, (CKKS_BATCH, n_slots)) if cplx else z + 0j
+
+    S = KS_N // 2
+    ctx = CKKSContext(KS_N, num_primes=KS_L,
+                      rng=np.random.default_rng(CKKS_SEED), device=device)
+    keys = ctx.keygen(galois_steps=CKKS_STEPS)
+    z1, z2 = slots(S, -0.8, 0.8), slots(S, -0.8, 0.8)
+    z3 = slots(S, -0.95, 0.95, cplx=False)  # the Chebyshev domain
+    ws = [data.uniform(-1, 1, S) + 1j * data.uniform(-1, 1, S) for _ in CKKS_LIN]
+    degree = {}
+    for basis in ("power", "chebyshev"):
+        d = 0
+        while True:  # the highest dense degree the plan lets the chain reach
+            try:
+                ctx.poly_eval_plan(KS_L, [0.5] * (d + 2), basis=basis)
+            except ValueError:
+                break
+            d += 1
+        degree[basis] = d
+    pcoef = list(data.uniform(-0.4, 0.4, degree["power"] + 1))
+    ccoef = list(data.uniform(-0.4, 0.4, degree["chebyshev"] + 1))
+    pt1 = ctx.encode(z1)
+    c1, c2, c3 = (ctx.encrypt(pt, keys) for pt in (pt1, ctx.encode(z2),
+                                                   ctx.encode(z3)))
+    e1, e2, e3 = first(c1), first(c2), first(c3)
+    lin = ctx.make_linear_op(list(zip(CKKS_LIN, ws)), keys, KS_L)
+    calls = {
+        "multiply": lambda: ctx.multiply(e1, e2, keys),
+        "rotate 1": lambda: ctx.rotate(e1, 1, keys),
+        "rotate -3": lambda: ctx.rotate(e1, -3, keys),
+        "conjugate": lambda: ctx.conjugate(e1, keys),
+        "apply_linear": lambda: ctx.apply_linear(e1, lin),
+        "poly_eval power": lambda: ctx.poly_eval(e1, pcoef, keys),
+        "poly_eval chebyshev": lambda: ctx.poly_eval(e3, ccoef, keys,
+                                                     basis="chebyshev"),
+    }
+    outs = {name: call() for name, call in calls.items()}
+    prod = outs["multiply"]
+    calls["rescale"] = lambda: ctx.rescale(prod)
+    outs["rescale"] = calls["rescale"]()
+    # added after the outputs: a call draws from the context's generator
+    calls["encrypt"] = lambda: ctx.encrypt(pt1, keys)
+    # the matvec: the "n4096" chain, its full slot matrix, the default split
+    MS = MV_N // 2
+    mctx = CKKSContext(MV_N, num_primes=MV_L,
+                       rng=np.random.default_rng(CKKS_SEED + 2), device=device)
+    mkeys = mctx.keygen(galois_steps=mctx.bsgs_steps())
+    zm = slots(MS, -1, 1)
+    M = (data.uniform(-1, 1, (MS, MS)) + 1j * data.uniform(-1, 1, (MS, MS))) / MS
+    mv = mctx.make_matvec(M, mkeys, MV_L)
+    cm = mctx.encrypt(mctx.encode(zm), mkeys)
+    em = first(cm)
+    calls["apply_matvec"] = lambda: mctx.apply_matvec(em, mv)
+    outs["apply_matvec"] = calls["apply_matvec"]()
+    outs.update(enc1=c1, enc2=c2, enc3=c3, encm=cm)
+    delta = Fraction(ctx.delta)
+
+    def ref_poly(cs, z):
+        acc = np.zeros_like(z)
+        for c in reversed(cs):
+            acc = acc * z + c
+        return acc
+
+    # (output, context, keys, rescaled first?, expected slots, atol): the
+    # tolerances of tests/test_ckks.py (TOL, 5 TOL for the matvec) and
+    # tests/test_polyeval.py (degree 4: 2e-2; Chebyshev: 5e-2); the
+    # rotations and the linear transform CKKS_KS_TOL
+    expect = {
+        "enc1": (ctx, keys, False, z1, CKKS_TOL),
+        "rescale": (ctx, keys, False, z1 * z2, CKKS_TOL),
+        "rotate 1": (ctx, keys, False, np.roll(z1, -1, axis=-1), CKKS_KS_TOL),
+        "rotate -3": (ctx, keys, False, np.roll(z1, 3, axis=-1), CKKS_KS_TOL),
+        "conjugate": (ctx, keys, False, np.conj(z1), CKKS_KS_TOL),
+        "apply_linear": (ctx, keys, True, sum(
+            w * np.roll(z1, -t, axis=-1) for t, w in zip(CKKS_LIN, ws)),
+            CKKS_KS_TOL),
+        "poly_eval power": (ctx, keys, False, ref_poly(pcoef, z1),
+                            CKKS_POLY_TOL["power"]),
+        "poly_eval chebyshev": (ctx, keys, False,
+                                np.polynomial.chebyshev.chebval(z3, ccoef),
+                                CKKS_POLY_TOL["chebyshev"]),
+        "apply_matvec": (mctx, mkeys, True, zm @ M.T, 5 * CKKS_TOL),
+    }
+    scales = {"poly_eval power": delta ** 2, "poly_eval chebyshev": delta ** 2}
+    return {"ctx": ctx, "keys": keys, "mctx": mctx, "mkeys": mkeys,
+            "outs": outs, "calls": calls, "expect": expect, "scales": scales,
+            "degree": degree, "mv": mv}
+
+
+def ckks_key_words(ck) -> dict:
+    """Every key tensor of both CKKS contexts' key sets, by name."""
+    out = {}
+    for tag, keys in (("", ck["keys"]), ("mv ", ck["mkeys"])):
+        out[tag + "sk_rns"] = keys.sk_rns
+        for name, pair in (("pk", keys.pk), ("rlk", keys.rlk),
+                           ("rlk_coeff", keys.rlk_coeff)):
+            out[f"{tag}{name} b"], out[f"{tag}{name} a"] = pair
+        for table in ("gk", "gk_coeff"):
+            for g, pair in getattr(keys, table).items():
+                out[f"{tag}{table}[{g}] b"], out[f"{tag}{table}[{g}] a"] = pair
+    return out
+
+
+def ckks_decoded(np, torch, ck) -> None:
+    """Raise unless every output of ``ckks_path`` has its shape and its
+    first CKKS_DECODED ciphertexts decode within their tolerance of numpy,
+    and poly_eval's results sit at Delta^2."""
+    for name, (ctx, keys, rescale, want, atol) in ck["expect"].items():
+        ct = ck["outs"][name]
+        if rescale:
+            ct = ctx.rescale(ct)
+        if ct.c0.dtype != torch.uint32 or tuple(ct.c0.shape) != (
+                ct.level, CKKS_BATCH, ctx.n):
+            raise AssertionError(f"CKKS {name}: {ct.c0.dtype} "
+                                 f"{tuple(ct.c0.shape)} at level {ct.level}")
+        head = type(ct)(ct.c0[:, :CKKS_DECODED], ct.c1[:, :CKKS_DECODED],
+                        ct.level, ct.scale)
+        got = ctx.decode(ctx.decrypt(head, keys))
+        err = float(np.abs(got - want[:CKKS_DECODED]).max())
+        log(f"  CKKS {name:20s} level {ct.level}, decoded max error {err:.3e} "
+            f"(atol {atol:g}, {CKKS_DECODED} of {CKKS_BATCH} ciphertexts)")
+        if not np.isfinite(err) or err > atol:
+            raise AssertionError(f"CKKS {name} decodes {err:.3e} from numpy "
+                                 f"(atol {atol:g})")
+    for name, scale in ck["scales"].items():
+        if ck["outs"][name].scale != scale:
+            raise AssertionError(f"CKKS {name} at scale {ck['outs'][name].scale}")
+
+
+def ckks_same_words(torch, ck, twin) -> int:
+    """Raise unless the card's keys and encryptions equal the CPU twin's, and
+    every op's first ciphertext the twin's op; return the key tensors
+    compared."""
+    card_keys, cpu_keys = ckks_key_words(ck), ckks_key_words(twin)
+    if sorted(card_keys) != sorted(cpu_keys):
+        raise AssertionError("the CPU twin holds other keys")
+    for name, words in card_keys.items():
+        if not torch.equal(words.cpu(), cpu_keys[name]):
+            raise AssertionError(f"CKKS key {name}: the card's words differ "
+                                 "from the CPU plain versions'")
+    for name, ct in ck["outs"].items():
+        want = twin["outs"][name]
+        rows = slice(None) if name.startswith("enc") else slice(0, 1)
+        for part in ("c0", "c1"):
+            if not torch.equal(getattr(ct, part)[:, rows].cpu(),
+                               getattr(want, part)):
+                raise AssertionError(f"CKKS {name}.{part}: the card's words "
+                                     "differ from the CPU plain versions'")
+        if (ct.level, ct.scale) != (want.level, want.scale):
+            raise AssertionError(f"CKKS {name}: level or scale differs on the "
+                                 "CPU")
+    return len(card_keys)
 
 
 def main() -> int:
@@ -1254,6 +1465,44 @@ def main() -> int:
             if got != want_xchg:
                 raise AssertionError(f"ShardedRing.{what} ({comm}) made {got} "
                                      f"K11 launches, not {want_xchg}")
+
+    # -- 3f. RNS-CKKS on the n16384 chain, counted -----------------------------
+    from agilex_ntt_tpu_torch.schemes import CKKSContext
+
+    t3f = time.perf_counter()
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    ck = ckks_path(np, CKKSContext, dev)
+    torch.cuda.synchronize()
+    ckks_s = time.perf_counter() - t0
+    ckks_launches = dict(K.LAUNCHES)
+    log(f"main path: CKKSContext({KS_N}, L={KS_L}) keygen (steps {CKKS_STEPS}), "
+        f"encode + encrypt of 3 x {CKKS_BATCH} ciphertexts, multiply, rescale, "
+        f"rotate {CKKS_ROT}, conjugate, apply_linear over {CKKS_LIN}, "
+        f"poly_eval power (degree {ck['degree']['power']}) and chebyshev "
+        f"(degree {ck['degree']['chebyshev']}), and CKKSContext({MV_N}, "
+        f"L={MV_L}) keygen, make_matvec ({ck['mv'].b} x {ck['mv'].g}) and "
+        f"apply_matvec in {ckks_s:.3f} s (host clock); launches "
+        f"{ {k: v for k, v in ckks_launches.items() if v} }")
+    log(f"  the highest degree poly_eval reaches on {KS_L} levels (result at "
+        f"level >= 2): power {ck['degree']['power']}, chebyshev "
+        f"{ck['degree']['chebyshev']}")
+    missing = [key for key in ("fwd_rns", "inv_rns", "polymul_rns")
+               if ckks_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"the CKKS path launched no {missing} kernel")
+    ckks_decoded(np, torch, ck)
+    t0 = time.perf_counter()
+    twin = ckks_path(np, CKKSContext, "cpu", rows=1)
+    twin_s = time.perf_counter() - t0
+    n_keys = ckks_same_words(torch, ck, twin)
+    log(f"CKKS path: {len(ck['expect'])} outputs decode within their "
+        f"tolerances; {n_keys} key tensors, the encryptions and every op's "
+        f"first ciphertext equal the CPU plain versions' word for word (CPU "
+        f"twin {twin_s:.1f} s); phase 3f took {time.perf_counter() - t3f:.1f} s")
+    del twin
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -1395,7 +1644,7 @@ def main() -> int:
     # a kernel's launches over every path of phase 3 (the flat path's are
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
-             "3e": slice_launches}
+             "3e": slice_launches, "3f": ckks_launches}
     for key, (what, _) in ONE_KERNELS.items():
         log(f"{what} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))
@@ -1726,6 +1975,24 @@ def main() -> int:
         call_ms[what] = ms
         log(f"  {what:22s} {ms:.4f} ms per call, {ms / per * 1e3:.3f} us per "
             f"ciphertext{' step' if 'hoisted' in what else ''}")
+    # the CKKS ops end to end through the public calls, host work included
+    log(f"CKKS ops end to end on {card} (n={KS_N}, L={KS_L}, batch "
+        f"{CKKS_BATCH}; the matvec n={MV_N}, L={MV_L}; CUDA events, median of "
+        f"3 calls; launches of the NTT kernels a call):")
+    t_ck, ckks_ms = time.perf_counter(), {}
+    for what, call in ck["calls"].items():
+        ms = cuda_time_ms(call, warmup=1, reps=3, inner=1)
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        call()
+        torch.cuda.synchronize()
+        ntt_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        ckks_ms[what] = ms
+        log(f"  {what:22s} {ms:.4f} ms per call, {ms / CKKS_BATCH * 1e3:.3f} us "
+            f"per ciphertext, {sum(ntt_launches.values())} NTT-kernel "
+            f"launches {ntt_launches}")
+    log(f"  (timed in {time.perf_counter() - t_ck:.1f} s)")
     log("where the key switch's device time goes (torch.profiler, one call):")
     device_breakdown(torch, lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
                      "keyswitch coeff keys", call_ms["keyswitch coeff keys"])
@@ -1859,6 +2126,24 @@ def main() -> int:
             if what.startswith("one"):
                 xchg_ms[key] = ms
     del grp, cps, outs
+    # last: the matvec's profile holds some 76000 kernel launches, and the
+    # profiler recorded no device time in the sessions after it
+    log("where the CKKS ops' device time goes (torch.profiler, one call; "
+        "kernel launches of every kind):")
+    t_ck, ckks_kernels = time.perf_counter(), set()
+    for what, call in ck["calls"].items():
+        ckks_kernels.update(device_breakdown(torch, call, what, ckks_ms[what],
+                                             top=3))
+    log(f"  (profiled in {time.perf_counter() - t_ck:.1f} s)")
+    want_kernels = (RNS_KERNELS["fwd_rns"][1], RNS_KERNELS["inv_rns"][1],
+                    DOT_KERNEL)
+    if ckks_kernels:
+        seen = [name for name in want_kernels
+                if any(name in k for k in ckks_kernels)]
+        log(f"  the CKKS calls run {seen} (torch.profiler)")
+        if len(seen) != len(want_kernels):
+            raise AssertionError(f"the profiler saw no {set(want_kernels) - set(seen)} "
+                                 "in the CKKS calls")
     # the kernels line gives K11 its device time at the whole shard
     for row in rows:
         for key, ms in xchg_ms.items():

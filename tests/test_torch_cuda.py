@@ -495,3 +495,157 @@ def test_exchange_and_dit_kernels_match_plain(cuda):
                          sp_axis="sp")
         assert torch.equal(sr.ntt(xb), big.ntt(xb)), devices
         assert torch.equal(sr.intt(xb), big.intt(xb)), devices
+
+
+def _ckks_twins(cuda, n, levels, seed, steps=()):
+    """A CKKS context on the card and one on the CPU from the same seed,
+    with their key sets (the same words, if the card computes as the CPU
+    plain versions do)."""
+    from agilex_ntt_tpu_torch.schemes import CKKSContext
+
+    out = []
+    for device in (cuda, "cpu"):
+        ctx = CKKSContext(n, levels, rng=np.random.default_rng(seed),
+                          device=device)
+        out.append((ctx, ctx.keygen(galois_steps=steps)))
+    return out
+
+
+def _same_ct(card, cpu):
+    assert (card.level, card.scale) == (cpu.level, cpu.scale)
+    assert card.c0.device.type == "cuda"
+    assert torch.equal(card.c0.cpu(), cpu.c0)
+    assert torch.equal(card.c1.cpu(), cpu.c1)
+
+
+def _slots(rng, shape, lo=-0.9, hi=0.9):
+    return rng.uniform(lo, hi, shape) + 1j * rng.uniform(lo, hi, shape)
+
+
+def test_ckks_keys_and_encryption_on_the_card_match_the_cpu(cuda):
+    """Keygen (both key domains), both encryptions and decryption on the card
+    equal the CPU plain versions word for word; K4a and K5 launch."""
+    before = dict(K.LAUNCHES)
+    (gctx, gkeys), (cctx, ckeys) = _ckks_twins(cuda, 256, 3, 5, (1, -1))
+    assert K.LAUNCHES["fwd_rns"] > before["fwd_rns"]
+    assert K.LAUNCHES["polymul_rns"] > before["polymul_rns"]
+    assert torch.equal(gkeys.sk_rns.cpu(), ckeys.sk_rns)
+    for name in ("pk", "rlk", "rlk_coeff"):
+        for g, c in zip(getattr(gkeys, name), getattr(ckeys, name)):
+            assert torch.equal(g.cpu(), c), name
+    assert sorted(gkeys.gk) == sorted(ckeys.gk)
+    for table in ("gk", "gk_coeff"):
+        for elt, pair in getattr(gkeys, table).items():
+            for g, c in zip(pair, getattr(ckeys, table)[elt]):
+                assert torch.equal(g.cpu(), c), (table, elt)
+    z = _slots(np.random.default_rng(6), (5, 128))
+    for enc in ("encrypt", "encrypt_symmetric"):
+        g = getattr(gctx, enc)(gctx.encode(z), gkeys)
+        c = getattr(cctx, enc)(cctx.encode(z), ckeys)
+        _same_ct(g, c)
+        assert torch.equal(gctx.decrypt(g, gkeys).rns.cpu(),
+                           cctx.decrypt(c, ckeys).rns)
+        np.testing.assert_allclose(gctx.decode(gctx.decrypt(g, gkeys)), z,
+                                   atol=1e-3)
+
+
+def test_ckks_evaluator_on_the_card_matches_the_cpu(cuda):
+    """multiply, square, rescale, mod_down_to, rotations, conjugate and the
+    plaintext ops; the key switch's transforms run K4a and K4b."""
+    (gctx, gkeys), (cctx, ckeys) = _ckks_twins(cuda, 256, 3, 7, (1, -3))
+    z1, z2 = (_slots(np.random.default_rng(s), (3, 128)) for s in (8, 9))
+    g1, g2 = (gctx.encrypt(gctx.encode(z), gkeys) for z in (z1, z2))
+    c1, c2 = (cctx.encrypt(cctx.encode(z), ckeys) for z in (z1, z2))
+    before = dict(K.LAUNCHES)
+    for op in (lambda x, a, b, k: x.multiply(a, b, k),
+               lambda x, a, b, k: x.rescale(x.square(a, k)),
+               lambda x, a, b, k: x.rotate(x.mod_down_to(a, 2), 1, k),
+               lambda x, a, b, k: x.rotate(a, -3, k),
+               lambda x, a, b, k: x.conjugate(a, k),
+               lambda x, a, b, k: x.add_plain(x.sub(a, b), x.encode(z2)),
+               lambda x, a, b, k: x.mul_plain(x.negate(a), x.encode(z2))):
+        _same_ct(op(gctx, g1, g2, gkeys), op(cctx, c1, c2, ckeys))
+    for key in ("fwd_rns", "inv_rns", "polymul_rns"):
+        assert K.LAUNCHES[key] > before[key], key
+    # tests/test_ckks.py's TOL at its size
+    dec = lambda ct: gctx.decode(gctx.decrypt(ct, gkeys))  # noqa: E731
+    out = gctx.rescale(gctx.multiply(g1, g2, gkeys))
+    np.testing.assert_allclose(dec(out), z1 * z2, atol=1e-3)
+    np.testing.assert_allclose(dec(gctx.rotate(g1, -3, gkeys)),
+                               np.roll(z1, 3, axis=-1), atol=1e-3)
+    np.testing.assert_allclose(dec(gctx.conjugate(g1, gkeys)), np.conj(z1),
+                               atol=1e-3)
+
+
+def test_ckks_linear_and_matvec_on_the_card_match_the_cpu(cuda):
+    """apply_linear (hoisted_linear_sum) and the BSGS matvec (its hoisted
+    baby steps, polydot_multi, the giant rotations) at n = 128."""
+    from agilex_ntt_tpu_torch.schemes import CKKSContext
+
+    n, S = 128, 64
+    steps = CKKSContext(n, 3, device="cpu").bsgs_steps()
+    (gctx, gkeys), (cctx, ckeys) = _ckks_twins(cuda, n, 3, 11, steps)
+    rng = np.random.default_rng(12)
+    z = _slots(rng, (2, S))
+    ws = [_slots(rng, S) for _ in range(3)]
+    M = _slots(rng, (S, S)) / S
+    g, c = (x.encrypt(x.encode(z), k) for x, k in ((gctx, gkeys), (cctx, ckeys)))
+    for lvl in (3, 2):
+        terms = list(zip((0, 1, 2), ws))
+        gl = gctx.make_linear_op(terms, gkeys, lvl)
+        cl = cctx.make_linear_op(terms, ckeys, lvl)
+        assert torch.equal(gl.pts.cpu(), cl.pts)
+        gm, cm = gctx.make_matvec(M, gkeys, lvl), cctx.make_matvec(M, ckeys, lvl)
+        assert torch.equal(gm.pts.cpu(), cm.pts)
+        ga, ca = gctx.mod_down_to(g, lvl), cctx.mod_down_to(c, lvl)
+        _same_ct(gctx.apply_linear(ga, gl), cctx.apply_linear(ca, cl))
+        got = gctx.apply_matvec(ga, gm)
+        _same_ct(got, cctx.apply_matvec(ca, cm))
+    out = gctx.decode(gctx.decrypt(gctx.rescale(got), gkeys))
+    np.testing.assert_allclose(out, z @ M.T, atol=5e-3)
+
+
+def test_ckks_poly_eval_on_the_card_matches_the_cpu(cuda):
+    """poly_eval in both bases at L = 6 (babies, giants, both node kinds,
+    Chebyshev's odd recurrence)."""
+    (gctx, gkeys), (cctx, ckeys) = _ckks_twins(cuda, 256, 6, 13)
+    z = np.random.default_rng(14).uniform(-0.9, 0.9, (2, 128)) + 0j
+    g, c = (x.encrypt(x.encode(z), k) for x, k in ((gctx, gkeys), (cctx, ckeys)))
+    for coeffs, basis in (([0.1, -0.4, 0.3, 0.2, -0.15, 0.05], "power"),
+                          ([0.2, -0.5, 0.3, 0.15, -0.1, 0.05, 0.1], "chebyshev")):
+        got = gctx.poly_eval(g, coeffs, gkeys, basis=basis)
+        _same_ct(got, cctx.poly_eval(c, coeffs, ckeys, basis=basis))
+        want = (np.polynomial.polynomial.polyval(z, coeffs) if basis == "power"
+                else np.polynomial.chebyshev.chebval(z, coeffs))
+        np.testing.assert_allclose(gctx.decode(gctx.decrypt(got, gkeys)), want,
+                                   atol=5e-2)
+
+
+@pytest.mark.parametrize("n,lead", [(256, ()), (16384, (2, 3))])
+def test_evaluator_ring_methods_on_the_card_match_the_cpu(cuda, n, lead):
+    """polydot_multi and hoisted_linear_sum (both domains, the BGV ModDown)
+    on the card against the CPU plain versions, also at the key switch's
+    n = 16384 with a lead of 2 x 3 ciphertexts (clusters of 4 CTAs)."""
+    primes = find_primes(n, 4)
+    qs, ext = primes[:3], primes
+    gen = torch.Generator(cuda).manual_seed(n)
+
+    def words(basis, shape):
+        return torch.stack([_rand(gen, q, shape, cuda) for q in basis]).to(
+            torch.uint32)
+
+    terms = (1, 5, 2 * n - 1)
+    c0, c1 = words(qs, lead + (n,)), words(qs, lead + (n,))
+    pts = words(ext, (3, n)).movedim(0, 1).contiguous()
+    kb, ka = (words(ext, (3, 3, n)).movedim(0, 2).contiguous() for _ in range(2))
+    a, ws = words(qs, lead + (4, n)), words(qs, (2, 4, n))
+    card, cpu = RNSRing(n, qs=qs, device=cuda), RNSRing(n, qs=qs, device="cpu")
+    for kd, pd, pm in (("coeff", "coeff", None), ("ntt", "ntt", 65537)):
+        outs = [r.hoisted_linear_sum(*(v.to(r.device) for v in (c0, c1, pts, kb, ka)),
+                                     terms, ext, 3, ksk_domain=kd, pt_domain=pd,
+                                     plain_mod=pm) for r in (card, cpu)]
+        for g, c in zip(*outs):
+            assert torch.equal(g.cpu(), c), (kd, pd, pm)
+    got = card.polydot_multi(a, ws)
+    assert tuple(got.shape) == (2, 3) + lead + (n,)
+    assert torch.equal(got.cpu(), cpu.polydot_multi(a.cpu(), ws.cpu()))

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of it and running its
 command-line check, single- and multi-prime, the DIT inverse and the
-sharded ring, loads neither JAX nor the JAX package."""
+sharded ring, loads neither JAX nor the JAX package; and its CKKS evaluator
+runs a key generation, an encryption and a multiply in an interpreter where
+importing either raises."""
 
 import subprocess
 import sys
@@ -19,6 +21,7 @@ from agilex_ntt_tpu_torch.parallel import (
     fourstep_shard, mesh, overlap, shards, stage_shard,
 )
 from agilex_ntt_tpu_torch.utils import crt, profiling
+from agilex_ntt_tpu_torch import schemes
 from agilex_ntt_tpu_torch.__main__ import main
 main(["256", "4", "--device", "cpu"])
 main(["256", "4", "--rns", "3", "--device", "cpu"])
@@ -53,3 +56,42 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "all checks passed (n=256, q=" in proc.stdout
     assert "all checks passed (n=256, L=3 primes" in proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+BLOCKED = """
+import importlib.abc
+import sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+try:
+    import jax
+except ImportError as err:
+    print("BLOCKED", err)
+import numpy as np
+from agilex_ntt_tpu_torch.schemes.ckks import CKKSContext
+ctx = CKKSContext(64, 2, rng=np.random.default_rng(1), device="cpu")
+keys = ctx.keygen()
+z = np.full((2, 32), 0.5 + 0.25j)
+ct = ctx.encrypt(ctx.encode(z), keys)
+out = ctx.rescale(ctx.multiply(ct, ct, keys))
+err = np.abs(ctx.decode(ctx.decrypt(out, keys)) - z * z).max()
+print("CKKS", out.level, err < 1e-3)
+"""
+
+
+def test_ckks_runs_with_jax_and_the_jax_package_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "BLOCKED jax is blocked" in proc.stdout
+    assert "CKKS 1 True" in proc.stdout, proc.stdout
