@@ -1,7 +1,8 @@
 """RNS base conversion and rescaling, on int64 tensors.
 
 Counterpart of ``agilex_ntt_tpu/ops/basechange.py`` (``base_convert``,
-``rescale``, ``mod_down``, ``rescale_bgv``, ``mod_down_bgv``), with the
+``scale_round``, ``base_convert_sk``, ``rescale``, ``mod_down``,
+``rescale_bgv``, ``mod_down_bgv``), with the
 same host tables and the same word-for-word arithmetic.  There these are
 elementwise and channel-mixing XLA code, not Pallas kernels; here they are
 plain PyTorch, the same on the CPU and the card.  Values are int64 tensors
@@ -66,6 +67,16 @@ def _shoup(x: torch.Tensor, pair, q: int) -> torch.Tensor:
     return shoup_mulmod_lazy(x, int(pair[0]), int(pair[1]), q)
 
 
+def _shoup_sum(ys, pairs, p: int) -> torch.Tensor:
+    """sum_l ys[l] w_l mod p in [0, p) for the Shoup pairs (w_l, w_l'):
+    lazy products in [0, 2p), the running sum kept below 2p."""
+    acc = None
+    for y, pair in zip(ys, pairs):
+        t = _shoup(y, pair, p)
+        acc = t if acc is None else cond_sub(acc + t, 2 * p)
+    return cond_sub(cond_sub(acc, 2 * p), p)
+
+
 def base_convert(
     x: torch.Tensor,
     qs_src: Sequence[int],
@@ -97,16 +108,149 @@ def base_convert(
 
     outs = []
     for j, p in enumerate(qs_dst):
-        acc = None
-        for l in range(len(qs_src)):
-            t = _shoup(ys[l], mat[j, l], p)  # [0, 2p)
-            acc = t if acc is None else cond_sub(acc + t, 2 * p)
-        acc = cond_sub(cond_sub(acc, 2 * p), p)  # [0, p)
+        acc = _shoup_sum(ys, mat[j], p)
         if correction == "float":
             eq = _shoup(e, qmodp[j], p)
             acc = sub_mod(acc, cond_sub(eq, p), p)
         outs.append(acc)
     return torch.stack(outs)
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_round_tables(qs_src: tuple, qs_dst: tuple, t: int):
+    """Host tables for round(t x / Q) into qs_dst (HPS scale and round):
+    per source channel the Shoup pair of (Q/q_l)^-1 mod q_l and the float32
+    constants t 2^15 / q_l and t / q_l (the hi/lo split fractional sum); per
+    (dst j, src l) the Shoup pair of [t q_l^-1]_{p_j}; per dst j the Shoup
+    pair of [t Q^-1]_{p_j} and the Barrett mu of p_j."""
+    L, K = len(qs_src), len(qs_dst)
+    Q = 1
+    for q in qs_src:
+        Q *= q
+    qtilde = np.zeros((L, 2), dtype=np.uint32)
+    th = np.zeros(L, dtype=np.float32)
+    tl = np.zeros(L, dtype=np.float32)
+    for l, q in enumerate(qs_src):
+        qhat = Q // q
+        qtilde[l] = _shoup_pair(pow(qhat % q, q - 2, q), q)
+        th[l] = float(t) * float(1 << 15) / float(q)
+        tl[l] = float(t) / float(q)
+    tq = np.zeros((K, L, 2), dtype=np.uint32)
+    tQ = np.zeros((K, 2), dtype=np.uint32)
+    mu = np.zeros(K, dtype=np.uint32)
+    for j, p in enumerate(qs_dst):
+        for l, q in enumerate(qs_src):
+            tq[j, l] = _shoup_pair((t * pow(q % p, p - 2, p)) % p, p)
+        tQ[j] = _shoup_pair((t * pow(Q % p, p - 2, p)) % p, p)
+        mu[j] = (1 << 32) // p
+    return qtilde, th, tl, tq, tQ, mu
+
+
+def scale_round(
+    x_src: torch.Tensor,
+    x_dst: torch.Tensor,
+    qs_src: Sequence[int],
+    qs_dst: Sequence[int],
+    t: int,
+) -> torch.Tensor:
+    """round(t x / Q) mod each p_j, the BFV scale-invariant division, int64.
+
+    ``x`` is one integer in [0, Q P') held in the union basis qs_src (+)
+    qs_dst: ``x_src`` its residues (L, ..., n) mod the Q primes, ``x_dst``
+    its residues (K, ..., n) mod the target primes, each coprime to Q.  HPS
+    folding (the base-conversion overflow cancels):
+
+        round(t x / Q) ≡ [t Q^-1]_p x_p - sum_l xt_l [t q_l^-1]_p + v  (mod p)
+        v = round(sum_l xt_l t / q_l),   xt_l = [x_l (Q/q_l)^-1]_{q_l}
+
+    v is the one float step: xt_l split into 15-bit halves, each half times
+    its float32 constant, the two products added and the terms summed in
+    channel order, each product and each sum rounded to float32 as the JAX
+    package computes it, then rounded half to even.  The same v serves
+    every target channel, so the outputs are residues of one integer.
+    """
+    qs_src = tuple(int(q) for q in qs_src)
+    qs_dst = tuple(int(q) for q in qs_dst)
+    qtilde, th, tl, tq, tQ, mu = _scale_round_tables(qs_src, qs_dst, int(t))
+    th_t = torch.from_numpy(th).to(x_src.device)
+    tl_t = torch.from_numpy(tl).to(x_src.device)
+
+    xts, v = [], None
+    for l, q in enumerate(qs_src):
+        xt = cond_sub(_shoup(x_src[l], qtilde[l], q), q)
+        xts.append(xt)
+        hi = (xt >> 15).to(torch.float32)
+        lo = (xt & 0x7FFF).to(torch.float32)
+        term = hi * th_t[l] + lo * tl_t[l]
+        v = term if v is None else v + term
+    v = torch.round(v).to(torch.int64)  # < L t < 2^21
+
+    outs = []
+    for j, p in enumerate(qs_dst):
+        a = cond_sub(_shoup(x_dst[j], tQ[j], p), p)
+        y = sub_mod(a, _shoup_sum(xts, tq[j], p), p)
+        outs.append(cond_sub(y + _barrett_small(v, int(mu[j]), p), p))
+    return torch.stack(outs)
+
+
+@functools.lru_cache(maxsize=64)
+def _sk_tables(qs_src: tuple, m_sk: int, qs_dst: tuple):
+    """Host tables for the Shenoy-Kumaresan exact conversion from qs_src
+    (+) {m_sk} to qs_dst: per l the Shoup pair of (B/b_l)^-1 mod b_l and of
+    [B/b_l]_{m_sk}, the pair of B^-1 mod m_sk, per (j, l) the pair of
+    [B/b_l]_{q_j} and per j the pair of [B]_{q_j}."""
+    L = len(qs_src)
+    B = 1
+    for b in qs_src:
+        B *= b
+    btilde = np.zeros((L, 2), dtype=np.uint32)
+    for l, b in enumerate(qs_src):
+        bhat = B // b
+        btilde[l] = _shoup_pair(pow(bhat % b, b - 2, b), b)
+    sk_mat = np.zeros((L, 2), dtype=np.uint32)
+    for l, b in enumerate(qs_src):
+        sk_mat[l] = _shoup_pair((B // b) % m_sk, m_sk)
+    binv_sk = _shoup_pair(pow(B % m_sk, m_sk - 2, m_sk), m_sk)
+    K = len(qs_dst)
+    mat = np.zeros((K, L, 2), dtype=np.uint32)
+    bmod = np.zeros((K, 2), dtype=np.uint32)
+    for j, p in enumerate(qs_dst):
+        for l, b in enumerate(qs_src):
+            mat[j, l] = _shoup_pair((B // b) % p, p)
+        bmod[j] = _shoup_pair(B % p, p)
+    return btilde, sk_mat, binv_sk, mat, bmod
+
+
+def base_convert_sk(
+    x: torch.Tensor,
+    x_sk: torch.Tensor,
+    qs_src: Sequence[int],
+    m_sk: int,
+    qs_dst: Sequence[int],
+) -> torch.Tensor:
+    """Exact base conversion through the Shenoy-Kumaresan redundant modulus,
+    int64.
+
+    ``x`` (L, ..., n) are the residues mod qs_src of an integer y with
+    0 <= y < B = prod(qs_src), ``x_sk`` (..., n) the same integer's residue
+    mod m_sk.  The approximate conversion gives y + e B with 0 <= e < L;
+    the m_sk channel pins e = [(approx_sk - x_sk) B^-1]_{m_sk} exactly, so
+    the output is y mod q_j with no float step.
+    """
+    qs_src = tuple(int(q) for q in qs_src)
+    qs_dst = tuple(int(q) for q in qs_dst)
+    m_sk = int(m_sk)
+    btilde, sk_mat, binv_sk, mat, bmod = _sk_tables(qs_src, m_sk, qs_dst)
+
+    yts = [cond_sub(_shoup(x[l], btilde[l], b), b)
+           for l, b in enumerate(qs_src)]
+    diff = sub_mod(_shoup_sum(yts, sk_mat, m_sk), x_sk, m_sk)
+    e = cond_sub(_shoup(diff, binv_sk, m_sk), m_sk)  # the exact e in [0, L)
+    return torch.stack([
+        sub_mod(_shoup_sum(yts, mat[j], p), cond_sub(_shoup(e, bmod[j], p), p),
+                p)
+        for j, p in enumerate(qs_dst)
+    ])
 
 
 def _barrett_small(u: torch.Tensor, mu: int, q: int) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Scheme layer on the port's ring stack: the RNS-CKKS evaluator.
+"""Scheme layer on the port's ring stack: the RNS-CKKS, RNS-BGV and RNS-BFV
+evaluators.
 
-Counterpart of ``agilex_ntt_tpu/schemes``.  BGV and BFV, which build on
-``CKKSContext``, are not ported yet.
+Counterpart of ``agilex_ntt_tpu/schemes``.  ``BGVContext`` builds on
+``CKKSContext`` through its hooks, ``BFVContext`` on ``BGVContext``.
 """
 
+from .bfv import BFVContext
+from .bgv import BGVContext
 from .ckks import (
     CKKSContext,
     Ciphertext,
@@ -13,5 +16,5 @@ from .ckks import (
     Plaintext,
 )
 
-__all__ = ["CKKSContext", "Ciphertext", "KeySet", "LinearOp", "MatVecOp",
-           "Plaintext"]
+__all__ = ["BFVContext", "BGVContext", "CKKSContext", "Ciphertext",
+           "KeySet", "LinearOp", "MatVecOp", "Plaintext"]

@@ -18,8 +18,10 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    transforms (K1, K2), which run the multi-prime transform kernels at one
    channel, also on their other callers' tables (``TRANSFORM_MORE``:
    ``CyclicRing``'s at n = 2, 4 and 32768, the stage-shard tables of the
-   sharded ring, the four-step row pass's at 2^20 and 2^21 and the sharded
-   four-step's column tables) with each scale those callers pass; the
+   sharded ring, the four-step row pass's at 2^20 and 2^21, the sharded
+   four-step's column tables, and BGV's and BFV's plaintext rings
+   ``Ring(n, q=t)`` at (16384, 65537) and (4096, 40961)) with each scale
+   those callers pass; the
    fused polymul (K3) and polydot (K6a), which run the multi-prime polydot
    kernel at one channel, with a first operand over the lazy [0, 4q) and
    the edge words 4q - 1, q - 1 and 0, also on ``CyclicRing``'s tables at
@@ -28,7 +30,10 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    "n16384" chain (K=5 primes, batch 64, k=dnum=4), n=8192 and n=32768,
    n=32 (L=3, batch 4096) and a ragged batch: K4a, K4b, K5 and K6b at
    every launch shape of their kernels (clusters of 1, 2, 4 and 8 CTAs, 16
-   and 128 polynomials a CTA), each check line naming it.  The first rows
+   and 128 polynomials a CTA), each check line naming it; K4a and K4b also
+   on BFV's union basis of the "n16384" chain (Q + B + {m_sk}, 11
+   channels) at its tensor's launch shapes (4 x 64 and 2 x 64 forward,
+   3 x 64 inverse at the product scale).  The first rows
    are also held against the package's numpy golden model, channel by
    channel.
    Four-step (K7a, K7b, K8, K9a and K9b everywhere): n=2^16 (B=512), 2^18
@@ -88,7 +93,21 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       ciphertexts decode within the JAX tests' tolerances of numpy (their
       largest, 5e-2, where a key switch's noise is not rescaled away); a
       second context on the CPU, same seeds and calls, holds the same key
-      words, encryptions and, on the first ciphertext, every op's words.
+      words, encryptions and, on the first ciphertext, every op's words;
+   g. RNS-BGV and RNS-BFV through ``BGVContext`` and ``BFVContext`` on the
+      same chain at t = 65537 from a seed: for each, keygen (rows rotated
+      by 1, -1 and 2, the row swap), encode and encrypt of 64 ciphertexts,
+      multiply (BFV's through the HPS pipeline on the 11-channel union
+      basis), square, rescale, rotate by 1 and -1, the row swap, a
+      four-term ``apply_linear``; BGV's ``poly_eval`` in both bases at the
+      highest degree whose result lands at level 2 or above (printed),
+      BFV's ``mod_down_to``, and the BGV matvec on the "n4096" chain (L=3,
+      t = 40961) with its full 2048 x 2048 row matrix; the first
+      ciphertexts decrypted and decoded.  K1, K2 (the plaintext ring's
+      transforms), K4a, K4b and K5 must launch; the first ciphertexts of
+      every output decode exactly to numpy's slotwise results; a CPU twin
+      holds the same key words, encryptions and each op's first-ciphertext
+      words.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -114,7 +133,9 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    K11's share of their device time, the public calls' throughput, the
    key switch and the CKKS ops end to end (NTT-kernel launches a call,
    device busy and idle share by ``torch.profiler``, which must see K4a,
-   K4b and the polydot kernel in them).  One card measures the sharded path's
+   K4b and the polydot kernel in them), and the BGV and BFV ops alike, BFV's
+   multiply also stage by stage (lift, tensor, scale and return,
+   relinearization).  One card measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4``.
 
@@ -181,11 +202,13 @@ FUSED_TIMED_SHAPES = ((32768, 1024, 1), (32, 65536, 1), (16384, 256, MAIN_K),
 # polynomials a CTA) and a cluster of 8; "shard": the stage-shard tables of
 # the sharded ring's shards (Ring(SHARD_N) over SHARD_SP, every d); "row":
 # the four-step row pass's cyclic tables of Ring(n) at (B n1, n2); "col":
-# the sharded four-step's column tables of Ring(n) at its (B n2 / sp, n1)
+# the sharded four-step's column tables of Ring(n) at its (B n2 / sp, n1);
+# "plain": the BGV and BFV plaintext ring Ring(n, q=PLAIN_T[n]) at (B, n)
 TRANSFORM_MORE = (("cyclic", 2, 1 << 21), ("cyclic", 4, 1 << 20),
                   ("cyclic", 32768, 256), ("shard", 32768, 512),
                   ("row", 1 << 20, 32), ("row", 1 << 21, 16),
-                  ("col", 1 << 16, 512))
+                  ("col", 1 << 16, 512), ("plain", 16384, 64),
+                  ("plain", 4096, 64))
 GOLDEN_ROWS = 8
 DEVICE = "cuda"
 
@@ -296,6 +319,19 @@ CKKS_POLY_TOL = {"power": 2e-2, "chebyshev": 5e-2}  # tests/test_polyeval.py
 # largest atol
 CKKS_KS_TOL = 5e-2
 CKKS_DECODED = 2  # ciphertexts of each output decoded (host CRT)
+# the BGV and BFV phase (3g): the "n16384" chain at t = 65537 (t_bits=17:
+# no prime ≡ 1 mod 2^15 lies below 2^16, so the default t_bits=16 raises),
+# INT_BATCH ciphertexts, the row rotations by 1 and -1 and the row swap, a
+# linear transform of the steps INT_LIN; the BGV matvec on the "n4096"
+# chain (L = 3) at its default t = 40961 with its full 2048 x 2048 row
+# matrix and the default BSGS split
+INT_T, INT_BATCH, INT_SEED = 65537, 64, 20261020
+INT_STEPS = (1, -1, 2)
+INT_LIN = (0, 1, -1, 2)
+INT_DECODED = 2  # ciphertexts of each output decoded (host CRT)
+MV_T = 40961
+# the plaintext rings Ring(n, q=t) whose tables K1 and K2 take in phase 3g
+PLAIN_T = {KS_N: INT_T, MV_N: MV_T}
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
@@ -605,10 +641,11 @@ def ckks_path(np, CKKSContext, device, rows=None) -> dict:
             "degree": degree, "mv": mv}
 
 
-def ckks_key_words(ck) -> dict:
-    """Every key tensor of both CKKS contexts' key sets, by name."""
+def key_words(tagged) -> dict:
+    """Every key tensor of the key sets ``tagged``, (tag, KeySet) pairs, by
+    name."""
     out = {}
-    for tag, keys in (("", ck["keys"]), ("mv ", ck["mkeys"])):
+    for tag, keys in tagged:
         out[tag + "sk_rns"] = keys.sk_rns
         for name, pair in (("pk", keys.pk), ("rlk", keys.rlk),
                            ("rlk_coeff", keys.rlk_coeff)):
@@ -649,7 +686,8 @@ def ckks_same_words(torch, ck, twin) -> int:
     """Raise unless the card's keys and encryptions equal the CPU twin's, and
     every op's first ciphertext the twin's op; return the key tensors
     compared."""
-    card_keys, cpu_keys = ckks_key_words(ck), ckks_key_words(twin)
+    card_keys, cpu_keys = (key_words((("", c["keys"]), ("mv ", c["mkeys"])))
+                           for c in (ck, twin))
     if sorted(card_keys) != sorted(cpu_keys):
         raise AssertionError("the CPU twin holds other keys")
     for name, words in card_keys.items():
@@ -667,6 +705,198 @@ def ckks_same_words(torch, ck, twin) -> int:
         if (ct.level, ct.scale) != (want.level, want.scale):
             raise AssertionError(f"CKKS {name}: level or scale differs on the "
                                  "CPU")
+    return len(card_keys)
+
+
+def int_path(np, BGVContext, BFVContext, device, rows=None) -> dict:
+    """The BGV and BFV main path (phase 3g) on ``device`` through the public
+    calls: for each scheme keygen, encode and encrypt of INT_BATCH
+    ciphertexts, multiply, square, rescale, the row rotations, the row swap
+    and a four-term linear transform; BGV's ``poly_eval`` in both bases at
+    the highest degree whose result lands at level 2 or above (at level 1
+    the noise of n = 16384 with 30-bit primes and t = 65537 leaves no
+    headroom: measured on the CPU plain versions, degree 5 / Chebyshev 4
+    there does not decode), BFV's ``mod_down_to``, and the BGV matvec on
+    the "n4096" chain.  ``rows`` keeps the first ``rows`` ciphertexts for
+    the ops after encryption (the CPU twin's B = 1); on the card the first
+    INT_DECODED ciphertexts of each output are decrypted and decoded.
+    Returns the contexts, keys, inputs, outputs, decodes, the expected slots
+    and the calls (for timing)."""
+    from agilex_ntt_tpu_torch.schemes.ckks import Ciphertext
+
+    def first(ct):
+        if rows is None:
+            return ct
+        return Ciphertext(ct.c0[:, :rows], ct.c1[:, :rows], ct.level, ct.scale)
+
+    data = np.random.default_rng(INT_SEED + 1)  # slots and weights
+    S = KS_N // 2
+    t = INT_T
+    out = {"outs": {}, "calls": {}, "expect": {}, "keys": {}, "ctx": {}}
+    for scheme, C in (("BGV", BGVContext), ("BFV", BFVContext)):
+        ctx = C(KS_N, num_primes=KS_L, t=t, rng=np.random.default_rng(INT_SEED),
+                device=device)
+        keys = ctx.keygen(galois_steps=INT_STEPS)
+        out["ctx"][scheme], out["keys"][scheme] = ctx, keys
+        m1, m2 = (data.integers(0, t, (INT_BATCH, 2, S)) for _ in range(2))
+        ws = [data.integers(0, t, (2, S)) for _ in INT_LIN]
+        pt1 = ctx.encode(m1)
+        c1, c2 = ctx.encrypt(pt1, keys), ctx.encrypt(ctx.encode(m2), keys)
+        e1, e2 = first(c1), first(c2)
+        lin = ctx.make_linear_op(list(zip(INT_LIN, ws)), keys, KS_L)
+        calls = {
+            "multiply": lambda c=ctx, k=keys, a=e1, b=e2: c.multiply(a, b, k),
+            "square": lambda c=ctx, k=keys, a=e1: c.square(a, k),
+            "rotate 1": lambda c=ctx, k=keys, a=e1: c.rotate(a, 1, k),
+            "rotate -1": lambda c=ctx, k=keys, a=e1: c.rotate(a, -1, k),
+            "row swap": lambda c=ctx, k=keys, a=e1: c.conjugate(a, k),
+            "apply_linear": lambda c=ctx, a=e1, op=lin: c.apply_linear(a, op),
+        }
+        expect = {
+            "enc1": m1, "multiply": m1 * m2, "square": m1 * m1,
+            "rotate 1": np.roll(m1, -1, axis=-1),
+            "rotate -1": np.roll(m1, 1, axis=-1), "row swap": m1[:, ::-1],
+            "apply_linear": sum(w * np.roll(m1, -s_, axis=-1)
+                                for s_, w in zip(INT_LIN, ws)),
+            "rescale": m1 * m2,
+        }
+        if scheme == "BGV":
+            degree, coeffs = {}, {}
+            for basis in ("power", "chebyshev"):
+                d = 1
+                while True:  # the plan of degree d + 1, before any work
+                    try:
+                        if ctx.poly_eval_plan(KS_L, [1] * (d + 2),
+                                              basis=basis)[3] < 2:
+                            break
+                    except ValueError:
+                        break
+                    d += 1
+                degree[basis] = d
+                coeffs[basis] = [int(v) for v in data.integers(0, t, d + 1)]
+            out["degree"] = degree
+            for basis, name in (("power", "poly_eval power"),
+                                ("chebyshev", "poly_eval chebyshev")):
+                cs = coeffs[basis]
+                calls[name] = (lambda c=ctx, k=keys, a=e1, cs=cs, b=basis:
+                               c.poly_eval(a, cs, k, basis=b))
+                pw = [np.ones_like(m1), m1 % t]
+                for _ in range(2, len(cs)):
+                    pw.append((pw[-1] * m1 if basis == "power"
+                               else 2 * m1 * pw[-1] - pw[-2]) % t)
+                expect[name] = sum(cf * p_ for cf, p_ in zip(cs, pw))
+        else:
+            calls["mod_down_to 2"] = lambda c=ctx, a=e1: c.mod_down_to(a, 2)
+            expect["mod_down_to 2"] = m1
+        outs = {name: call() for name, call in calls.items()}
+        prod = outs["multiply"]
+        calls["rescale"] = lambda c=ctx, p_=prod: c.rescale(p_)
+        outs["rescale"] = calls["rescale"]()
+        # added after the outputs: a call draws from the context's generator
+        calls["encrypt"] = lambda c=ctx, k=keys, p_=pt1: c.encrypt(p_, k)
+        outs.update(enc1=c1, enc2=c2)
+        if scheme == "BFV":
+            out["bfv_operands"] = (ctx, keys, e1, e2)
+        for name, call in calls.items():
+            out["calls"][f"{scheme} {name}"] = call
+        for name, ct in outs.items():
+            out["outs"][f"{scheme} {name}"] = ct
+        for name, want in expect.items():
+            out["expect"][f"{scheme} {name}"] = (scheme, want % t)
+    # the matvec: the "n4096" chain at its default t, its full row matrix
+    MS = MV_N // 2
+    mctx = BGVContext(MV_N, num_primes=MV_L,
+                      rng=np.random.default_rng(INT_SEED + 2), device=device)
+    mkeys = mctx.keygen(galois_steps=mctx.bsgs_steps())
+    zm = data.integers(0, mctx.t, (INT_BATCH, 2, MS))
+    M = data.integers(0, mctx.t, (MS, MS))
+    mv = mctx.make_matvec(M, mkeys, MV_L)
+    cm = mctx.encrypt(mctx.encode(zm), mkeys)
+    em = first(cm)
+    out["calls"]["BGV apply_matvec"] = lambda: mctx.apply_matvec(em, mv)
+    out["outs"]["BGV apply_matvec"] = out["calls"]["BGV apply_matvec"]()
+    out["outs"]["BGV encm"] = cm
+    out["expect"]["BGV apply_matvec"] = ("matvec", (zm @ M.T) % mctx.t)
+    out["ctx"]["matvec"], out["keys"]["matvec"] = mctx, mkeys
+    out.update(mctx=mctx, mv=mv)
+    if rows is None:
+        out["decoded"] = {}
+        for name, (which, _) in out["expect"].items():
+            ct = out["outs"][name]
+            ctx, keys = out["ctx"][which], out["keys"][which]
+            head = Ciphertext(ct.c0[:, :INT_DECODED], ct.c1[:, :INT_DECODED],
+                              ct.level, ct.scale)
+            out["decoded"][name] = ctx.decode(ctx.decrypt(head, keys))
+    return out
+
+
+def bfv_stage_calls(ik) -> dict:
+    """BFV's multiply in ``int_path`` stage by stage, as calls to time: the
+    lift of the four parts, the union basis's tensor, the scale and return
+    of the three products, the relinearization and its two adds."""
+    ctx, keys, a, b = ik["bfv_operands"]
+    _, rbig = ctx._aux(KS_L)
+    lifted = [ctx._lift(c, KS_L) for c in (a.c0, a.c1, b.c0, b.c1)]
+    parts = rbig.tensor(*lifted)
+    downs = [ctx._scale_down(d, KS_L) for d in parts]
+    r = ctx.ring(KS_L)
+
+    def relinearize():
+        hs = ctx._keyswitch_pair(downs[2], ctx._key_pair(keys), KS_L, 1)
+        return r.add(downs[0], hs[0]), r.add(downs[1], hs[1])
+
+    return {
+        "BFV multiply: lift": lambda: [ctx._lift(c, KS_L)
+                                       for c in (a.c0, a.c1, b.c0, b.c1)],
+        "BFV multiply: tensor": lambda: rbig.tensor(*lifted),
+        "BFV multiply: scale and return": lambda: [ctx._scale_down(d, KS_L)
+                                                   for d in parts],
+        "BFV multiply: relinearize": relinearize,
+    }
+
+
+def int_decoded(np, torch, ik) -> None:
+    """Raise unless every output of ``int_path`` has its shape and its first
+    INT_DECODED ciphertexts decode exactly to numpy's slotwise result."""
+    for name, (which, want) in ik["expect"].items():
+        ct, ctx = ik["outs"][name], ik["ctx"][which]
+        if ct.c0.dtype != torch.uint32 or tuple(ct.c0.shape) != (
+                ct.level, INT_BATCH, ctx.n):
+            raise AssertionError(f"{name}: {ct.c0.dtype} {tuple(ct.c0.shape)} "
+                                 f"at level {ct.level}")
+        got = ik["decoded"][name]
+        bad = int((got != want[:INT_DECODED]).sum())
+        log(f"  {name:24s} level {ct.level}, scale {ct.scale}: {bad} of "
+            f"{got.size} slots differ from numpy ({INT_DECODED} of "
+            f"{INT_BATCH} ciphertexts decoded)")
+        if bad:
+            raise AssertionError(f"{name} does not decode to numpy's slots")
+
+
+def int_same_words(torch, ik, twin) -> int:
+    """Raise unless the card's keys and encryptions equal the CPU twin's, and
+    every op's first ciphertext the twin's op; return the key tensors
+    compared."""
+    card_keys, cpu_keys = (key_words((f"{which} ", keys)
+                                     for which, keys in c["keys"].items())
+                           for c in (ik, twin))
+    if sorted(card_keys) != sorted(cpu_keys):
+        raise AssertionError("the BGV/BFV CPU twin holds other keys")
+    for name, words in card_keys.items():
+        if not torch.equal(words.cpu(), cpu_keys[name]):
+            raise AssertionError(f"key {name}: the card's words differ from "
+                                 "the CPU plain versions'")
+    for name, ct in ik["outs"].items():
+        want = twin["outs"][name]
+        enc = name.split()[1].startswith("enc")
+        rows = slice(None) if enc else slice(0, 1)
+        for part in ("c0", "c1"):
+            if not torch.equal(getattr(ct, part)[:, rows].cpu(),
+                               getattr(want, part)):
+                raise AssertionError(f"{name}.{part}: the card's words differ "
+                                     "from the CPU plain versions'")
+        if (ct.level, ct.scale) != (want.level, want.scale):
+            raise AssertionError(f"{name}: level or scale differs on the CPU")
     return len(card_keys)
 
 
@@ -850,6 +1080,9 @@ def main() -> int:
         if what == "cyclic":
             t = CyclicRing(n, device=dev).tables
             return [(f"cyclic n={n}", t, batch, (None, t.polymul_scale))]
+        if what == "plain":
+            t = Ring(n, q=PLAIN_T[n], device=dev).tables
+            return [(f"plaintext ring n={n} q={t.q}", t, batch, (None,))]
         ring_ = Ring(n, device=dev)
         if what == "shard":
             return [(f"shard {d} of {SHARD_SP}, n={n}",
@@ -955,6 +1188,32 @@ def main() -> int:
         del a, b, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+    # K4a and K4b on BFV's union basis Q + B + {m_sk} of the n16384 chain at
+    # its top level (11 channels) at the tensor's launch shapes: the forward
+    # transform of the four lifted parts, the inverse of the three products
+    # at polymul_scale, and the square's forward of two
+    from agilex_ntt_tpu_torch.schemes import BFVContext
+
+    _, ubig = BFVContext(KS_N, KS_L, t=INT_T, device=dev)._aux(KS_L)
+    utabs = ubig.tables
+    gen = torch.Generator(dev).manual_seed(KS_N + ubig.L)
+    for parts in (4, 2):
+        x = channels(gen, ubig.qs, 4, (parts * INT_BATCH, KS_N))
+        compare("fwd_rns", K.fwd_ntt_rns(x.to(torch.uint32), utabs),
+                P.fwd_ntt_rns_plain(x, utabs),
+                f"BFV union L={ubig.L} B={parts}x{INT_BATCH} n={KS_N} "
+                f"{rns_shape(utabs, 'fwd_rns', parts * INT_BATCH)}")
+        del x
+    y = channels(gen, ubig.qs, 2, (3 * INT_BATCH, KS_N))
+    compare("inv_rns", K.inv_ntt_rns(y.to(torch.uint32), utabs,
+                                     scales=utabs.polymul_scale),
+            P.inv_ntt_rns_plain(y, utabs, utabs.polymul_scale),
+            f"BFV union L={ubig.L} B=3x{INT_BATCH} n={KS_N} "
+            f"{rns_shape(utabs, 'inv_rns', 3 * INT_BATCH)} polymul_scale")
+    del y, ubig, utabs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # the four-step kernels, at the shapes of the four-step path
     def tiled(v, ft):
@@ -1503,6 +1762,44 @@ def main() -> int:
         f"first ciphertext equal the CPU plain versions' word for word (CPU "
         f"twin {twin_s:.1f} s); phase 3f took {time.perf_counter() - t3f:.1f} s")
     del twin
+
+    # -- 3g. RNS-BGV and RNS-BFV on the n16384 chain, counted ------------------
+    from agilex_ntt_tpu_torch.schemes import BGVContext
+
+    t3g = time.perf_counter()
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    ik = int_path(np, BGVContext, BFVContext, dev)
+    torch.cuda.synchronize()
+    int_s = time.perf_counter() - t0
+    int_launches = dict(K.LAUNCHES)
+    log(f"main path: BGVContext and BFVContext({KS_N}, L={KS_L}, t={INT_T}) "
+        f"keygen (steps {INT_STEPS}), encode + encrypt of 2 x {INT_BATCH} "
+        f"ciphertexts, multiply, square, rescale, rotate 1 and -1, the row "
+        f"swap, apply_linear over {INT_LIN}; BGV poly_eval power (degree "
+        f"{ik['degree']['power']}) and chebyshev (degree "
+        f"{ik['degree']['chebyshev']}); BFV mod_down_to; BGVContext({MV_N}, "
+        f"L={MV_L}, t={ik['mctx'].t}) keygen, make_matvec ({ik['mv'].b} x "
+        f"{ik['mv'].g}) and apply_matvec; decrypt and decode of the first "
+        f"{INT_DECODED} ciphertexts of each output, in {int_s:.3f} s (host "
+        f"clock); launches { {k: v for k, v in int_launches.items() if v} }")
+    missing = [key for key in ("fwd", "inv", "fwd_rns", "inv_rns",
+                               "polymul_rns") if int_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"the BGV/BFV path launched no {missing} kernel")
+    int_decoded(np, torch, ik)
+    t0 = time.perf_counter()
+    itwin = int_path(np, BGVContext, BFVContext, "cpu", rows=1)
+    itwin_s = time.perf_counter() - t0
+    n_keys = int_same_words(torch, ik, itwin)
+    log(f"BGV/BFV path: {len(ik['expect'])} outputs decode exactly to numpy's "
+        f"slotwise results; {n_keys} key tensors, the encryptions and every "
+        f"op's first ciphertext equal the CPU plain versions' word for word "
+        f"(CPU twin {itwin_s:.1f} s); phase 3g took "
+        f"{time.perf_counter() - t3g:.1f} s")
+    del itwin
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -1644,7 +1941,7 @@ def main() -> int:
     # a kernel's launches over every path of phase 3 (the flat path's are
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
-             "3e": slice_launches, "3f": ckks_launches}
+             "3e": slice_launches, "3f": ckks_launches, "3g": int_launches}
     for key, (what, _) in ONE_KERNELS.items():
         log(f"{what} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))
@@ -1993,6 +2290,26 @@ def main() -> int:
             f"per ciphertext, {sum(ntt_launches.values())} NTT-kernel "
             f"launches {ntt_launches}")
     log(f"  (timed in {time.perf_counter() - t_ck:.1f} s)")
+    # the BGV and BFV ops alike; BFV's multiply also stage by stage
+    log(f"BGV and BFV ops end to end on {card} (n={KS_N}, L={KS_L}, "
+        f"t={INT_T}, batch {INT_BATCH}; the matvec n={MV_N}, L={MV_L}, "
+        f"t={ik['mctx'].t}; CUDA events, median of 3 calls; launches of the "
+        f"NTT kernels a call):")
+    t_int, int_ms = time.perf_counter(), {}
+    ik["calls"].update(bfv_stage_calls(ik))
+    for what, call in ik["calls"].items():
+        ms = cuda_time_ms(call, warmup=1, reps=3, inner=1)
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        call()
+        torch.cuda.synchronize()
+        ntt_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        int_ms[what] = ms
+        log(f"  {what:30s} {ms:.4f} ms per call, {ms / INT_BATCH * 1e3:.3f} "
+            f"us per ciphertext, {sum(ntt_launches.values())} NTT-kernel "
+            f"launches {ntt_launches}")
+    log(f"  (timed in {time.perf_counter() - t_int:.1f} s)")
     log("where the key switch's device time goes (torch.profiler, one call):")
     device_breakdown(torch, lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
                      "keyswitch coeff keys", call_ms["keyswitch coeff keys"])
@@ -2126,8 +2443,28 @@ def main() -> int:
             if what.startswith("one"):
                 xchg_ms[key] = ms
     del grp, cps, outs
-    # last: the matvec's profile holds some 76000 kernel launches, and the
-    # profiler recorded no device time in the sessions after it
+    # before the CKKS profiles, the matvecs' last: a matvec's profile holds
+    # 76000-92000 kernel launches
+    log("where the BGV and BFV ops' device time goes (torch.profiler, one "
+        "call; kernel launches of every kind):")
+    t_int, int_kernels = time.perf_counter(), set()
+    for what, call in ik["calls"].items():
+        if what != "BGV apply_matvec":
+            int_kernels.update(device_breakdown(torch, call, what,
+                                                int_ms[what], top=3))
+    log(f"  (profiled in {time.perf_counter() - t_int:.1f} s)")
+    # K1 and K2 launch the kernels of K4a and K4b at one channel: the
+    # profiler cannot tell them apart (the counters do, in phase 3g)
+    want_kernels = (RNS_KERNELS["fwd_rns"][1], RNS_KERNELS["inv_rns"][1],
+                    DOT_KERNEL)
+    if int_kernels:
+        seen = [name for name in want_kernels
+                if any(name in k for k in int_kernels)]
+        log(f"  the BGV and BFV calls run {seen} (torch.profiler)")
+        if len(seen) != len(want_kernels):
+            raise AssertionError("the profiler saw no "
+                                 f"{set(want_kernels) - set(seen)} in the BGV "
+                                 "and BFV calls")
     log("where the CKKS ops' device time goes (torch.profiler, one call; "
         "kernel launches of every kind):")
     t_ck, ckks_kernels = time.perf_counter(), set()
@@ -2144,6 +2481,8 @@ def main() -> int:
         if len(seen) != len(want_kernels):
             raise AssertionError(f"the profiler saw no {set(want_kernels) - set(seen)} "
                                  "in the CKKS calls")
+    device_breakdown(torch, ik["calls"]["BGV apply_matvec"], "BGV apply_matvec",
+                     int_ms["BGV apply_matvec"], top=3)
     # the kernels line gives K11 its device time at the whole shard
     for row in rows:
         for key, ms in xchg_ms.items():

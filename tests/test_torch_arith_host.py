@@ -592,7 +592,8 @@ def _cluster_bodies_match_plain(so):
     ``fwd_ntt_rns_plain``/``inv_ntt_rns_plain``; the same bodies at one
     channel as K1 and K2 launch them, on single-prime negacyclic, cyclic,
     stage-shard and four-step row and column tables with their callers'
-    scales, against ``fwd_ntt_plain``/``inv_ntt_plain``; K12's body on
+    scales, and on BGV's and BFV's plaintext rings (q = 65537 and 40961),
+    against ``fwd_ntt_plain``/``inv_ntt_plain``; K12's body on
     ``make_dit_tables``' cyclic tables and post row at n = 8, 256 and 1024,
     one CTA a polynomial, clusters of 2 and 4 and several polynomials a
     CTA, ragged last units, inputs at 2q - 1, 0 and random on quarters,
@@ -813,6 +814,14 @@ def _cluster_bodies_match_plain(so):
             for logt in logts:
                 one.append((("cyclic" if cyclic else "ring", n), rt, logt,
                             batch, (None, rt.polymul_scale, 1)))
+    # BGV's and BFV's plaintext rings, Ring(n, q=t): t = 65537 (the n = 16384
+    # chain's) and 40961 (the n = 4096 chain's), far below the 30-bit primes
+    for n, logts, batch in ((8, (0, 3), 7), (256, (2, 6), 5), (1024, (4, 7), 3)):
+        for q in (65537, 40961):
+            rt = P.make_tables(make_params(n, q), "cpu")
+            for logt in logts:
+                one.append((("plaintext ring", n, q), rt, logt, batch,
+                            (None, rt.polymul_scale, 1)))
     params = make_params(1024, find_primes(1024, 1)[0])
     for d in range(4):
         st = SS._shard_tables(params, 4, d, torch.device("cpu"))

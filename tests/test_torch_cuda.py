@@ -649,3 +649,109 @@ def test_evaluator_ring_methods_on_the_card_match_the_cpu(cuda, n, lead):
     got = card.polydot_multi(a, ws)
     assert tuple(got.shape) == (2, 3) + lead + (n,)
     assert torch.equal(got.cpu(), cpu.polydot_multi(a.cpu(), ws.cpu()))
+
+
+def _int_twins(cuda, scheme, seed, steps):
+    """A BGV or BFV context on the card and one on the CPU from the same
+    seed (n = 256, L = 3), with their key sets."""
+    from agilex_ntt_tpu_torch.schemes import BFVContext, BGVContext
+
+    out = []
+    for device in (cuda, "cpu"):
+        ctx = (BGVContext if scheme == "bgv" else BFVContext)(
+            256, 3, rng=np.random.default_rng(seed), device=device)
+        out.append((ctx, ctx.keygen(galois_steps=steps)))
+    return out
+
+
+def _int_ops_match(cuda, scheme, seed):
+    """Keys, encryptions and every op of ``scheme`` on the card equal the
+    CPU plain versions word for word, and decode exactly; the plaintext
+    ring's transforms run K1 and K2, the evaluator K4a, K4b and K5.
+    Returns the twins."""
+    before = dict(K.LAUNCHES)
+    (gctx, gkeys), (cctx, ckeys) = _int_twins(cuda, scheme, seed, (1, -1))
+    assert gctx.tring.device.type == "cuda"
+    for name in ("sk_rns", "pk", "rlk", "rlk_coeff"):
+        g, c = getattr(gkeys, name), getattr(ckeys, name)
+        for gv, cv in (zip(g, c) if isinstance(g, tuple) else ((g, c),)):
+            assert torch.equal(gv.cpu(), cv), name
+    for elt, pair in gkeys.gk.items():
+        for g, c in zip(pair, ckeys.gk[elt]):
+            assert torch.equal(g.cpu(), c), elt
+    rng = np.random.default_rng(seed + 1)
+    m1, m2 = (rng.integers(0, gctx.t, (3, 2, 128)) for _ in range(2))
+    w = rng.integers(0, gctx.t, (2, 128))
+    g1, g2 = (gctx.encrypt(gctx.encode(m), gkeys) for m in (m1, m2))
+    c1, c2 = (cctx.encrypt(cctx.encode(m), ckeys) for m in (m1, m2))
+    _same_ct(g1, c1)
+    mul_pt = "encode_mul" if scheme == "bfv" else "encode"
+    t = gctx.t
+    for op, want in (
+            (lambda x, a, b, k: x.multiply(a, b, k), m1 * m2),
+            (lambda x, a, b, k: x.rescale(x.square(a, k)), m1 * m1),
+            (lambda x, a, b, k: x.rotate(x.mod_down_to(a, 2), 1, k),
+             np.roll(m1, -1, axis=-1)),
+            (lambda x, a, b, k: x.conjugate(a, k), m1[..., ::-1, :]),
+            (lambda x, a, b, k: x.add_plain(x.sub(a, b), x.encode(m2)), m1),
+            (lambda x, a, b, k: x.mul_plain(x.negate(a),
+                                            getattr(x, mul_pt)(w)), -m1 * w),
+            (lambda x, a, b, k: x.apply_linear(a, x.make_linear_op(
+                [(0, w), (-1, w)], k, 3)),
+             w * m1 + w * np.roll(m1, 1, axis=-1))):
+        got = op(gctx, g1, g2, gkeys)
+        _same_ct(got, op(cctx, c1, c2, ckeys))
+        np.testing.assert_array_equal(gctx.decode(gctx.decrypt(got, gkeys)),
+                                      want % t)
+    for key in ("fwd", "inv", "fwd_rns", "inv_rns", "polymul_rns"):
+        assert K.LAUNCHES[key] > before[key], key
+    return (gctx, gkeys, g1), (cctx, ckeys, c1)
+
+
+def test_bgv_on_the_card_matches_the_cpu(cuda):
+    """BGV at n = 256, L = 3: the ops above; then ``poly_eval`` in both
+    bases at L = 6 (tests/test_polyeval.py's BGV size), word for word and
+    exact mod t."""
+    from agilex_ntt_tpu_torch.schemes import BGVContext
+
+    _int_ops_match(cuda, "bgv", 41)
+    twins = []
+    for device in (cuda, "cpu"):
+        ctx = BGVContext(256, 6, rng=np.random.default_rng(45), device=device)
+        keys = ctx.keygen()
+        m = np.random.default_rng(46).integers(0, ctx.t, (2, 128))
+        twins.append((ctx, keys, ctx.encrypt(ctx.encode(m), keys)))
+    (gctx, gkeys, g), (cctx, ckeys, c) = twins
+    _same_ct(g, c)
+    t = gctx.t
+    for coeffs, basis in (([3, 7, 1, 5], "power"), ([3, 1, 7, 2], "chebyshev")):
+        got = gctx.poly_eval(g, coeffs, gkeys, basis=basis)
+        _same_ct(got, cctx.poly_eval(c, coeffs, ckeys, basis=basis))
+        # T_0 = 1, T_1 = m, T_k = 2 m T_{k-1} - T_{k-2}, all mod t
+        powers = [np.ones_like(m), m % t]
+        for _ in range(2, len(coeffs)):
+            powers.append((powers[-1] * m if basis == "power"
+                           else 2 * m * powers[-1] - powers[-2]) % t)
+        want = sum(cf * pw for cf, pw in zip(coeffs, powers)) % t
+        np.testing.assert_array_equal(gctx.decode(gctx.decrypt(got, gkeys)),
+                                      want)
+
+
+def test_bfv_on_the_card_matches_the_cpu(cuda):
+    """BFV at n = 256, L = 3: the ops above, with the HPS multiply's
+    stages (the lift, the 6-prime union basis's tensor on K4a/K4b, the
+    scale and round, the Shenoy-Kumaresan return) and ``mod_down_to``."""
+    (gctx, gkeys, g1), (cctx, ckeys, c1) = _int_ops_match(cuda, "bfv", 43)
+    _, rbig = gctx._aux(3)
+    assert rbig.device.type == "cuda" and rbig.tables is not None
+    for lift_g, lift_c in zip((gctx._lift(g1.c0, 3), gctx._lift(g1.c1, 3)),
+                              (cctx._lift(c1.c0, 3), cctx._lift(c1.c1, 3))):
+        assert torch.equal(lift_g.cpu(), lift_c)
+    parts = rbig.tensor_square(gctx._lift(g1.c0, 3), gctx._lift(g1.c1, 3))
+    cparts = cctx._aux(3)[1].tensor_square(cctx._lift(c1.c0, 3),
+                                           cctx._lift(c1.c1, 3))
+    for d, cd in zip(parts, cparts):
+        assert torch.equal(d.cpu(), cd)
+        assert torch.equal(gctx._scale_down(d, 3).cpu(),
+                           cctx._scale_down(cd, 3))
+    _same_ct(gctx.mod_down_to(g1, 1), cctx.mod_down_to(c1, 1))

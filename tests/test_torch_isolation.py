@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of it and running its
 command-line check, single- and multi-prime, the DIT inverse and the
-sharded ring, loads neither JAX nor the JAX package; and its CKKS evaluator
-runs a key generation, an encryption and a multiply in an interpreter where
-importing either raises."""
+sharded ring, loads neither JAX nor the JAX package; and its CKKS, BGV and
+BFV evaluators run a key generation, an encryption and a multiply in an
+interpreter where importing either raises."""
 
 import subprocess
 import sys
@@ -22,6 +22,7 @@ from agilex_ntt_tpu_torch.parallel import (
 )
 from agilex_ntt_tpu_torch.utils import crt, profiling
 from agilex_ntt_tpu_torch import schemes
+from agilex_ntt_tpu_torch.schemes import bfv, bgv, ckks
 from agilex_ntt_tpu_torch.__main__ import main
 main(["256", "4", "--device", "cpu"])
 main(["256", "4", "--rns", "3", "--device", "cpu"])
@@ -84,6 +85,15 @@ ct = ctx.encrypt(ctx.encode(z), keys)
 out = ctx.rescale(ctx.multiply(ct, ct, keys))
 err = np.abs(ctx.decode(ctx.decrypt(out, keys)) - z * z).max()
 print("CKKS", out.level, err < 1e-3)
+from agilex_ntt_tpu_torch.schemes import BFVContext, BGVContext
+for ctx in (BGVContext(64, 2, rng=np.random.default_rng(2), device="cpu"),
+            BFVContext(64, 2, rng=np.random.default_rng(3), device="cpu")):
+    keys = ctx.keygen()
+    m = np.arange(64).reshape(2, 32) % ctx.t
+    ct = ctx.encrypt(ctx.encode(m), keys)
+    out = ctx.rescale(ctx.multiply(ct, ct, keys))
+    print(type(ctx).__name__, out.level,
+          (ctx.decode(ctx.decrypt(out, keys)) == m * m % ctx.t).all())
 """
 
 
@@ -95,3 +105,5 @@ def test_ckks_runs_with_jax_and_the_jax_package_blocked():
     assert proc.returncode == 0, proc.stderr
     assert "BLOCKED jax is blocked" in proc.stdout
     assert "CKKS 1 True" in proc.stdout, proc.stdout
+    assert "BGVContext 1 True" in proc.stdout, proc.stdout
+    assert "BFVContext 1 True" in proc.stdout, proc.stdout
