@@ -1,12 +1,16 @@
-"""Batch (dp) and coefficient (sp) sharding over a mesh of devices.
+"""Batch (dp), coefficient (sp) and prime-channel (ch) sharding over a mesh
+of devices.
 
 Counterpart of ``agilex_ntt_tpu/parallel`` for one process driving every
 device of the mesh (``make_mesh(devices=...)``; a device may repeat, so the
 sharded paths also run on one card): ``ShardedRing``, the stage-sharded
-transform whose cross stages run on the exchange kernel K11, and the
-four-step sharded transform.
+transform whose cross stages run on the exchange kernel K11, the four-step
+sharded transform, and ``ShardedRNSRing`` with the channel x coefficient
+four-step transform (``chsp.py``).
 """
 
 from .fourstep_shard import fourstep_sharded_fwd, fourstep_sharded_inv
-from .mesh import Mesh, ShardedRing, dp_shard_batch, make_mesh
+from .mesh import (
+    Mesh, ShardedRing, ShardedRNSRing, dp_shard_batch, make_mesh,
+)
 from .stage_shard import stage_sharded_fwd, stage_sharded_inv

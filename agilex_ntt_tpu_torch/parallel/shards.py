@@ -10,6 +10,11 @@ so a composition (``ShardedRing.polymul``) keeps each block on its device
 between steps; ``split`` and ``join`` are the only moves to and from the
 global tensor.
 
+The residues (L, B, ..., n) of a sharded RNS ring add the channel axis
+(ch): a channel grid ``grid[c][i][d]`` holds channel block c, rows block i
+and coefficient block d on the mesh device at ch = c, dp = i, sp = d
+(``split_channels``, ``join_channels``).
+
 Data movement runs on int32 views of the uint32 words: PyTorch's CUDA
 copies, ``cat`` and gathers cover int32 everywhere.
 """
@@ -50,24 +55,27 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint32)
 
 
-def as_u32(x, device: torch.device) -> torch.Tensor:
+def as_u32(x, device: torch.device, axis: int = 0) -> torch.Tensor:
     """x as a ``torch.uint32`` tensor on ``device``: a tensor, a numpy array,
-    or a sequence of row blocks (``dp_shard_batch``), joined in order."""
+    or a sequence of row blocks (``dp_shard_batch``), joined in order along
+    the batch axis ``axis`` (1 for (L, B, n) residues)."""
     if isinstance(x, (list, tuple)):
-        return u32(torch.cat([words(as_u32(b, device)) for b in x], dim=0))
+        return u32(torch.cat([words(as_u32(b, device)) for b in x], dim=axis))
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x, dtype=np.uint32, copy=True))
     return x.to(device=device, dtype=torch.uint32)
 
 
-def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
-    """x with zero rows appended up to a multiple of ``multiple`` rows."""
-    pad = (-x.shape[0]) % multiple
+def pad_rows(x: torch.Tensor, multiple: int, axis: int = 0) -> torch.Tensor:
+    """x with zero rows appended along ``axis`` (the batch axis: 0 for
+    (B, n), 1 for (L, B, n)) up to a multiple of ``multiple`` rows."""
+    pad = (-x.shape[axis]) % multiple
     if not pad:
         return x
-    zeros = torch.zeros((pad,) + tuple(x.shape[1:]), dtype=torch.int32,
-                        device=x.device)
-    return u32(torch.cat([words(x), zeros], dim=0))
+    shape = list(x.shape)
+    shape[axis] = pad
+    zeros = torch.zeros(shape, dtype=torch.int32, device=x.device)
+    return u32(torch.cat([words(x), zeros], dim=axis))
 
 
 def split(x: torch.Tensor, devices) -> Grid:
@@ -96,6 +104,67 @@ def join(grid: Grid, device: torch.device, rows: Optional[int] = None) -> torch.
     return u32(full if rows is None else full[:rows])
 
 
+def channel_devices(mesh, ch_axis: Optional[str], dp_axis: Optional[str],
+                    sp_axis: Optional[str]):
+    """devices[c][i][d]: the mesh device at ch = c, dp = i, sp = d."""
+    return [
+        [
+            [
+                mesh.device(**{a: v for a, v in
+                               ((ch_axis, c), (dp_axis, i), (sp_axis, d)) if a})
+                for d in range(axis_size(mesh, sp_axis))
+            ]
+            for i in range(axis_size(mesh, dp_axis))
+        ]
+        for c in range(axis_size(mesh, ch_axis))
+    ]
+
+
+def split_channels(x: torch.Tensor, devices) -> List[Grid]:
+    """Cut (L, B, ..., n) into the channel grid of ``devices``
+    (``channel_devices``): block [c][i][d] holds channel block c, rows
+    block i and coefficient block d, contiguous on its device.  L must
+    divide by the ch size, B by the dp size, n by the sp size."""
+    chans = x.shape[0] // len(devices)
+    rows = x.shape[1] // len(devices[0])
+    cols = x.shape[-1] // len(devices[0][0])
+    w = words(x)
+    return [
+        [
+            [
+                u32(w[c * chans:(c + 1) * chans, i * rows:(i + 1) * rows, ...,
+                      d * cols:(d + 1) * cols].to(dev).contiguous())
+                for d, dev in enumerate(row)
+            ]
+            for i, row in enumerate(plane)
+        ]
+        for c, plane in enumerate(devices)
+    ]
+
+
+def join_channels(grid, device: torch.device,
+                  rows: Optional[int] = None) -> torch.Tensor:
+    """The global (L, B, ..., n) tensor of a channel grid on ``device``, its
+    first ``rows`` rows (all by default)."""
+    full = torch.cat([
+        torch.cat([
+            torch.cat([words(b).to(device) for b in row], dim=-1)
+            for row in plane
+        ], dim=1)
+        for plane in grid
+    ], dim=0)
+    return u32(full if rows is None else full[:, :rows])
+
+
+def map_channels(fn, *grids):
+    """fn(c, *blocks) block by block over equally laid-out channel grids, c
+    the channel block's index."""
+    return [
+        [[fn(c, *blocks) for blocks in zip(*rows)] for rows in zip(*planes)]
+        for c, planes in enumerate(zip(*grids))
+    ]
+
+
 def map_grid(fn, *grids: Grid) -> Grid:
     """fn applied block by block to equally laid-out grids."""
     return [[fn(*blocks) for blocks in zip(*rows)] for rows in zip(*grids)]
@@ -112,6 +181,17 @@ def tables_on(tables, device: torch.device):
             for f in dataclasses.fields(tables) if f.init
         })
     return tables
+
+
+def check_divides(shape, dim: int, size: int, axis: str) -> None:
+    """Raise as a placement on a mesh does when ``size`` (the ``axis`` axis)
+    does not divide dimension ``dim`` of ``shape``."""
+    if shape[dim] % size:
+        raise ValueError(
+            f"shard: the global size of dimension {dim} should be divisible "
+            f"by {size} (the {axis!r} axis), but it is equal to {shape[dim]} "
+            f"(full shape: {tuple(shape)})"
+        )
 
 
 def check_batch(x: torch.Tensor, dp: int, what: str) -> None:

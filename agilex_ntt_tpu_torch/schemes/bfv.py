@@ -22,8 +22,11 @@ message with no tracked factor.  What changes from ``BGVContext``:
   with Q, so ``scale`` stays 1); level alignment iterates it.
 
 Rotations, the row swap, relinearization, the linear transforms and the
-matvec are ``BGVContext``'s.  The JAX package's sharded multiply
-(``mesh=``) is not ported: ``CKKSContext`` refuses a mesh.
+matvec are ``BGVContext``'s.  With ``mesh=`` the multiply is the JAX
+package's sharded composition (``_multiply_mesh``): the lift, the union
+basis's Karatsuba on ``ShardedRNSRing.polymul``, the scale and return
+(``ShardedRNSRing.hps_scale_sk``) and the relinearization, each on the
+mesh; word for word the single-device multiply.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from ..api import RNSRing
 from ..ops import basechange
+from ..parallel.mesh import ShardedRNSRing
 from ..params import find_primes
 from .bgv import BGVContext
 from .ckks import Ciphertext, KeySet, Plaintext
@@ -181,10 +185,60 @@ class BFVContext(BGVContext):
             y[:-1], y[-1], aux[:-1], aux[-1], qs
         ).to(torch.uint32)
 
+    def _big_sharded(self, level: int) -> ShardedRNSRing:
+        """The union-basis ring Q_level ∪ B ∪ {m_sk} as a ShardedRNSRing
+        placed like the context's rings (dp/sp; the channel axis whole)."""
+        key = ("bfv_big", level)
+        r = self._sharded.get(key)
+        if r is None:
+            _, rbig = self._aux(level)
+            r = ShardedRNSRing(rbig, self.mesh, dp_axis=self.dp_axis,
+                               sp_axis=self.sp_axis)
+            self._sharded[key] = r
+        return r
+
+    def _multiply_mesh(self, a: Ciphertext, b: Optional[Ciphertext],
+                       keys: KeySet) -> Ciphertext:
+        """The HPS pipeline on the mesh, composed from the sharded ring ops:
+        the float-corrected lift, the union basis's Karatsuba on three
+        sharded polymuls (square: three products and a doubling), the HPS
+        t/Q scale and exact return (``hps_scale_sk``), the hoisted
+        relinearization.  Every stage is coefficient-pointwise or a
+        sharded transform, so the dp/sp blocks exchange nothing else."""
+        level = a.level
+        rq = self.ring(level)
+        aux, _ = self._aux(level)
+        rbig = self._big_sharded(level)
+        qs = tuple(self.qs[:level])
+
+        def lift(c):
+            ext = rq.base_convert(c, aux, correction="float")
+            return rbig.shard(torch.cat([c.to(ext.device), ext]))
+
+        a0, a1 = lift(a.c0), lift(a.c1)
+        if b is None:
+            d0 = rbig.polymul(a0, a0)
+            d2 = rbig.polymul(a1, a1)
+            x = rbig.polymul(a0, a1)
+            d1 = rbig.add(x, x)
+        else:
+            b0, b1 = lift(b.c0), lift(b.c1)
+            d0 = rbig.polymul(a0, b0)
+            d2 = rbig.polymul(a1, b1)
+            cross = rbig.polymul(rbig.add(a0, a1), rbig.add(b0, b1))
+            d1 = rbig.sub(rbig.sub(cross, d0), d2)
+        d0q, d1q, d2q = (rq.shard(rq.hps_scale_sk(d, qs, aux, self.t))
+                         for d in (d0, d1, d2))
+        hs = self._keyswitch_pair(d2q, self._key_pair(keys), level, 1)
+        return Ciphertext(rq.add(d0q, hs[0]), rq.add(d1q, hs[1]), level,
+                          Fraction(1))
+
     def _hps_multiply(self, a: Ciphertext, b: Optional[Ciphertext],
                       keys: KeySet) -> Ciphertext:
         """lift -> union-basis tensor (square when ``b`` is None) -> scale
-        and return to Q -> relinearize."""
+        and return to Q -> relinearize (on a mesh ``_multiply_mesh``)."""
+        if self.mesh is not None:
+            return self._multiply_mesh(a, b, keys)
         level = a.level
         _, rbig = self._aux(level)
         if b is None:

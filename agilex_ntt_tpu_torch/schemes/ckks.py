@@ -22,10 +22,13 @@ the same arrays serve, sliced to digit rows :l and channels (0..l-1, K-1):
 the CRT idempotents satisfy g_d ≡ g_d^(l) (mod Q_l), and the gadget
 identity only has to hold mod Q_l.
 
-The JAX package's ``mesh=`` (evaluator ops on ``ShardedRNSRing``) is not
-ported: the port has no ``ShardedRNSRing`` yet, and the constructor
-refuses a mesh.  Parameter selection, constant time and noise tracking are
-out of scope, as there.
+With ``mesh=`` the evaluator runs on ``parallel.ShardedRNSRing`` (batch
+over ``dp_axis``, coefficients over ``sp_axis``), as the JAX package's
+does: the key switches take the coefficient-domain keys
+(``rlk_coeff``/``gk_coeff``) and each step's polydot transforms its digits
+again; a ``LinearOp`` or ``MatVecOp`` is built in the coefficient domain.
+The outputs equal the single-device context's word for word.  Parameter
+selection, constant time and noise tracking are out of scope, as there.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from ..api import TPU_ONLY_ARGS, RNSRing, _refuse_unknown, _resolve_device
+from ..parallel.mesh import ShardedRNSRing
 from ..params import find_primes
 
 __all__ = [
@@ -148,7 +152,9 @@ class MatVecOp:
     baby_gs: Tuple[int, ...]        # Galois elements for j = 1..b-1
     baby_ks: Tuple[int, ...]        # interleaved (g_j, g_j)
     baby_ksks: Optional[torch.Tensor]  # (2(b-1), dnum_l, K_l, n)
-    pts: torch.Tensor               # (level, g, b, n), evaluation domain
+    pts: torch.Tensor               # diagonals: domain "ntt" (no mesh) =
+                                    # (level, g, b, n) evaluation domain;
+                                    # "coeff" (mesh) = (g, level, b, n)
     giants: Tuple[Tuple[int, torch.Tensor], ...]  # (elt, sliced key pair)
     level: int
     scale: Fraction
@@ -158,10 +164,11 @@ class MatVecOp:
 @dataclasses.dataclass
 class LinearOp:
     """A hoisted BSGS linear transform, built once for one level: the
-    weights in the extended basis and evaluation domain, and the keys."""
+    weights in the extended basis (evaluation domain; coefficient domain
+    on a mesh), and the keys."""
 
     gs: Tuple[int, ...]
-    pts: torch.Tensor               # (nk, K_l, n)
+    pts: torch.Tensor               # (nk, K_l, n), ext basis
     kb: torch.Tensor                # (nk, dnum_l, K_l, n)
     ka: torch.Tensor
     level: int
@@ -235,8 +242,12 @@ class CKKSContext:
                  NTT-friendly prime below 2^bits is P, the next L are Q).
     rng:         numpy Generator for all sampling (keygen, encryption).
     error_std:   rounded-gaussian error width.
-    mesh, dp_axis, sp_axis: the JAX package's sharded evaluator and its
-                 axes; not ported (a mesh raises ``NotImplementedError``).
+    mesh:        optional ``parallel.Mesh``: evaluator ops then run on
+                 ``ShardedRNSRing`` (batch over ``dp_axis``, coefficients
+                 over ``sp_axis``), word for word the single-device path.
+                 Ciphertexts carry exactly one batch dim (level, B, n);
+                 ``place`` puts them on the mesh.  Keygen, encode, encrypt
+                 and decrypt stay on the base rings.
     device:      ``None`` for the current CUDA device, or ``"cpu"`` for the
                  plain versions.
     ring_kwargs: forwarded to every ``RNSRing`` (``method``, ``psi``,
@@ -264,11 +275,6 @@ class CKKSContext:
         device=None,
         **ring_kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "CKKSContext(mesh=...) runs on ShardedRNSRing, which the port "
-                "does not have yet; pass mesh=None"
-            )
         _refuse_unknown(
             "CKKSContext", [k for k in ring_kwargs if k in TPU_ONLY_ARGS]
         )
@@ -286,9 +292,13 @@ class CKKSContext:
         self.error_std = float(error_std)
         self.rng = rng if rng is not None else np.random.default_rng(0)
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self.sp_axis = sp_axis
         self._ring_kwargs = ring_kwargs
         self._rings: Dict[int, RNSRing] = {}
         self._ext: Dict[int, RNSRing] = {}
+        self._sharded: Dict[object, ShardedRNSRing] = {}
         self._key_slices: Dict[tuple, tuple] = {}
 
     # -- bases ------------------------------------------------------------
@@ -304,14 +314,27 @@ class CKKSContext:
             self._rings[level] = r
         return r
 
-    def ring(self, level: int) -> RNSRing:
-        """The ring the evaluator dispatches to: the base ring (the JAX
-        package's sharded wrapper under a mesh is not ported)."""
-        return self.base_ring(level)
+    def ring(self, level: int):
+        """The ring the evaluator dispatches to: the base ring, or its
+        ``ShardedRNSRing`` when the context has a mesh."""
+        if self.mesh is None:
+            return self.base_ring(level)
+        r = self._sharded.get(level)
+        if r is None:
+            r = ShardedRNSRing(
+                self.base_ring(level), self.mesh,
+                dp_axis=self.dp_axis, sp_axis=self.sp_axis,
+            )
+            self._sharded[level] = r
+        return r
 
     def place(self, ct: Ciphertext) -> Ciphertext:
-        """The ciphertext as the evaluator takes it (no mesh: itself)."""
-        return ct
+        """The ciphertext's parts placed with the mesh sharding (no mesh:
+        the ciphertext itself)."""
+        if self.mesh is None:
+            return ct
+        r = self.ring(ct.level)
+        return Ciphertext(r.shard(ct.c0), r.shard(ct.c1), ct.level, ct.scale)
 
     def ext_ring(self, level: int) -> RNSRing:
         """The extended ring at ``level`` (primes qs[:level] + (P,))."""
@@ -568,21 +591,31 @@ class CKKSContext:
         self._key_slices[ck] = (pair, out)
         return out
 
+    def _ksk_domain(self) -> dict:
+        """The key domain of the active ring's key switches: evaluation
+        domain on one device, coefficient domain (the sharded ops' only
+        one) on a mesh."""
+        return {} if self.mesh is not None else {"ksk_domain": "ntt"}
+
     def _keyswitch_pair(self, x: torch.Tensor, pair, level: int,
                         g: int) -> torch.Tensor:
         """keyswitch(tau_g(x)) against both key halves with one hoisted
-        decomposition: (2, level, ..., n), the b-half's and the a-half's."""
+        decomposition: (2, level, ..., n), the b-half's and the a-half's.
+        ``pair`` is in the domain ``_key_pair`` picks."""
         return self.ring(level).hoisted_keyswitch(
             x, self._sliced_keys(pair, level), (g, g), self.ext_ring(level),
-            level, ksk_domain="ntt", plain_mod=self._ks_plain_mod,
+            level, plain_mod=self._ks_plain_mod, **self._ksk_domain(),
         )
 
     def _key_pair(self, keys: KeySet, g: Optional[int] = None):
-        """The evaluation-domain (b, a) halves: the relinearization key when
+        """The (b, a) halves in the domain the active ring needs (evaluation
+        domain, coefficient domain on a mesh): the relinearization key when
         ``g`` is None, else the rotation key of ``g`` (None if absent)."""
+        coeff = self.mesh is not None
         if g is None:
-            return keys.rlk
-        return (keys.gk or {}).get(g)
+            return keys.rlk_coeff if coeff else keys.rlk
+        table = keys.gk_coeff if coeff else keys.gk
+        return (table or {}).get(g)
 
     def multiply(
         self, a: Ciphertext, b: Ciphertext, keys: KeySet
@@ -596,7 +629,13 @@ class CKKSContext:
                 f"level mismatch {a.level} != {b.level}; mod_down_to first"
             )
         r = self.ring(a.level)
-        d0, d1, d2 = r.tensor(a.c0, a.c1, b.c0, b.c1)
+        if self.mesh is None:
+            d0, d1, d2 = r.tensor(a.c0, a.c1, b.c0, b.c1)
+        else:  # Karatsuba on the sharded polymuls
+            d0 = r.polymul(a.c0, b.c0)
+            d2 = r.polymul(a.c1, b.c1)
+            cross = r.polymul(r.add(a.c0, a.c1), r.add(b.c0, b.c1))
+            d1 = r.sub(r.sub(cross, d0), d2)
         hs = self._keyswitch_pair(d2, self._key_pair(keys), a.level, 1)
         return Ciphertext(
             r.add(d0, hs[0]), r.add(d1, hs[1]), a.level, a.scale * b.scale
@@ -604,7 +643,13 @@ class CKKSContext:
 
     def square(self, a: Ciphertext, keys: KeySet) -> Ciphertext:
         r = self.ring(a.level)
-        d0, d1, d2 = r.tensor_square(a.c0, a.c1)
+        if self.mesh is None:
+            d0, d1, d2 = r.tensor_square(a.c0, a.c1)
+        else:
+            d0 = r.polymul(a.c0, a.c0)
+            d2 = r.polymul(a.c1, a.c1)
+            x = r.polymul(a.c0, a.c1)
+            d1 = r.add(x, x)
         hs = self._keyswitch_pair(d2, self._key_pair(keys), a.level, 1)
         return Ciphertext(
             r.add(d0, hs[0]), r.add(d1, hs[1]), a.level, a.scale * a.scale
@@ -670,11 +715,12 @@ class CKKSContext:
         scale=None,
     ) -> LinearOp:
         """sum_j diag_j * rot_{t_j}(ct) as a LinearOp: the weights encoded
-        into the extended basis and transformed once, the rotation keys
-        sliced and stacked once; ``apply_linear`` is then one
-        ``hoisted_linear_sum`` call."""
+        into the extended basis and transformed once (kept in the
+        coefficient domain on a mesh), the rotation keys sliced and stacked
+        once; ``apply_linear`` is then one ``hoisted_linear_sum`` call."""
         scale = Fraction(self.delta) if scale is None else Fraction(scale)
         ext = self.ext_ring(level)
+        domain = "coeff" if self.mesh is not None else "ntt"
         gs, pts, kbs, kas = [], [], [], []
         for t, w in terms:
             g = self.galois_element(int(t))
@@ -688,9 +734,9 @@ class CKKSContext:
             gs.append(g)
             kbs.append(sl[0])
             kas.append(sl[1])
-        pts = self.base_ring(level).ksk_to_ntt(
-            self._to_device(np.stack(pts)), ext, ch_axis=1
-        )
+        pts = self._to_device(np.stack(pts))
+        if domain == "ntt":
+            pts = self.base_ring(level).ksk_to_ntt(pts, ext, ch_axis=1)
         return LinearOp(
             gs=tuple(gs),
             pts=pts,
@@ -698,6 +744,7 @@ class CKKSContext:
             ka=torch.stack(kas),
             level=level,
             scale=scale,
+            domain=domain,
         )
 
     def _encode_weights(self, w, scale, qs) -> np.ndarray:
@@ -726,16 +773,17 @@ class CKKSContext:
             raise ValueError(
                 f"ciphertext level {ct.level} != op level {op.level}"
             )
-        if op.domain != "ntt":
+        want = "coeff" if self.mesh is not None else "ntt"
+        if op.domain != want:
             raise ValueError(
                 f"LinearOp baked for domain {op.domain!r}; this context "
-                "dispatches 'ntt' — rebuild it with make_linear_op"
+                f"dispatches {want!r} — rebuild it with make_linear_op"
             )
+        domains = {} if self.mesh is not None else {"pt_domain": "ntt"}
         o0, o1 = self.ring(ct.level).hoisted_linear_sum(
             ct.c0, ct.c1, op.pts, op.kb, op.ka, op.gs,
             self.ext_ring(ct.level), ct.level,
-            ksk_domain="ntt", pt_domain="ntt",
-            plain_mod=self._ks_plain_mod,
+            plain_mod=self._ks_plain_mod, **self._ksk_domain(), **domains,
         )
         return Ciphertext(o0, o1, ct.level, ct.scale * op.scale)
 
@@ -772,14 +820,16 @@ class CKKSContext:
             M z = sum_i rot_{i b}( sum_j rot_{i b}^{-1}(diag_{i b + j}) * rot_j(z) )
 
         An apply costs one hoisted key switch for the b - 1 baby rotations,
-        one ``polydot_multi`` for all giant steps' inner sums, and g - 1
-        giant rotations."""
+        one ``polydot_multi`` for all giant steps' inner sums (on a mesh a
+        polydot pair a giant step, the diagonals in the coefficient
+        domain), and g - 1 giant rotations."""
         S = self.n // 2
         M = self._matvec_matrix(M)
         scale = Fraction(self.delta) if scale is None else Fraction(scale)
         b, g = self.bsgs_split(S) if bsgs is None else bsgs
         if b * g < S:
             raise ValueError(f"bsgs {b}x{g} covers {b * g} < {S} diagonals")
+        domain = "coeff" if self.mesh is not None else "ntt"
         # diag_d[l] = M[l, (l+d) mod S]; pre-rotated by +i*b for the giant fold
         pts = np.zeros((g, level, b, self.n), dtype=np.uint32)
         qs_l = self.qs[:level]
@@ -815,15 +865,15 @@ class CKKSContext:
                     f"for bsgs_steps({S}, bsgs=({b}, {g}))"
                 )
             giants.append((gi, self._sliced_keys(pair, level)))
-        # the diagonals in the evaluation domain, transformed once here
-        pts_dev = self.base_ring(level).ntt(
-            self._to_device(pts).movedim(0, 1)
-        )
+        pts_dev = self._to_device(pts)
+        if domain == "ntt":
+            # the diagonals in the evaluation domain, transformed once here
+            pts_dev = self.base_ring(level).ntt(pts_dev.movedim(0, 1))
         return MatVecOp(
             b=b, g=g, baby_gs=tuple(baby_gs), baby_ks=tuple(ks),
             baby_ksks=torch.stack(kb) if kb else None,
             pts=pts_dev, giants=tuple(giants),
-            level=level, scale=scale,
+            level=level, scale=scale, domain=domain,
         )
 
     def apply_matvec(self, ct: Ciphertext, op: MatVecOp) -> Ciphertext:
@@ -832,10 +882,11 @@ class CKKSContext:
             raise ValueError(
                 f"ciphertext level {ct.level} != op level {op.level}"
             )
-        if op.domain != "ntt":
+        want = "coeff" if self.mesh is not None else "ntt"
+        if op.domain != want:
             raise ValueError(
                 f"MatVecOp baked for domain {op.domain!r}; this context "
-                "dispatches 'ntt' — rebuild it with make_matvec"
+                f"dispatches {want!r} — rebuild it with make_matvec"
             )
         r = self.ring(ct.level)
         lvl = ct.level
@@ -844,27 +895,37 @@ class CKKSContext:
         if op.baby_ksks is not None:
             hs = r.hoisted_keyswitch(
                 ct.c1, op.baby_ksks, op.baby_ks,
-                self.ext_ring(lvl), lvl, ksk_domain="ntt",
-                plain_mod=self._ks_plain_mod,
+                self.ext_ring(lvl), lvl, plain_mod=self._ks_plain_mod,
+                **self._ksk_domain(),
             )
             for t, gj in enumerate(op.baby_gs):
                 c0s.append(r.add(r.automorphism(ct.c0, gj), hs[2 * t]))
                 c1s.append(hs[2 * t + 1])
         C0 = torch.stack(c0s, dim=-2)  # (level, ..., b, n)
         C1 = torch.stack(c1s, dim=-2)
-        # both parts through one polydot_multi: the baby bundle is
-        # transformed once for all giant steps
-        inners = r.polydot_multi(torch.stack([C0, C1], dim=1), op.pts)
+        if self.mesh is None:
+            # both parts through one polydot_multi: the baby bundle is
+            # transformed once for all giant steps
+            inners = r.polydot_multi(torch.stack([C0, C1], dim=1), op.pts)
+        mid = (1,) * (C0.dim() - 3)
         out = None
         for i in range(op.g):
-            inner = Ciphertext(
-                inners[i][:, 0], inners[i][:, 1], lvl, ct.scale * op.scale,
-            )
+            if self.mesh is None:
+                inner = Ciphertext(
+                    inners[i][:, 0], inners[i][:, 1], lvl, ct.scale * op.scale,
+                )
+            else:
+                w = op.pts[i].reshape((lvl,) + mid + (op.b, self.n))
+                w = w.expand(C0.shape)
+                inner = Ciphertext(
+                    r.polydot(C0, w), r.polydot(C1, w),
+                    lvl, ct.scale * op.scale,
+                )
             if i:
                 gi, pair = op.giants[i - 1]
                 hg = r.hoisted_keyswitch(
                     inner.c1, pair, (gi, gi), self.ext_ring(lvl), lvl,
-                    ksk_domain="ntt", plain_mod=self._ks_plain_mod,
+                    plain_mod=self._ks_plain_mod, **self._ksk_domain(),
                 )
                 inner = Ciphertext(
                     r.add(r.automorphism(inner.c0, gi), hg[0]), hg[1],

@@ -33,7 +33,10 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    and 128 polynomials a CTA), each check line naming it; K4a and K4b also
    on BFV's union basis of the "n16384" chain (Q + B + {m_sk}, 11
    channels) at its tensor's launch shapes (4 x 64 and 2 x 64 forward,
-   3 x 64 inverse at the product scale).  The first rows
+   3 x 64 inverse at the product scale), and on the stacked four-step
+   column (negacyclic, n1) and cyclic row (n2) tables of a channel block
+   of ``RNSRing(2^16, 4)`` at phase 3h's block shape, the inverse with each
+   scale ``parallel/chsp.py`` passes.  The first rows
    are also held against the package's numpy golden model, channel by
    channel.
    Four-step (K7a, K7b, K8, K9a and K9b everywhere): n=2^16 (B=512), 2^18
@@ -107,7 +110,25 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       transforms), K4a, K4b and K5 must launch; the first ciphertexts of
       every output decode exactly to numpy's slotwise results; a CPU twin
       holds the same key words, encryptions and each op's first-ciphertext
-      words.
+      words;
+   h. the sharded RNS ring on one card (``make_mesh(devices=["cuda:0"] *
+      k)``): ``ShardedRNSRing`` over the "n4096" chain at dp=4 (B=2048 and a
+      remainder batch of 2047: K4a, K4b, K5, K6b a rows block), the
+      "n16384" chain (L=4) at ch=2 x dp=4 (B=64: a launch a channel block),
+      ``RNSRing(2^16, 4)`` at ch=2 x sp=2 x dp=2 (B=64, 64 MiB an operand:
+      ``parallel/chsp.py``, K4a/K4b on the four-step tables of a channel
+      block) and ``RNSRing(32768, 3)`` at dp=2 x sp=4 with both
+      ``sp_comm`` (B=256: a ``ShardedRing`` a channel, K1/K2 and K11):
+      ntt, intt, polymul, polydot (k=2), each equal word for word to the
+      unsharded ring on the card; the n16384 key switch's operands of
+      phase b at dp=4 through ``keyswitch``, ``hoisted_keyswitch``,
+      ``hoisted_linear_sum``, ``gadget_decompose``, ``mod_down`` and
+      ``hps_scale_sk``, each equal to the unsharded ring's; and CKKS, BGV
+      and BFV (t = 65537) with ``mesh=make_mesh(dp=4)`` from phases f's and
+      g's seeds, keys and first encryptions: multiply, square, rotate 1,
+      rescale and the four-term ``apply_linear``, each equal to the
+      unsharded context's words, the first ciphertexts decoding (BGV and
+      BFV exactly).
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -135,7 +156,10 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    device busy and idle share by ``torch.profiler``, which must see K4a,
    K4b and the polydot kernel in them), and the BGV and BFV ops alike, BFV's
    multiply also stage by stage (lift, tensor, scale and return,
-   relinearization).  One card measures the sharded path's
+   relinearization); phase 3h's calls beside the unsharded ones (CUDA
+   events, median of 3, launches by the counters), and the mesh
+   multiplies' device busy and idle share (``torch.profiler``).  One card
+   measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4``.
 
@@ -332,6 +356,24 @@ INT_DECODED = 2  # ciphertexts of each output decoded (host CRT)
 MV_T = 40961
 # the plaintext rings Ring(n, q=t) whose tables K1 and K2 take in phase 3g
 PLAIN_T = {KS_N: INT_T, MV_N: MV_T}
+# phase 3h: ShardedRNSRing on one card (mesh devices ["cuda:0"] * k), each
+# layout at a real size, nothing cut: (name, n, L, mesh axes,
+# ShardedRNSRing arguments, batch); the dp ring also takes the remainder
+# batch SHARD_RNS_REMAINDER; every polydot k = SHARD_RNS_K
+SHARD_RNS = (
+    ("n4096 dp=4", RNS_N, RNS_L, dict(dp=4), {}, RNS_BATCH),
+    ("n16384 ch=2 x dp=4", KS_N, KS_L, dict(ch=2, dp=4), dict(ch_axis="ch"),
+     KS_BATCH),
+    ("2^16 ch=2 x sp=2 x dp=2", 1 << 16, 4, dict(ch=2, sp=2, dp=2),
+     dict(sp_axis="sp", ch_axis="ch"), 64),
+    ("32768 dp=2 x sp=4 ppermute", 32768, 3, dict(dp=2, sp=4),
+     dict(sp_axis="sp"), 256),
+    ("32768 dp=2 x sp=4 overlap", 32768, 3, dict(dp=2, sp=4),
+     dict(sp_axis="sp", sp_comm="overlap"), 256),
+)
+SHARD_RNS_REMAINDER, SHARD_RNS_K = RNS_BATCH - 1, 2
+# the key switch and the schemes on a dp mesh of one card
+SHARD_KS_DP = 4
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
@@ -638,7 +680,7 @@ def ckks_path(np, CKKSContext, device, rows=None) -> dict:
     scales = {"poly_eval power": delta ** 2, "poly_eval chebyshev": delta ** 2}
     return {"ctx": ctx, "keys": keys, "mctx": mctx, "mkeys": mkeys,
             "outs": outs, "calls": calls, "expect": expect, "scales": scales,
-            "degree": degree, "mv": mv}
+            "degree": degree, "mv": mv, "lin_terms": list(zip(CKKS_LIN, ws))}
 
 
 def key_words(tagged) -> dict:
@@ -732,7 +774,8 @@ def int_path(np, BGVContext, BFVContext, device, rows=None) -> dict:
     data = np.random.default_rng(INT_SEED + 1)  # slots and weights
     S = KS_N // 2
     t = INT_T
-    out = {"outs": {}, "calls": {}, "expect": {}, "keys": {}, "ctx": {}}
+    out = {"outs": {}, "calls": {}, "expect": {}, "keys": {}, "ctx": {},
+           "lin_terms": {}}
     for scheme, C in (("BGV", BGVContext), ("BFV", BFVContext)):
         ctx = C(KS_N, num_primes=KS_L, t=t, rng=np.random.default_rng(INT_SEED),
                 device=device)
@@ -743,7 +786,8 @@ def int_path(np, BGVContext, BFVContext, device, rows=None) -> dict:
         pt1 = ctx.encode(m1)
         c1, c2 = ctx.encrypt(pt1, keys), ctx.encrypt(ctx.encode(m2), keys)
         e1, e2 = first(c1), first(c2)
-        lin = ctx.make_linear_op(list(zip(INT_LIN, ws)), keys, KS_L)
+        out["lin_terms"][scheme] = list(zip(INT_LIN, ws))
+        lin = ctx.make_linear_op(out["lin_terms"][scheme], keys, KS_L)
         calls = {
             "multiply": lambda c=ctx, k=keys, a=e1, b=e2: c.multiply(a, b, k),
             "square": lambda c=ctx, k=keys, a=e1: c.square(a, k),
@@ -898,6 +942,52 @@ def int_same_words(torch, ik, twin) -> int:
         if (ct.level, ct.scale) != (want.level, want.scale):
             raise AssertionError(f"{name}: level or scale differs on the CPU")
     return len(card_keys)
+
+
+def mesh_schemes(np, schemes, ck, ik, mesh, device) -> dict:
+    """Phase 3h's scheme part: CKKS, BGV and BFV contexts with ``mesh=`` at
+    phases 3f's and 3g's chain and seeds, each with the unsharded
+    context's keys and first two encryptions placed on the mesh.  Returns,
+    by name, (the mesh call, the unsharded context's output of that call,
+    the context, its keys) for multiply, square, rotate 1, rescale (of the
+    product) and the four-term apply_linear (its LinearOp built again in
+    the coefficient domain)."""
+    CKKSContext, BGVContext, BFVContext = schemes
+    out = {}
+    for scheme, C, base, keys, seed, extra in (
+        ("CKKS", CKKSContext, ck["ctx"], ck["keys"], CKKS_SEED, {}),
+        ("BGV", BGVContext, ik["ctx"]["BGV"], ik["keys"]["BGV"], INT_SEED,
+         dict(t=INT_T)),
+        ("BFV", BFVContext, ik["ctx"]["BFV"], ik["keys"]["BFV"], INT_SEED,
+         dict(t=INT_T)),
+    ):
+        ctx = C(KS_N, num_primes=KS_L, rng=np.random.default_rng(seed),
+                device=device, mesh=mesh, **extra)
+        if scheme == "CKKS":
+            outs, terms = ck["outs"], ck["lin_terms"]
+            e1, e2 = outs["enc1"], outs["enc2"]
+            square = base.square(e1, keys)
+        else:
+            outs = {name.split(" ", 1)[1]: ct for name, ct in ik["outs"].items()
+                    if name.startswith(scheme + " ")}
+            terms, e1, e2 = ik["lin_terms"][scheme], outs["enc1"], outs["enc2"]
+            square = outs["square"]
+        s1, s2 = ctx.place(e1), ctx.place(e2)
+        lin = ctx.make_linear_op(terms, keys, KS_L)
+        prod = ctx.multiply(s1, s2, keys)
+        calls = {
+            "multiply": (lambda c=ctx, k=keys, a=s1, b=s2: c.multiply(a, b, k),
+                         outs["multiply"]),
+            "square": (lambda c=ctx, k=keys, a=s1: c.square(a, k), square),
+            "rotate 1": (lambda c=ctx, k=keys, a=s1: c.rotate(a, 1, k),
+                         outs["rotate 1"]),
+            "rescale": (lambda c=ctx, p_=prod: c.rescale(p_), outs["rescale"]),
+            "apply_linear": (lambda c=ctx, a=s1, op=lin: c.apply_linear(a, op),
+                             outs["apply_linear"]),
+        }
+        for name, (call, want) in calls.items():
+            out[f"{scheme} {name}"] = (call, want, base, keys)
+    return out
 
 
 def main() -> int:
@@ -1212,6 +1302,38 @@ def main() -> int:
             f"BFV union L={ubig.L} B=3x{INT_BATCH} n={KS_N} "
             f"{rns_shape(utabs, 'inv_rns', 3 * INT_BATCH)} polymul_scale")
     del y, ubig, utabs
+    # K4a and K4b on the stacked four-step tables of a channel block
+    # (phase 3h's ch x sp path, parallel/chsp.py): the negacyclic column
+    # tables (size n1) and the cyclic row tables (size n2) of RNSRing(2^16,
+    # 4)'s first two channels, at a (ch, dp, sp) block's launch shape (32
+    # polynomials x 128 columns or rows), the inverse with the row's n2^-1
+    # and the column's scale * n2 for n^-1 and for polymul_scale
+    from agilex_ntt_tpu_torch.parallel import chsp as CS
+
+    _, h_n, h_L, h_axes, _, h_b = SHARD_RNS[2]
+    h_rings = RNSRing(h_n, h_L, device=dev).rings[: h_L // h_axes["ch"]]
+    h_plans = tuple(r.plan for r in h_rings)
+    col_t, row_t, _ = CS._tables(h_plans, dev)
+    h_rows = h_b // h_axes["dp"] * (h_plans[0].n2 // h_axes["sp"])
+    col_scales = [tuple(s_ * p_.n2 % p_.q for p_, s_ in zip(h_plans, sc))
+                  for sc in ([p_.n_inv for p_ in h_plans],
+                             [r.polymul_scale for r in h_rings])]
+    gen = torch.Generator(dev).manual_seed(h_n + h_L)
+    for what, tabs_, inv_scales in (("column", col_t, col_scales),
+                                    ("cyclic row", row_t, [None])):
+        note = (f"four-step {what} L={tabs_.L} B={h_rows} n={tabs_.n} "
+                f"{rns_shape(tabs_, 'fwd_rns', h_rows)}")
+        x = channels(gen, tabs_.qs, 4, (h_rows, tabs_.n))
+        compare("fwd_rns", K.fwd_ntt_rns(x.to(torch.uint32), tabs_),
+                P.fwd_ntt_rns_plain(x, tabs_), note)
+        y = channels(gen, tabs_.qs, 2, (h_rows, tabs_.n))
+        for sc in inv_scales:
+            compare("inv_rns", K.inv_ntt_rns(y.to(torch.uint32), tabs_,
+                                             scales=sc),
+                    P.inv_ntt_rns_plain(y, tabs_, sc),
+                    note + (f" scales {sc}" if sc else ""))
+        del x, y
+    del h_rings, h_plans, col_t, row_t
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1800,6 +1922,143 @@ def main() -> int:
         f"(CPU twin {itwin_s:.1f} s); phase 3g took "
         f"{time.perf_counter() - t3g:.1f} s")
     del itwin
+
+    # -- 3h. the sharded RNS ring and the schemes on a mesh, counted ---------
+    from agilex_ntt_tpu_torch.parallel import ShardedRNSRing
+
+    t3h = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(20261021)
+    h_rings, h_layouts = {}, []
+    for name, n_, L_, axes, skw, b_ in SHARD_RNS:
+        if (n_, L_) not in h_rings:  # the two comms share a ring
+            r_ = RNSRing(n_, L_, device=dev)
+            qs_ = r_.qs
+            ins = {  # the forward over [0, 4q), the inverse over [0, 2q)
+                "ntt": (channels(gen, qs_, 4, (b_, n_)),),
+                "intt": (channels(gen, qs_, 2, (b_, n_)),),
+                "polymul": tuple(channels(gen, qs_, 1, (b_, n_))
+                                 for _ in range(2)),
+                "polydot": tuple(channels(gen, qs_, 1, (b_, SHARD_RNS_K, n_))
+                                 for _ in range(2)),
+            }
+            ins = {op: tuple(v.to(torch.uint32) for v in vs)
+                   for op, vs in ins.items()}
+            if skw == {}:  # the dp ring: a remainder batch too
+                for op in list(ins):
+                    ins[op + " remainder"] = tuple(
+                        v[:, :SHARD_RNS_REMAINDER] for v in ins[op])
+            # the unsharded ring's words, before the counters start
+            wants = {op: getattr(r_, op.split()[0])(*vs)
+                     for op, vs in ins.items()}
+            h_rings[(n_, L_)] = (r_, ins, wants)
+        r_, ins, wants = h_rings[(n_, L_)]
+        mesh_ = make_mesh(devices=[DEVICE + ":0"] * int(np.prod(
+            list(axes.values()))), **axes)
+        h_layouts.append((name, r_, ShardedRNSRing(r_, mesh_, **skw), ins,
+                          wants))
+    # the key switch of the n16384 chain (phase 3b's operands), dp=4
+    kmesh = make_mesh(dp=SHARD_KS_DP, devices=[DEVICE + ":0"] * SHARD_KS_DP)
+    sks = ShardedRNSRing(ks_ring, kmesh)
+    sext = ShardedRNSRing(ext_ring, kmesh)
+    bfv = ik["ctx"]["BFV"]
+    hps_qs, hps_aux = bfv.qs[:KS_L], bfv._aux(KS_L)[0]
+    hd = channels(gen, tuple(hps_qs) + hps_aux, 1,
+                  (KS_BATCH, KS_N)).to(torch.uint32)
+    xe = channels(gen, ext_qs, 1, (KS_BATCH, KS_N)).to(torch.uint32)
+    lc1 = channels(gen, ks_qs, 1, (KS_BATCH, KS_N)).to(torch.uint32)
+    lpts = channels(gen, ext_qs, 1, (len(KS_STEPS), KS_N)).movedim(0, 1)
+    lka = channels(gen, ext_qs, 1, (len(KS_STEPS), dnum, KS_N)).movedim(0, 2)
+    lpts, lka = (v.to(torch.uint32).contiguous() for v in (lpts, lka))
+    ks_calls = {  # each a call on (the chain's ring, the ext basis's ring)
+        "keyswitch": lambda r, e: r.keyswitch(ks_x, ksk, ext_ring, dnum),
+        "hoisted_keyswitch": lambda r, e: r.hoisted_keyswitch(
+            ks_x, ksks, KS_STEPS, ext_ring, dnum),
+        "hoisted_linear_sum": lambda r, e: torch.stack(r.hoisted_linear_sum(
+            ks_x, lc1, lpts, ksks, lka, KS_STEPS, ext_ring, dnum)),
+        "gadget_decompose": lambda r, e: r.gadget_decompose(ks_x, ext_qs, dnum),
+        "mod_down": lambda r, e: e.mod_down(xe, 1),
+        "hps_scale_sk": lambda r, e: (
+            r.hps_scale_sk(hd, hps_qs, hps_aux, INT_T) if r is sks
+            else bfv._scale_down(hd, KS_L)),
+    }
+    ks_want = {name: call(ks_ring, ext_ring) for name, call in ks_calls.items()}
+    from agilex_ntt_tpu_torch.schemes import BGVContext, CKKSContext
+
+    smesh = make_mesh(dp=SHARD_KS_DP, devices=[DEVICE + ":0"] * SHARD_KS_DP)
+    sch = mesh_schemes(np, (CKKSContext, BGVContext, BFVContext), ck, ik,
+                       smesh, dev)
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    h_out = {(name, op): getattr(sr, op.split()[0])(*vs)
+             for name, _, sr, ins, _ in h_layouts for op, vs in ins.items()}
+    ks_out = {name: call(sks, sext) for name, call in ks_calls.items()}
+    sch_out = {name: call() for name, (call, _, _, _) in sch.items()}
+    torch.cuda.synchronize()
+    h_s = time.perf_counter() - t0
+    h_launches = dict(K.LAUNCHES)
+    log(f"main path: ShardedRNSRing on one card: "
+        + "; ".join(f"{name} (B={ins['ntt'][0].shape[1]})"
+                    for name, _, _, ins, _ in h_layouts)
+        + f", ntt, intt, polymul, polydot (k={SHARD_RNS_K}); the n16384 key "
+        f"switch (dnum={dnum}, K={ext_k}, B={KS_BATCH}) at dp={SHARD_KS_DP}: "
+        f"{', '.join(ks_calls)}; CKKS, BGV and BFV (t={INT_T}) with "
+        f"mesh=make_mesh(dp={SHARD_KS_DP}): multiply, square, rotate 1, "
+        f"rescale, apply_linear over {CKKS_LIN} / {INT_LIN}; in {h_s:.3f} s "
+        f"(host clock); launches "
+        f"{ {k: v for k, v in h_launches.items() if v} }")
+    missing = [key for key in ("fwd_rns", "inv_rns", "polymul_rns",
+                               "polydot_rns", "fwd", "inv", "xchg_fwd",
+                               "xchg_inv") if h_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"the sharded RNS path launched no {missing} "
+                             "kernel")
+    for name, _, _, ins, wants in h_layouts:
+        for op in ins:
+            if not torch.equal(h_out[(name, op)], wants[op]):
+                raise AssertionError(f"ShardedRNSRing {name} {op} differs "
+                                     "from the unsharded RNSRing's words")
+    for name, want in ks_want.items():
+        if not torch.equal(ks_out[name], want):
+            raise AssertionError(f"ShardedRNSRing.{name} (dp={SHARD_KS_DP}) "
+                                 "differs from RNSRing's words")
+    for name, (_, want, _, _) in sch.items():
+        got = sch_out[name]
+        if not (torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
+                and (got.level, got.scale) == (want.level, want.scale)):
+            raise AssertionError(f"{name} on the mesh differs from the "
+                                 "unsharded context's words")
+    # the first ciphertexts decode (BGV and BFV exactly)
+    from agilex_ntt_tpu_torch.schemes.ckks import Ciphertext
+
+    for name, (_, _, base, keys) in sch.items():
+        scheme, op = name.split(" ", 1)
+        ct = sch_out[name]
+        head = Ciphertext(ct.c0[:, :INT_DECODED], ct.c1[:, :INT_DECODED],
+                          ct.level, ct.scale)
+        got = base.decode(base.decrypt(head, keys))
+        if scheme == "CKKS":
+            if op not in ("rescale", "rotate 1"):
+                continue
+            _, _, _, want, tol = ck["expect"][op]
+            err = float(np.abs(got - want[:INT_DECODED]).max())
+            log(f"  {name} on the mesh: max error {err:.3g} (tolerance {tol})")
+            if err > tol:
+                raise AssertionError(f"{name} on the mesh does not decode")
+        else:
+            want = ik["expect"][name][1][:INT_DECODED]
+            bad = int((got != want).sum())
+            log(f"  {name} on the mesh: {bad} of {got.size} slots differ "
+                "from numpy")
+            if bad:
+                raise AssertionError(f"{name} on the mesh does not decode")
+    log(f"sharded RNS path: every ShardedRNSRing output ({len(h_out)} ring "
+        f"calls, {len(ks_out)} key-switch calls) equals the unsharded "
+        f"RNSRing's words, every scheme op on the mesh ({len(sch_out)}) the "
+        f"unsharded context's; phase 3h took {time.perf_counter() - t3h:.1f} s")
+    del h_out, ks_out, sch_out
+    torch.cuda.empty_cache()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -1941,9 +2200,10 @@ def main() -> int:
     # a kernel's launches over every path of phase 3 (the flat path's are
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
-             "3e": slice_launches, "3f": ckks_launches, "3g": int_launches}
-    for key, (what, _) in ONE_KERNELS.items():
-        log(f"{what} launches by path: " + ", ".join(
+             "3e": slice_launches, "3f": ckks_launches, "3g": int_launches,
+             "3h": h_launches}
+    for key in tuple(ONE_KERNELS) + MULTI + ("xchg_fwd", "xchg_inv"):
+        log(f"{KERNELS[key][0]} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))
     log("cluster kernels (K7a, K7b: one matrix, K8: two) and K9a's and "
         "K9b's slab kernels by matrix, and ptxas:")
@@ -2310,6 +2570,47 @@ def main() -> int:
             f"us per ciphertext, {sum(ntt_launches.values())} NTT-kernel "
             f"launches {ntt_launches}")
     log(f"  (timed in {time.perf_counter() - t_int:.1f} s)")
+    # phase 3h's calls beside the unsharded ones, each with its launches
+    log(f"the sharded RNS ring and the schemes on a mesh of one card on {card} "
+        f"(CUDA events, median of 3 calls; NTT-kernel launches a call):")
+
+    def counted(call):
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        call()
+        torch.cuda.synchronize()
+        return {k: v for k, v in K.LAUNCHES.items() if v}
+
+    h_timed = [(f"{name} {op}", lambda sr=sr, op=op, vs=vs:
+                getattr(sr, op.split()[0])(*vs),
+                lambda r_=r_, op=op, vs=vs: getattr(r_, op.split()[0])(*vs))
+               for name, r_, sr, ins, _ in h_layouts
+               for op, vs in ins.items()]
+    h_timed += [(f"n16384 key switch dp={SHARD_KS_DP} {name}",
+                 lambda call=call: call(sks, sext),
+                 lambda call=call: call(ks_ring, ext_ring))
+                for name, call in ks_calls.items()]
+
+    def unsharded(name):
+        """The unsharded context's call of a scheme op of phase 3h."""
+        scheme, op = name.split(" ", 1)
+        if scheme != "CKKS":
+            return ik["calls"][name]
+        if op == "square":  # not one of phase 3f's calls
+            return lambda: ck["ctx"].square(ck["outs"]["enc1"], ck["keys"])
+        return ck["calls"][op]
+
+    h_timed += [(f"{name} dp={SHARD_KS_DP}", call, unsharded(name))
+                for name, (call, _, _, _) in sch.items()]
+    t_h, mesh_ms = time.perf_counter(), {}
+    for what, sharded, single in h_timed:
+        base_ms = cuda_time_ms(single, warmup=1, reps=3, inner=1)
+        ms = cuda_time_ms(sharded, warmup=1, reps=3, inner=1)
+        mesh_ms[what] = ms
+        log(f"  {what:44s} unsharded {base_ms:9.4f} ms "
+            f"{counted(single)}, sharded {ms:9.4f} ms {counted(sharded)}")
+    log(f"  (timed in {time.perf_counter() - t_h:.1f} s)")
     log("where the key switch's device time goes (torch.profiler, one call):")
     device_breakdown(torch, lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
                      "keyswitch coeff keys", call_ms["keyswitch coeff keys"])
@@ -2465,6 +2766,11 @@ def main() -> int:
             raise AssertionError("the profiler saw no "
                                  f"{set(want_kernels) - set(seen)} in the BGV "
                                  "and BFV calls")
+    log("where the scheme multiplies' device time goes on the mesh of one "
+        "card (torch.profiler, one call; kernel launches of every kind):")
+    for name in ("CKKS multiply", "BGV multiply", "BFV multiply"):
+        what = f"{name} dp={SHARD_KS_DP}"
+        device_breakdown(torch, sch[name][0], what, mesh_ms[what], top=3)
     log("where the CKKS ops' device time goes (torch.profiler, one call; "
         "kernel launches of every kind):")
     t_ck, ckks_kernels = time.perf_counter(), set()

@@ -277,7 +277,10 @@ def test_guards_and_refusals(ctx, keys):
         ctx.mod_down_to(ctx.rescale(ct), ctx.L)
     with pytest.raises(ValueError, match="level mismatch"):
         ctx.multiply(ct, ctx.rescale(ct), keys)
-    with pytest.raises(NotImplementedError, match="ShardedRNSRing"):
-        BFVContext(N, 3, mesh=object(), device="cpu")
+    from agilex_ntt_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match=r"axis 'dp' not in mesh \('sp',\)"):
+        BFVContext(N, 3, mesh=make_mesh(sp=2, devices=["cpu"] * 2),
+              device="cpu").ring(3)
     with pytest.raises(ValueError, match=r"below 2\*\*16"):
         BFVContext(16384, 4, device="cpu")

@@ -216,10 +216,14 @@ def test_poly_eval_exact_against_numpy():
 
 
 def test_refusals(ctx, keys):
-    """The JAX package's errors, and the port's own: a mesh, and the
-    default t_bits at n = 16384 (no prime ≡ 1 mod 2^15 below 2^16)."""
-    with pytest.raises(NotImplementedError, match="ShardedRNSRing"):
-        BGVContext(N, 3, mesh=object(), device="cpu")
+    """The JAX package's errors: a mesh without the context's dp axis (at
+    the first op), and the default t_bits at n = 16384 (no prime ≡ 1 mod
+    2^15 below 2^16)."""
+    from agilex_ntt_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match=r"axis 'dp' not in mesh \('sp',\)"):
+        BGVContext(N, 3, mesh=make_mesh(sp=2, devices=["cpu"] * 2),
+              device="cpu").ring(3)
     with pytest.raises(ValueError, match=r"could not find 1 primes ≡ 1 mod "
                                          r"32768 below 2\*\*16"):
         BGVContext(16384, 4, device="cpu")

@@ -497,9 +497,65 @@ def test_matvec_missing_key_raises(ctx, keys, rng):
 # -- the port's own checks ------------------------------------------------------
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="ShardedRNSRing"):
-        CKKSContext(N, 3, mesh=object(), device="cpu")
+def test_mesh_matches_single_device():
+    """CKKS, BGV and BFV with ``mesh=make_mesh(dp=4)`` on four CPU devices
+    (N=256, L=3, B=8): multiply and rescale, square, rotate by 1, a
+    two-term linear transform and BFV's ``mod_down_to``, each equal word
+    for word to the port's unsharded context with the same keys (which the
+    parity flows hold to the JAX package; the JAX package's own sharded
+    tests hold its mesh flows to its single-chip ones).  A LinearOp built
+    for the other domain raises, and a mesh without the context's dp axis
+    raises at the first op, as in the JAX package."""
+    from agilex_ntt_tpu_torch.parallel import make_mesh
+    from agilex_ntt_tpu_torch.schemes import BFVContext, BGVContext
+
+    mesh = make_mesh(dp=4, devices=["cpu"] * 4)
+    batch = 8
+    rng = np.random.default_rng(43)
+    for cls in (CKKSContext, BGVContext, BFVContext):
+        one = cls(N, 3, rng=np.random.default_rng(5), device="cpu")
+        sh = cls(N, 3, rng=np.random.default_rng(5), device="cpu", mesh=mesh)
+        keys = one.keygen(galois_steps=(1,))
+        if cls is CKKSContext:
+            ms = [slots(rng, (batch, SLOTS)) for _ in range(2)]
+            ws = [slots(rng) for _ in range(2)]
+        else:
+            ms = [rng.integers(0, one.t, size=(batch, 2, SLOTS))
+                  for _ in range(2)]
+            ws = [rng.integers(0, one.t, size=(2, SLOTS)) for _ in range(2)]
+        ca, cb = (one.encrypt(one.encode(m), keys) for m in ms)
+        sa, sb = sh.place(ca), sh.place(cb)
+        terms = list(zip((0, 1), ws))
+        op1 = one.make_linear_op(terms, keys, 3)
+        op2 = sh.make_linear_op(terms, keys, 3)
+        pairs = {
+            "multiply+rescale": (one.rescale(one.multiply(ca, cb, keys)),
+                                 sh.rescale(sh.multiply(sa, sb, keys))),
+            "square": (one.square(ca, keys), sh.square(sa, keys)),
+            "rotate 1": (one.rotate(ca, 1, keys), sh.rotate(sa, 1, keys)),
+            "apply_linear": (one.apply_linear(ca, op1),
+                             sh.apply_linear(sa, op2)),
+        }
+        if cls is BFVContext:
+            pairs["mod_down_to 1"] = (one.mod_down_to(ca, 1),
+                                      sh.mod_down_to(sa, 1))
+        for name, (want, got) in pairs.items():
+            what = f"{cls.__name__} {name}"
+            assert (got.level, got.scale) == (want.level, want.scale), what
+            assert torch.equal(got.c0, want.c0), what
+            assert torch.equal(got.c1, want.c1), what
+        with pytest.raises(ValueError, match="LinearOp baked for domain "
+                                             "'ntt'; this context dispatches "
+                                             "'coeff'"):
+            sh.apply_linear(sa, op1)
+        with pytest.raises(ValueError, match="LinearOp baked for domain "
+                                             "'coeff'; this context "
+                                             "dispatches 'ntt'"):
+            one.apply_linear(ca, op2)
+    bad = CKKSContext(N, 3, device="cpu",
+                      mesh=make_mesh(sp=2, devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match=r"axis 'dp' not in mesh \('sp',\)"):
+        bad.ring(3)
 
 
 def test_tpu_only_ring_options_are_refused():

@@ -13,6 +13,7 @@ import torch
 from agilex_ntt_tpu_torch import (
     CyclicRing, Ring, RNSRing, find_primes, golden as G,
 )
+from agilex_ntt_tpu_torch.ops import basechange as B
 from agilex_ntt_tpu_torch.ops import fourstep as FS
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
@@ -495,6 +496,104 @@ def test_exchange_and_dit_kernels_match_plain(cuda):
                          sp_axis="sp")
         assert torch.equal(sr.ntt(xb), big.ntt(xb)), devices
         assert torch.equal(sr.intt(xb), big.intt(xb)), devices
+
+
+def test_sharded_rns_on_card(cuda):
+    """``ShardedRNSRing`` in every layout on ``["cuda:0"] * 8`` (and over
+    four cards where the machine has them): dp on K4a/K4b/K5/K6b a rows
+    block (a remainder batch), ch x dp a channel block each, ch x sp x dp
+    (``chsp.py``: K4a/K4b on the four-step column and cyclic row tables),
+    dp x sp stage with both ``sp_comm`` (K11) and four-step; then the key
+    switch, the mixing ops and the gadget split at dp=2.  Each output
+    equals the unsharded ring's on the card and the plain versions' (the
+    same ring on the CPU)."""
+    from agilex_ntt_tpu_torch.parallel import ShardedRNSRing, make_mesh
+
+    rng = np.random.default_rng(61)
+    meshes = [["cuda:0"] * 8]
+    if torch.cuda.device_count() >= 4:
+        meshes.append([f"cuda:{i % 4}" for i in range(8)])
+    rns_ops = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
+    layouts = (  # (n, L, ring arguments, mesh axes, ShardedRNSRing
+                 # arguments, batch, the kernels that must launch)
+        (256, 3, {}, dict(dp=8), {}, 13, rns_ops),
+        (256, 4, {}, dict(ch=4, dp=2), dict(ch_axis="ch"), 5, rns_ops),
+        (4096, 4, {}, dict(ch=2, dp=4), dict(ch_axis="ch"), 5, rns_ops),
+        (16384, 2, dict(method="fourstep"), dict(ch=2, sp=2, dp=2),
+         dict(sp_axis="sp", ch_axis="ch"), 3, ("fwd_rns", "inv_rns")),
+        (1024, 2, {}, dict(dp=2, sp=4), dict(sp_axis="sp"), 5,
+         ("xchg_fwd", "xchg_inv", "fwd", "inv")),
+        (1024, 2, {}, dict(dp=2, sp=4), dict(sp_axis="sp", sp_comm="overlap"),
+         5, ("xchg_fwd", "xchg_inv")),
+        (2048, 2, {}, dict(dp=2, sp=4), dict(sp_axis="sp", sp_method="fourstep"),
+         4, ("fwd", "inv")),
+    )
+
+    def res(qs, shape):
+        return np.stack([rng.integers(0, q, size=shape, dtype=np.uint32)
+                         for q in qs])
+
+    for devices in meshes:
+        for n, L, kw, axes, skw, batch, kernels in layouts:
+            rns = RNSRing(n, L, device=cuda, **kw)
+            plain = RNSRing(n, L, device="cpu", **kw)
+            s = ShardedRNSRing(rns, make_mesh(devices=devices, **axes), **skw)
+            x, y = res(rns.qs, (batch, n)), res(rns.qs, (batch, n))
+            da, db = res(rns.qs, (batch, 2, n)), res(rns.qs, (batch, 2, n))
+            calls = {"ntt": (x,), "intt": (x,), "polymul": (x, y),
+                     "polydot": (da, db)}
+            before = dict(K.LAUNCHES)
+            outs = {op: getattr(s, op)(*args) for op, args in calls.items()}
+            for key in kernels:
+                assert K.LAUNCHES[key] > before[key], (axes, skw, key)
+            for op, got in outs.items():
+                what = (devices, axes, skw, op)
+                assert got.device == torch.device(devices[0]), what
+                assert torch.equal(got, getattr(rns, op)(*calls[op])), what
+                assert torch.equal(got.cpu(), getattr(plain, op)(*calls[op])), what
+    n, dnum, ks = 256, 2, (3, 7)
+    qs = find_primes(n, 9)
+    rings = [(RNSRing(n, qs=qs[:4], device=d), RNSRing(n, qs=qs[:6], device=d))
+             for d in (cuda, "cpu")]
+    x, xe = res(qs[:4], (4, n)), res(qs[:6], (4, n))
+    keys = [np.stack([np.stack([res(qs[:6], (n,)) for _ in range(dnum)])
+                      for _ in ks]) for _ in range(3)]
+    c1, d = res(qs[:4], (4, n)), res(qs[:7], (4, n))
+    pts = np.stack([res(qs[:6], (n,)) for _ in ks])
+    mesh = make_mesh(dp=2, devices=["cuda:0"] * 2)
+    srq = ShardedRNSRing(rings[0][0], mesh)
+    sext = ShardedRNSRing(rings[0][1], mesh)
+    before = K.LAUNCHES["polydot_rns"]
+    calls = {
+        "keyswitch": lambda r, e: r.keyswitch(x, keys[0][0], e, dnum),
+        "hoisted_keyswitch": lambda r, e: r.hoisted_keyswitch(
+            x, keys[0], ks, e, dnum),
+        "hoisted_linear_sum": lambda r, e: torch.stack(r.hoisted_linear_sum(
+            x, c1, pts, keys[1], keys[2], ks, e, dnum)),
+        "gadget_decompose": lambda r, e: r.gadget_decompose(x, e, dnum),
+    }
+    for what, call in calls.items():
+        got = call(srq, rings[0][1])
+        assert torch.equal(got, call(rings[0][0], rings[0][1])), what
+        assert torch.equal(got.cpu(), call(*rings[1])), what
+    assert K.LAUNCHES["polydot_rns"] > before
+    for what, got, want in (
+        ("mod_down", sext.mod_down(xe, 2), rings[1][1].mod_down(xe, 2)),
+        ("mod_down_bgv", sext.mod_down_bgv(xe, 17, 2),
+         rings[1][1].mod_down_bgv(xe, 17, 2)),
+        ("hps_scale_sk", srq.hps_scale_sk(d, qs[:4], qs[6:9], 17),
+         B.base_convert_sk(*_hps_parts(d, qs), qs[6:8], qs[8], qs[:4])),
+    ):
+        assert torch.equal(got.cpu(), want.to(torch.uint32)), what
+
+
+def _hps_parts(d, qs):
+    """scale_round of the union-basis words ``d`` on the CPU, split into the
+    B residues and the m_sk residue (the plain hps_scale_sk's first half)."""
+    y = B.scale_round(torch.from_numpy(d[:4]).to(torch.int64),
+                      torch.from_numpy(d[4:]).to(torch.int64), qs[:4],
+                      qs[6:9], 17)
+    return y[:-1], y[-1]
 
 
 def _ckks_twins(cuda, n, levels, seed, steps=()):

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of it and running its
 command-line check, single- and multi-prime, the DIT inverse and the
 sharded ring, loads neither JAX nor the JAX package; and its CKKS, BGV and
-BFV evaluators run a key generation, an encryption and a multiply in an
-interpreter where importing either raises."""
+BFV evaluators run a key generation, an encryption and a multiply, the
+sharded RNS ring a channel x coefficient polymul and CKKS a multiply on a
+mesh, in an interpreter where importing either raises."""
 
 import subprocess
 import sys
@@ -18,7 +19,7 @@ from agilex_ntt_tpu_torch.ops import (
     basechange, dit_inv, fourstep, gadget, ntt_kernel, plain_ntt,
 )
 from agilex_ntt_tpu_torch.parallel import (
-    fourstep_shard, mesh, overlap, shards, stage_shard,
+    chsp, fourstep_shard, mesh, overlap, shards, stage_shard,
 )
 from agilex_ntt_tpu_torch.utils import crt, profiling
 from agilex_ntt_tpu_torch import schemes
@@ -94,6 +95,25 @@ for ctx in (BGVContext(64, 2, rng=np.random.default_rng(2), device="cpu"),
     out = ctx.rescale(ctx.multiply(ct, ct, keys))
     print(type(ctx).__name__, out.level,
           (ctx.decode(ctx.decrypt(out, keys)) == m * m % ctx.t).all())
+import torch
+from agilex_ntt_tpu_torch import RNSRing
+from agilex_ntt_tpu_torch.parallel import ShardedRNSRing, make_mesh
+rns = RNSRing(16384, 2, method="fourstep", device="cpu")
+srns = ShardedRNSRing(rns, make_mesh(ch=2, sp=2, devices=["cpu"] * 4),
+                      dp_axis=None, sp_axis="sp", ch_axis="ch")
+x = rns.to_rns(np.arange(2 * 16384).reshape(2, 16384) % 9973)
+print("CHSP", torch.equal(srns.polymul(x, x), rns.polymul(x, x)))
+one = CKKSContext(64, 2, rng=np.random.default_rng(5), device="cpu")
+mctx = CKKSContext(64, 2, rng=np.random.default_rng(5), device="cpu",
+                   mesh=make_mesh(dp=2, devices=["cpu"] * 2))
+keys = one.keygen()
+ct = one.encrypt(one.encode(z), keys)
+want, got = one.multiply(ct, ct, keys), mctx.multiply(mctx.place(ct),
+                                                     mctx.place(ct), keys)
+print("MESH", torch.equal(want.c0, got.c0) and torch.equal(want.c1, got.c1))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
+print("LEAKED", leaked)
 """
 
 
@@ -107,3 +127,6 @@ def test_ckks_runs_with_jax_and_the_jax_package_blocked():
     assert "CKKS 1 True" in proc.stdout, proc.stdout
     assert "BGVContext 1 True" in proc.stdout, proc.stdout
     assert "BFVContext 1 True" in proc.stdout, proc.stdout
+    assert "CHSP True" in proc.stdout, proc.stdout
+    assert "MESH True" in proc.stdout, proc.stdout
+    assert "LEAKED []" in proc.stdout, proc.stdout
