@@ -5,7 +5,7 @@ same rings, tables and outputs, with hand-written Hopper kernels in place of
 the Pallas ones.  It imports neither JAX nor the JAX package.
 """
 
-from .api import CyclicRing, Ring, RNSRing
+from .api import CyclicRing, Ring, RNSRing, WideRing
 from .config import NTTConfig, REFERENCE_SIZES
 from .params import NTTParams, find_primes, find_psi, make_params, params_from_numpy
 
@@ -15,6 +15,7 @@ __all__ = [
     "CyclicRing",
     "Ring",
     "RNSRing",
+    "WideRing",
     "NTTConfig",
     "NTTParams",
     "REFERENCE_SIZES",

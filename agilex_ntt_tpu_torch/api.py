@@ -36,7 +36,7 @@ from .config import NTTConfig
 from .ops import basechange, gadget
 from .ops import fourstep
 from .ops import modmul as mm
-from .ops import ntt_kernel
+from .ops import ntt_kernel, wide, wide_kernel
 from .ops.plain_ntt import make_fourstep_tables, make_rns_tables, make_tables
 from .params import (
     CyclicParams,
@@ -1253,3 +1253,141 @@ class RNSRing:
         return (
             f"RNSRing(n={self.n}, qs={self.qs}, device={str(self.device)!r})"
         )
+
+
+class WideRing:
+    """R_q = Z_q[X]/(X^n + 1) at the reference's full u64 word width.
+
+    Counterpart of ``agilex_ntt_tpu/api.py::WideRing``: one prime up to the
+    Harvey bound q < 2**62 (4q < 2**64), where ``Ring`` takes q < 2**30 and
+    reaches larger moduli through ``RNSRing``.  On the card the transforms
+    and the elementwise calls run the u64 kernels of ``csrc/ntt_wide.cuh``
+    (``ops/wide_kernel.py``); on the CPU the plain limb-pair version of
+    ``ops/wide.py``.
+
+    Args:
+      n: a power of two.
+      q: a prime q ≡ 1 (mod 2n), q < 2**62; default the largest such prime
+        below 2**62.
+      psi: a primitive 2n-th root of unity mod q; default ``find_psi``'s.
+      device: ``None`` for the current CUDA device, or ``"cpu"``.
+
+    I/O: a method takes numpy uint64 arrays (or ints), split into limbs and
+    joined again on the host, and returns numpy uint64; or a ``(lo, hi)``
+    pair of uint32 tensors (or numpy uint32 arrays), and returns a pair of
+    ``torch.uint32`` tensors on the ring's device.  The output kind matches
+    the input kind; shapes are (..., n).
+    """
+
+    def __init__(self, n: int, q: Optional[int] = None, *,
+                 psi: Optional[int] = None, device=None):
+        if q is None:
+            q = find_primes(n, 1, bits=62)[0]
+        if q >= (1 << 62):
+            raise ValueError(
+                f"q must be < 2**62 (Harvey lazy range 4q < 2**64), got {q}"
+            )
+        self.device = _resolve_device(device)
+        self.n = n
+        self.q = q
+        self.params = make_params(n, q, psi)  # the u64 tables
+        self.n_inv = self.params.n_inv
+        self.qinv_neg = wide.mont_qinv_neg64(q)
+        self.r_mod_q = (1 << 64) % q
+        # folds the Montgomery product's 2**-64 out, with n^-1
+        self.polymul_scale = self.n_inv * self.r_mod_q % q
+        self.tables = wide_kernel.make_wide_tables(self.params, self.device)
+
+    # -- I/O plumbing ---------------------------------------------------------
+
+    def _limb(self, t) -> torch.Tensor:
+        if isinstance(t, torch.Tensor):
+            return t.to(device=self.device, dtype=torch.uint32)
+        return torch.from_numpy(np.array(t, dtype=np.uint32)).to(self.device)
+
+    def _ingest(self, x):
+        """-> ((lo, hi) uint32 tensors, was_numpy).  Takes numpy uint64 (or
+        ints) or a (lo, hi) pair."""
+        if isinstance(x, tuple):
+            lo, hi = (self._limb(t) for t in x)
+            if lo.shape != hi.shape:
+                raise ValueError(f"lo {tuple(lo.shape)} and hi "
+                                 f"{tuple(hi.shape)} differ")
+            if lo.dim() == 0 or lo.shape[-1] != self.n:
+                raise ValueError(
+                    f"last dim must be n={self.n}, got {tuple(lo.shape)}"
+                )
+            return (lo, hi), False
+        arr = np.asarray(x, dtype=np.uint64)
+        if arr.shape[-1] != self.n:
+            raise ValueError(f"last dim must be n={self.n}, got {arr.shape}")
+        lo, hi = wide.split_u64_np(arr)
+        return (torch.from_numpy(lo).to(self.device),
+                torch.from_numpy(hi).to(self.device)), True
+
+    def _egest(self, pair, shape, was_numpy: bool):
+        lo, hi = (t.reshape(shape) for t in pair)
+        if was_numpy:
+            return wide.join_u64_np(lo.cpu().numpy(), hi.cpu().numpy())
+        return lo, hi
+
+    def _rows(self, pair):
+        """(..., n) -> (B, n), contiguous."""
+        return tuple(t.reshape(-1, self.n).contiguous() for t in pair)
+
+    def _binary(self, a, b):
+        """Both operands broadcast to one shape: ((lo, hi), (lo, hi), shape,
+        was_numpy of a)."""
+        pa, host = self._ingest(a)
+        pb, _ = self._ingest(b)
+        shape = torch.broadcast_shapes(pa[0].shape, pb[0].shape)
+        pa, pb = (tuple(t.expand(shape).contiguous() for t in p)
+                  for p in (pa, pb))
+        return pa, pb, shape, host
+
+    # -- transforms -----------------------------------------------------------
+
+    def ntt(self, x):
+        """Forward negacyclic NTT, [0, 4q) in, [0, q) out (HEXL order)."""
+        pair, host = self._ingest(x)
+        out = wide_kernel.wide_fwd(self._rows(pair), self.tables)
+        return self._egest(out, pair[0].shape, host)
+
+    def intt(self, x, *, scale: Optional[int] = None):
+        """Inverse negacyclic NTT, lazy [0, 2q) in, [0, q) out; ``scale``
+        replaces the final n^-1."""
+        pair, host = self._ingest(x)
+        sc = self.n_inv if scale is None else scale
+        out = wide_kernel.wide_inv(self._rows(pair), self.tables, sc)
+        return self._egest(out, pair[0].shape, host)
+
+    # -- ring arithmetic --------------------------------------------------------
+
+    def polymul(self, a, b):
+        """Negacyclic a*b mod (X^n + 1, q): both forward transforms, the
+        Montgomery product (R = 2**64), the inverse with R^-1 folded into
+        its n^-1 scale."""
+        pa, pb, shape, host = self._binary(a, b)
+        fa = wide_kernel.wide_fwd(self._rows(pa), self.tables)
+        fb = wide_kernel.wide_fwd(self._rows(pb), self.tables)
+        prod = wide_kernel.wide_pointwise(fa, fb, self.tables, "mont")
+        out = wide_kernel.wide_inv(prod, self.tables, self.polymul_scale)
+        return self._egest(out, shape, host)
+
+    def _elementwise(self, a, b, mode: str):
+        pa, pb, shape, host = self._binary(a, b)
+        out = wide_kernel.wide_pointwise(pa, pb, self.tables, mode)
+        return self._egest(out, shape, host)
+
+    def pointwise_mul(self, a, b):
+        """Exact elementwise a*b mod q in [0, q) for NTT-domain operands."""
+        return self._elementwise(a, b, "exact")
+
+    def add(self, a, b):
+        return self._elementwise(a, b, "add")
+
+    def sub(self, a, b):
+        return self._elementwise(a, b, "sub")
+
+    def __repr__(self):
+        return f"WideRing(n={self.n}, q={self.q})"

@@ -28,6 +28,11 @@
 //   xchg_group_kernel      <- kernel in _xchg_call (K11, a group of
 //                                        butterfly pairs a launch; see
 //                                        ntt_xchg.cuh)
+// the wide-modulus ring (q < 2^62 on u64 words; no Pallas kernel, the JAX
+// package's plain jnp of agilex_ntt_tpu/ops/wide.py; see ntt_wide.cuh):
+//   wide_fwd_kernel, wide_fwd_pass_kernel  <- fwd_stages64
+//   wide_inv_kernel, wide_inv_pass_kernel  <- inv_stages64
+//   wide_pointwise_kernel                  <- WideRing's elementwise bodies
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
 // four-step section below and ntt_fourstep_cluster.cuh for their design):
 //   fwd4_cluster_kernel, where the matrix fits in a cluster, else
@@ -90,6 +95,7 @@
 #include "ntt_fourstep_cluster.cuh"
 #include "ntt_polydot_cluster.cuh"
 #include "ntt_rns_transform.cuh"
+#include "ntt_wide.cuh"
 #include "ntt_xchg.cuh"
 
 namespace {
@@ -797,6 +803,92 @@ xchg_group_kernel(const __grid_constant__ XchgStage st) {
     xchg_group_body<kFwd>(st, blockIdx.y, i);
 }
 
+// The wide ring (ntt_wide.cuh).  The body kernels: CTA blockIdx.x takes
+// tile blockIdx.x into shared memory, runs its stages and stores it.
+__global__ void __launch_bounds__(kWideThreads)
+wide_fwd_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                uint32_t* yhi, const uint64_t* __restrict__ roots,
+                const uint64_t* __restrict__ precon, const WideBody b) {
+  extern __shared__ uint64_t wide_words[];
+  wide_load(wide_words, xlo, xhi, blockIdx.x, b, threadIdx.x, kWideThreads);
+  __syncthreads();
+  wide_fwd_body(wide_words, blockIdx.x, b, roots, precon, threadIdx.x,
+                kWideThreads);
+  wide_store(wide_words, ylo, yhi, blockIdx.x, b, false, 0, 0, threadIdx.x,
+             kWideThreads);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_inv_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                uint32_t* yhi, const uint64_t* __restrict__ iroots,
+                const uint64_t* __restrict__ iprecon, const WideBody b,
+                bool scale, uint64_t sc, uint64_t scp) {
+  extern __shared__ uint64_t wide_words[];
+  wide_load(wide_words, xlo, xhi, blockIdx.x, b, threadIdx.x, kWideThreads);
+  __syncthreads();
+  wide_inv_body(wide_words, blockIdx.x, b, iroots, iprecon, threadIdx.x,
+                kWideThreads);
+  wide_store(wide_words, ylo, yhi, blockIdx.x, b, scale, sc, scp,
+             threadIdx.x, kWideThreads);
+}
+
+// One stage pass over every butterfly of the (B, n) operand.
+__global__ void __launch_bounds__(kWideThreads)
+wide_fwd_pass_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                     uint32_t* yhi, const uint64_t* __restrict__ roots,
+                     const uint64_t* __restrict__ precon, uint64_t q,
+                     int logn, int s, long long butterflies) {
+  for (long long k = (long long)blockIdx.x * kWideThreads + threadIdx.x;
+       k < butterflies; k += (long long)gridDim.x * kWideThreads)
+    wide_fwd_pass(xlo, xhi, ylo, yhi, roots, precon, q, logn, s, k);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_inv_pass_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                     uint32_t* yhi, const uint64_t* __restrict__ iroots,
+                     const uint64_t* __restrict__ iprecon, uint64_t q,
+                     int logn, int s, long long butterflies, uint64_t sc,
+                     uint64_t scp) {
+  for (long long k = (long long)blockIdx.x * kWideThreads + threadIdx.x;
+       k < butterflies; k += (long long)gridDim.x * kWideThreads)
+    wide_inv_pass(xlo, xhi, ylo, yhi, iroots, iprecon, q, logn, s, k, sc,
+                  scp);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_pointwise_kernel(const uint32_t* __restrict__ alo,
+                      const uint32_t* __restrict__ ahi,
+                      const uint32_t* __restrict__ blo,
+                      const uint32_t* __restrict__ bhi, uint32_t* ylo,
+                      uint32_t* yhi, long long count, int mode, uint64_t q,
+                      uint64_t qinv_neg, uint64_t r2) {
+  for (long long i = (long long)blockIdx.x * kWideThreads + threadIdx.x;
+       i < count; i += (long long)gridDim.x * kWideThreads) {
+    const uint64_t w = wide_pointwise(wide_join(alo[i], ahi[i]),
+                                      wide_join(blo[i], bhi[i]), mode, q,
+                                      qinv_neg, r2);
+    ylo[i] = (uint32_t)w;
+    yhi[i] = (uint32_t)(w >> 32);
+  }
+}
+
+// Most CTAs of a grid-striding wide launch (the rest loop).
+constexpr long long kWideMaxBlocks = 1LL << 20;
+
+unsigned wide_grid(long long items) {
+  const long long blocks = (items + kWideThreads - 1) / kWideThreads;
+  return (unsigned)(blocks < kWideMaxBlocks ? blocks : kWideMaxBlocks);
+}
+
+// A body launch's shared memory allowed, its shape checked.
+cudaError_t wide_body_launch(const void* kernel, int logn, long long batch,
+                             uint64_t q, WideBody* b) {
+  if (logn < 1 || logn > 30 || batch < 1) return cudaErrorInvalidValue;
+  *b = wide_body(logn, batch, q);
+  if (wide_tiles(*b) > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  return allow_smem(kernel, wide_smem_bytes(*b));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1202,6 +1294,92 @@ int ntt_enable_peer(int device, int peer) {
     cudaGetLastError();  // not sticky: clear it
     return 0;
   }
+  return (int)err;
+}
+
+// The wide ring's transforms on (B, n) lo and hi uint32 words: x in
+// [0, 4q) -> y in [0, q) forward; [0, 2q) -> [0, q) inverse, scaled by
+// (sc, scp) = (s, floor(s 2^64 / q)) mod 2^64.  roots/precon (iroots/
+// iprecon): the u64 [n] tables.  Above n = 2^kWideBlockLog the forward runs
+// logn - kWideBlockLog stage passes in device memory, then the body on each
+// block (the inverse: the body, then the passes); `launches` gets the
+// number of kernel launches.
+int ntt_wide_fwd(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                 uint32_t* yhi, const uint64_t* roots, const uint64_t* precon,
+                 uint64_t q, long long batch, int logn, void* stream,
+                 int* launches) {
+  *launches = 0;
+  WideBody b;
+  cudaError_t err = wide_body_launch((const void*)wide_fwd_kernel, logn,
+                                     batch, q, &b);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long butterflies = batch << (logn - 1);
+  const uint32_t *src_lo = xlo, *src_hi = xhi;
+  for (int s = 0; s < logn - b.logl; ++s) {
+    wide_fwd_pass_kernel<<<wide_grid(butterflies), kWideThreads, 0, st>>>(
+        src_lo, src_hi, ylo, yhi, roots, precon, q, logn, s, butterflies);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+    src_lo = ylo;
+    src_hi = yhi;
+  }
+  wide_fwd_kernel<<<(unsigned)wide_tiles(b), kWideThreads,
+                    wide_smem_bytes(b), st>>>(src_lo, src_hi, ylo, yhi, roots,
+                                              precon, b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  return (int)cudaSuccess;
+}
+
+int ntt_wide_inv(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
+                 uint32_t* yhi, const uint64_t* iroots,
+                 const uint64_t* iprecon, uint64_t q, uint64_t sc,
+                 uint64_t scp, long long batch, int logn, void* stream,
+                 int* launches) {
+  *launches = 0;
+  WideBody b;
+  cudaError_t err = wide_body_launch((const void*)wide_inv_kernel, logn,
+                                     batch, q, &b);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool passes = b.logl < logn;
+  wide_inv_kernel<<<(unsigned)wide_tiles(b), kWideThreads,
+                    wide_smem_bytes(b), st>>>(xlo, xhi, ylo, yhi, iroots,
+                                              iprecon, b, !passes, sc, scp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*launches;
+  const long long butterflies = batch << (logn - 1);
+  for (int s = logn - b.logl - 1; s >= 0; --s) {
+    wide_inv_pass_kernel<<<wide_grid(butterflies), kWideThreads, 0, st>>>(
+        ylo, yhi, ylo, yhi, iroots, iprecon, q, logn, s, butterflies, sc,
+        scp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return (int)cudaSuccess;
+}
+
+// WideRing's elementwise calls on `count` words (WideMode: 0 the polymul's
+// Montgomery product, 1 pointwise_mul, 2 add, 3 sub): one launch.
+int ntt_wide_pointwise(const uint32_t* alo, const uint32_t* ahi,
+                       const uint32_t* blo, const uint32_t* bhi,
+                       uint32_t* ylo, uint32_t* yhi, long long count,
+                       int mode, uint64_t q, uint64_t qinv_neg, uint64_t r2,
+                       void* stream, int* launches) {
+  *launches = 0;
+  if (count < 1 || mode < kWideMont || mode > kWideSub)
+    return (int)cudaErrorInvalidValue;
+  wide_pointwise_kernel<<<wide_grid(count), kWideThreads, 0,
+                          (cudaStream_t)stream>>>(alo, ahi, blo, bhi, ylo,
+                                                  yhi, count, mode, q,
+                                                  qinv_neg, r2);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) *launches = 1;
   return (int)err;
 }
 

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh",
            "ntt_polydot_cluster.cuh", "ntt_rns_transform.cuh",
-           "ntt_xchg.cuh", "ntt_kernels.cu")
+           "ntt_wide.cuh", "ntt_xchg.cuh", "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libntt_kernels.so"
 NVCC_FLAGS = (
@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 SIGNATURES = {
     # x, y, roots, precon, qs (q at word 0), batch, logn, stream
     "ntt_fwd": (_P, _P, _P, _P, _P, _LL, _I, _P),
@@ -80,6 +81,17 @@ SIGNATURES = {
     "ntt_enable_peer": (_I, _I),
     # kernel (0 K7a, 1 K7b, 2 K8, 3 K9a, 4 K9b), logn1, logn2, info (5 ints)
     "ntt_fourstep_launch_info": (_I, _I, _I, _P),
+    # the wide ring: x lo, x hi, y lo, y hi, roots, precon (u64), q, batch,
+    # logn, stream, launches (one int out)
+    "ntt_wide_fwd": (_P, _P, _P, _P, _P, _P, _U64, _LL, _I, _P, _P),
+    # x lo, x hi, y lo, y hi, iroots, iprecon, q, scale, scale precon,
+    # batch, logn, stream, launches
+    "ntt_wide_inv": (_P, _P, _P, _P, _P, _P, _U64, _U64, _U64, _LL, _I, _P,
+                     _P),
+    # a lo, a hi, b lo, b hi, y lo, y hi, count, mode, q, -q^-1 mod 2^64,
+    # 2^128 mod q, stream, launches
+    "ntt_wide_pointwise": (_P, _P, _P, _P, _P, _P, _LL, _I, _U64, _U64, _U64,
+                           _P, _P),
 }
 
 

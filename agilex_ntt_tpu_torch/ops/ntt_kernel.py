@@ -55,6 +55,8 @@ LAUNCHES = {
     "fwd_rns": 0, "inv_rns": 0, "polymul_rns": 0, "polydot_rns": 0,
     "fwd4": 0, "inv4": 0, "polymul4": 0, "col_fwd": 0, "col_inv": 0,
     "dit_inv": 0, "xchg_fwd": 0, "xchg_inv": 0,
+    # the wide ring's kernels (ops/wide_kernel.py)
+    "wide_fwd": 0, "wide_inv": 0, "wide_pointwise": 0,
 }
 
 

@@ -188,10 +188,6 @@ def make_params(n: int, q: int, psi: Optional[int] = None) -> NTTParams:
         raise ValueError(f"q ≡ 1 (mod 2n) required: q={q} n={n}")
     if not is_prime(q):
         raise ValueError(f"q={q} is not prime")
-    if q >> 30:
-        raise NotImplementedError(
-            "q >= 2**30 needs the wide-modulus ring, which is not ported yet"
-        )
     if psi is None:
         psi = find_psi(n, q)
     elif pow(psi, n, q) != q - 1:
@@ -204,6 +200,14 @@ def _make_params_cached(n: int, q: int, psi: int) -> NTTParams:
     logn = log2_exact(n)
     roots_py = [pow(psi, bit_reverse(i, logn), q) for i in range(n)]
     inv_roots_py = [pow(w, q - 2, q) for w in roots_py]
+    # a wide-ring modulus (q >= 2**30; ``WideRing`` reads the u64 tables)
+    # has no 32-bit tables: they are masked to 32 bits, as the JAX package
+    # does, so that every NTTParams has the same fields
+    mask32 = (1 << 32) - 1 if q >> 30 else -1
+
+    def u32(words):
+        return np.array([w & mask32 for w in words], dtype=np.uint32)
+
     return NTTParams(
         n=n,
         q=q,
@@ -215,12 +219,10 @@ def _make_params_cached(n: int, q: int, psi: int) -> NTTParams:
             [(w << 64) // q for w in inv_roots_py], dtype=np.uint64
         ),
         n_inv=pow(n, q - 2, q),
-        roots32=np.array(roots_py, dtype=np.uint32),
-        precon32=np.array([(w << 32) // q for w in roots_py], dtype=np.uint32),
-        inv_roots32=np.array(inv_roots_py, dtype=np.uint32),
-        inv_precon32=np.array(
-            [(w << 32) // q for w in inv_roots_py], dtype=np.uint32
-        ),
+        roots32=u32(roots_py),
+        precon32=u32((w << 32) // q for w in roots_py),
+        inv_roots32=u32(inv_roots_py),
+        inv_precon32=u32((w << 32) // q for w in inv_roots_py),
     )
 
 

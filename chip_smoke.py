@@ -10,7 +10,8 @@ fails the run (non-zero exit, no result line) when it goes wrong:
 
 1. Build: ``nvcc`` compiles the kernels from ``agilex_ntt_tpu_torch/csrc``
    for ``sm_90a`` (``ops/_build.py``).
-2. Kernels: each of the sixteen kernels against its plain PyTorch version
+2. Kernels: each of the single- and multi-prime, four-step, DIT and
+   exchange kernels against its plain PyTorch version
    on the same inputs on the card, bit for bit over the whole output
    (tolerance 0: integer arithmetic).  Single prime: at the main path's
    shapes (n=4096, batch 8192; polydot k=3, batch 2048), at n=32768 and
@@ -128,7 +129,18 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       g's seeds, keys and first encryptions: multiply, square, rotate 1,
       rescale and the four-term ``apply_linear``, each equal to the
       unsharded context's words, the first ciphertexts decoding (BGV and
-      BFV exactly).
+      BFV exactly);
+   i. the wide-modulus ring (``WideRing``, u64 kernels of
+      ``csrc/ntt_wide.cuh``): ``WideRing(4096)`` at its default 62-bit
+      prime and at a 45-bit one (B=8192) and ``WideRing(32768)`` (B=256,
+      a stage pass before the shared-memory body), ntt, intt, polymul,
+      pointwise_mul, add and sub on (lo, hi) pair I/O, inputs over [0, 4q)
+      forward and [0, 2q) inverse; then the KAT vectors w45 and w62 at n =
+      1024 on numpy uint64 I/O.  wide_fwd, wide_inv and wide_pointwise
+      must launch; every output equals the plain limb-pair version
+      (``ops/wide.py``) run on the card word for word (the polymul's
+      Montgomery product also alone), its first rows the golden model,
+      and the KAT vectors their known answers.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -158,7 +170,9 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    multiply also stage by stage (lift, tensor, scale and return,
    relinearization); phase 3h's calls beside the unsharded ones (CUDA
    events, median of 3, launches by the counters), and the mesh
-   multiplies' device busy and idle share (``torch.profiler``).  One card
+   multiplies' device busy and idle share (``torch.profiler``); the wide
+   kernels at (8192, 4096) with their ptxas lines, and phase 3i's
+   ``WideRing`` calls end to end with their launches.  One card
    measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4``.
@@ -299,6 +313,8 @@ BODY_SOURCE = {
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_fourstep_cluster.cuh"
        for key in ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv",
                    "flat_fwd", "flat_inv", "flat_polymul")},
+    **{key: "agilex_ntt_tpu_torch/csrc/ntt_wide.cuh"
+       for key in ("wide_fwd", "wide_inv", "wide_pointwise")},
 }
 KERNELS = {  # row -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
@@ -323,6 +339,11 @@ KERNELS = {  # row -> (name, TPU kernel replaced)
     "dit_inv": ("dit_inv_core", "agilex_ntt_tpu/ops/dit_inv.py:121"),
     "xchg_fwd": ("xchg_group (fwd)", "agilex_ntt_tpu/parallel/overlap.py:89"),
     "xchg_inv": ("xchg_group (inv)", "agilex_ntt_tpu/parallel/overlap.py:89"),
+    # the wide ring: no Pallas kernel, the JAX package's plain jnp stages
+    # and WideRing's elementwise bodies
+    "wide_fwd": ("wide_fwd", "agilex_ntt_tpu/ops/wide.py:203"),
+    "wide_inv": ("wide_inv", "agilex_ntt_tpu/ops/wide.py:240"),
+    "wide_pointwise": ("wide_pointwise", "agilex_ntt_tpu/api.py:2024"),
 }
 # the CKKS phase (3f): the "n16384" chain (KS_N, KS_L, one special prime) at
 # CKKS_BATCH ciphertexts, rotations by CKKS_ROT, a linear transform of the
@@ -374,6 +395,27 @@ SHARD_RNS = (
 SHARD_RNS_REMAINDER, SHARD_RNS_K = RNS_BATCH - 1, 2
 # the key switch and the schemes on a dp mesh of one card
 SHARD_KS_DP = 4
+# the wide ring (phase 3i): WideRing(n, q) as (n, bits of q, batch): the
+# default 62-bit prime and a 45-bit one at the main path's shape, and n =
+# 32768, which takes a stage pass before the shared-memory body; then the
+# known-answer vectors w45 and w62 at n = 1024
+WIDE_RINGS = ((MAIN_N, 62, MAIN_BATCH), (MAIN_N, 45, MAIN_BATCH),
+              (32768, 62, 256))
+WIDE_KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "ntt_kat.npz"
+WIDE_GOLDEN_ROWS = 4
+WIDE_OPS = ("ntt", "intt", "polymul", "pointwise_mul", "add", "sub")
+# int32 instructions of the u64 arithmetic (ntt_wide.cuh), as (multiplies,
+# compares or selects, adds), counted at their fewest: a 64x64 wide
+# product (IMAD.WIDE) counts as two multiplies, a 64-bit add or subtract
+# as two adds, a 64-bit compare as two compares and a select as two.  A
+# 64-bit low product is one wide and two plain multiplies; __umul64hi four
+# wide products and four adds; a Shoup product (16, 0, 6) both lows, the
+# high and a subtract; a conditional subtraction (0, 4, 2) a subtract, a
+# compare and a select.
+OPS_WIDE_BUTTERFLY = (16, 4, 14)  # CT or GS: Shoup, cond_sub, 3 adds
+OPS_WIDE_FINAL = (0, 8, 4)  # two conditional subtractions a word
+OPS_WIDE_SCALE = (16, 4, 8)  # the inverse's scale: Shoup and cond_sub
+OPS_WIDE_MONT = (24, 2, 12)  # a full product, m, its high, the sum
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
@@ -456,6 +498,18 @@ def polymul4_ops(batch: int, n1: int, n2: int):
                    (1, inv4_ops(batch, n1, n2)))
 
 
+def wide_fwd_ops(batch: int, n: int):
+    logn = n.bit_length() - 1
+    return ops_sum((batch * n // 2 * logn, OPS_WIDE_BUTTERFLY),
+                   (batch * n, OPS_WIDE_FINAL))
+
+
+def wide_inv_ops(batch: int, n: int):
+    logn = n.bit_length() - 1
+    return ops_sum((batch * n // 2 * logn, OPS_WIDE_BUTTERFLY),
+                   (batch * n, OPS_WIDE_SCALE))
+
+
 def scaled(L: int, ops):
     """The operations of L channels."""
     return tuple(L * v for v in ops)
@@ -492,6 +546,8 @@ ONE_KERNELS = {"fwd": ("K1", "fwd_rns_cluster_kernel"),
                "inv": ("K2", "inv_rns_cluster_kernel")}
 XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_group_kernel")
 DIT_KERNEL = "dit_inv_cluster_kernel"
+WIDE_KERNELS = ("wide_fwd_kernel", "wide_fwd_pass_kernel", "wide_inv_kernel",
+                "wide_inv_pass_kernel", "wide_pointwise_kernel")
 
 
 def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5):
@@ -2059,6 +2115,178 @@ def main() -> int:
         f"unsharded context's; phase 3h took {time.perf_counter() - t3h:.1f} s")
     del h_out, ks_out, sch_out
     torch.cuda.empty_cache()
+
+    # -- 3i. the wide ring (q < 2^62 on u64 kernels) ---------------------------
+    t3i = time.perf_counter()
+    from agilex_ntt_tpu_torch import WideRing
+    from agilex_ntt_tpu_torch.ops import wide as WD
+    from agilex_ntt_tpu_torch.ops import wide_kernel as WK
+
+    def wide_rand(gen, top, shape):
+        """(lo, hi) uint32 words below ``top`` (< 2^64): hi below top >> 32,
+        with top - 1 at word 0 and 0 at word 1."""
+        lo = torch.randint(0, 1 << 32, shape, generator=gen,
+                           dtype=torch.int64, device=dev)
+        hi = torch.randint(0, top >> 32, shape, generator=gen,
+                           dtype=torch.int64, device=dev)
+        lo.view(-1)[0], hi.view(-1)[0] = (top - 1) & 0xFFFFFFFF, (top - 1) >> 32
+        lo.view(-1)[1] = hi.view(-1)[1] = 0
+        return lo.to(torch.uint32), hi.to(torch.uint32)
+
+    def wide_pair(words):
+        """numpy uint64 -> (lo, hi) uint32 words on the card."""
+        return tuple(torch.from_numpy(t).to(dev) for t in WD.split_u64_np(words))
+
+    def wide_u64(pair, rows=None):
+        """(lo, hi) words -> numpy uint64 (the first ``rows`` rows)."""
+        lo, hi = (t[:rows] if rows else t for t in pair)
+        return WD.join_u64_np(lo.cpu().numpy(), hi.cpu().numpy())
+
+    def i64(pair):
+        return tuple(t.to(torch.int64) for t in pair)
+
+    def wide_calls(wr, ins):
+        """WideRing's public calls of the wide path on pair I/O."""
+        return {"ntt": lambda: wr.ntt(ins["x"]),
+                "intt": lambda: wr.intt(ins["y"]),
+                "polymul": lambda: wr.polymul(ins["a"], ins["b"]),
+                "pointwise_mul": lambda: wr.pointwise_mul(ins["a"], ins["b"]),
+                "add": lambda: wr.add(ins["a"], ins["b"]),
+                "sub": lambda: wr.sub(ins["a"], ins["b"])}
+
+    def wide_plain(wr, ins):
+        """The same calls by the plain version (ops/wide.py) on the card."""
+        tabs = wr.tables
+        a, b = i64(ins["a"]), i64(ins["b"])
+        fa, fb = (WK.wide_fwd_plain(v, tabs) for v in (a, b))
+        mont = WK.wide_pointwise_plain(fa, fb, tabs, "mont")
+        return {"ntt": WK.wide_fwd_plain(i64(ins["x"]), tabs),
+                "intt": WK.wide_inv_plain(i64(ins["y"]), tabs, wr.n_inv),
+                "polymul": WK.wide_inv_plain(mont, tabs, wr.polymul_scale),
+                "pointwise_mul": WK.wide_pointwise_plain(a, b, tabs, "exact"),
+                "add": WK.wide_pointwise_plain(a, b, tabs, "add"),
+                "sub": WK.wide_pointwise_plain(a, b, tabs, "sub")}
+
+    def wide_compare(key, got, want, note):
+        """Kernel words against the plain version's, every word."""
+        diff = [(g.to(torch.int64) - w).abs() for g, w in zip(got, want)]
+        bad_words = (diff[0] != 0) | (diff[1] != 0)
+        bad = int(bad_words.sum())
+        err = 0
+        if bad:
+            g_, w_ = (WD.join_u64_np(*(t[bad_words].cpu().numpy().astype(
+                np.uint32) for t in pair)) for pair in (got, want))
+            err = max(abs(int(u) - int(v)) for u, v in zip(g_, w_))
+        worst[key] = max(worst[key], err)
+        mismatched[key] += bad
+        log(f"  {key:14s} {note:44s} max_abs_err={err} mismatches={bad}")
+        if bad:
+            raise AssertionError(f"{key} disagrees with its plain version at "
+                                 f"{note}")
+
+    def wide_path():
+        """Phase 3i's main path and checks, in a scope of their own (the
+        later phases read names of the earlier ones): the rings and their
+        inputs, and the launches of the counted run."""
+        wide_cases = []  # (label, ring, inputs, KAT words or None)
+        for n_, bits, b_ in WIDE_RINGS:
+            wr = WideRing(n_, None if bits == 62 else
+                          find_primes(n_, 1, bits=bits)[0], device=dev)
+            gen = torch.Generator(dev).manual_seed(n_ + bits)
+            q_ = wr.q
+            ins = {"x": wide_rand(gen, 4 * q_, (b_, n_)),  # the lazy forward range
+                   "y": wide_rand(gen, 2 * q_, (b_, n_)),  # the lazy inverse range
+                   "a": wide_rand(gen, q_, (b_, n_)),
+                   "b": wide_rand(gen, q_, (b_, n_))}
+            wide_cases.append((f"n={n_} {q_.bit_length()}-bit q B={b_}", wr, ins,
+                               None))
+        kat = np.load(WIDE_KAT)
+        for bits in (45, 62):
+            wr = WideRing(1024, int(kat[f"w{bits}_q"]),
+                          psi=int(kat[f"w{bits}_psi"]), device=dev)
+            words = {k: kat[f"w{bits}_{k}"][None]
+                     for k in ("input", "ntt", "pm_a", "pm_b", "pm_c")}
+            ins = {"x": wide_pair(words["input"]), "y": wide_pair(words["ntt"]),
+                   "a": wide_pair(words["pm_a"]), "b": wide_pair(words["pm_b"])}
+            wide_cases.append((f"KAT w{bits} n=1024", wr, ins, words))
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        wide_out = [{op: call() for op, call in wide_calls(wr, ins).items()}
+                    for _, wr, ins, _ in wide_cases]
+        # the numpy uint64 I/O of the known-answer vectors, split and joined on
+        # the host
+        kat_out = {label: (wr.ntt(words["input"]), wr.intt(words["ntt"]),
+                           wr.polymul(words["pm_a"], words["pm_b"]))
+                   for label, wr, _, words in wide_cases if words is not None}
+        torch.cuda.synchronize()
+        wide_s = time.perf_counter() - t0
+        wide_launches = dict(K.LAUNCHES)
+        log(f"main path: WideRing {', '.join(WIDE_OPS)} on pair I/O at "
+            + "; ".join(label for label, _, _, _ in wide_cases)
+            + f", and the KAT vectors on numpy uint64 I/O; in {wide_s:.3f} s "
+            f"(host clock); launches {({k: v for k, v in wide_launches.items() if v})}")
+        missing = [key for key in ("wide_fwd", "wide_inv", "wide_pointwise")
+                   if wide_launches[key] < 1]
+        if missing:
+            raise AssertionError(f"the wide path launched no {missing} kernel")
+        log("wide kernels vs plain versions (tolerance 0), first rows vs golden:")
+        for (label, wr, ins, words), outs in zip(wide_cases, wide_out):
+            want = wide_plain(wr, ins)
+            for op in WIDE_OPS:
+                key = {"ntt": "wide_fwd", "intt": "wide_inv"}.get(op,
+                                                                  "wide_pointwise")
+                wide_compare(key, outs[op], want[op], f"{label} {op}")
+            del want
+            # the polymul's Montgomery product alone, on the plain transforms
+            tabs = wr.tables
+            fa, fb = (WK.wide_fwd_plain(i64(ins[v]), tabs) for v in ("a", "b"))
+            got = WK.wide_pointwise(tuple(t.to(torch.uint32) for t in fa),
+                                    tuple(t.to(torch.uint32) for t in fb), tabs,
+                                    "mont")
+            wide_compare("wide_pointwise", got,
+                         WK.wide_pointwise_plain(fa, fb, tabs, "mont"),
+                         f"{label} mont")
+            del fa, fb, got
+            g = WIDE_GOLDEN_ROWS
+            x_, y_, a_, b_ = (wide_u64(ins[v], g) for v in ("x", "y", "a", "b"))
+            q_obj = wr.q
+            fa_g = G.fwd_ntt_u64(a_, wr.params).astype(object)
+            fb_g = G.fwd_ntt_u64(b_, wr.params).astype(object)
+            golden = {
+                "ntt": G.fwd_ntt_u64(x_, wr.params),
+                "intt": G.inv_ntt_u64(y_, wr.params),
+                "polymul": G.inv_ntt_u64((fa_g * fb_g % q_obj).astype(np.uint64),
+                                         wr.params),
+                "pointwise_mul": (a_.astype(object) * b_.astype(object)
+                                  % q_obj).astype(np.uint64),
+                "add": ((a_.astype(object) + b_.astype(object))
+                        % q_obj).astype(np.uint64),
+                "sub": ((a_.astype(object) - b_.astype(object))
+                        % q_obj).astype(np.uint64),
+            }
+            for op, want_rows in golden.items():
+                if not np.array_equal(wide_u64(outs[op], g), want_rows):
+                    raise AssertionError(f"WideRing {label} {op} disagrees with "
+                                         "the golden model")
+            if words is not None:
+                for what, got_, want_ in zip(
+                        ("ntt", "intt", "polymul"), kat_out[label],
+                        (words["ntt"], words["input"], words["pm_c"])):
+                    if got_.dtype != np.uint64 or not np.array_equal(got_, want_):
+                        raise AssertionError(f"WideRing {label} {what} disagrees "
+                                             "with the known-answer vector")
+                    if not np.array_equal(wide_u64(outs[what]), got_):
+                        raise AssertionError(f"WideRing {label} {what}: numpy "
+                                             "and pair I/O differ")
+        log(f"wide path: every WideRing output equals the plain version's words "
+            f"and, on {WIDE_GOLDEN_ROWS} rows, the golden model's; the KAT "
+            f"vectors match; phase 3i took {time.perf_counter() - t3i:.1f} s")
+        return wide_cases, wide_launches
+
+    wide_cases, wide_launches = wide_path()
+    torch.cuda.empty_cache()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -2197,11 +2425,30 @@ def main() -> int:
                      words_x, scaled(XCHG_ROWS * XCHG_WIDTH, OPS_XCHG_INV),
                      xshape + " v"),
     })
+    # the wide kernels at the main shape on phase 3i's 62-bit ring: 8 bytes
+    # a word each way (lo and hi) and the two u64 tables of a transform;
+    # the pointwise kernel in the polymul's Montgomery mode
+    _, wr62, wins, _ = wide_cases[0]
+    wt, wn, wb = wr62.tables, MAIN_N, MAIN_BATCH
+    wx64, wy64, wa64, wb64 = (i64(wins[v]) for v in ("x", "y", "a", "b"))
+    wshape = f"(B={wb}, n={wn}) q62"
+    timed.update({
+        "wide_fwd": (lambda: WK.wide_fwd(wins["x"], wt),
+                     lambda: WK.wide_fwd_plain(wx64, wt),
+                     4 * wb * wn + 4 * wn, wide_fwd_ops(wb, wn), wshape),
+        "wide_inv": (lambda: WK.wide_inv(wins["y"], wt, wr62.n_inv),
+                     lambda: WK.wide_inv_plain(wy64, wt, wr62.n_inv),
+                     4 * wb * wn + 4 * wn, wide_inv_ops(wb, wn), wshape),
+        "wide_pointwise": (
+            lambda: WK.wide_pointwise(wins["a"], wins["b"], wt, "mont"),
+            lambda: WK.wide_pointwise_plain(wa64, wb64, wt, "mont"),
+            6 * wb * wn, scaled(wb * wn, OPS_WIDE_MONT), wshape + " mont"),
+    })
     # a kernel's launches over every path of phase 3 (the flat path's are
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
              "3e": slice_launches, "3f": ckks_launches, "3g": int_launches,
-             "3h": h_launches}
+             "3h": h_launches, "3i": wide_launches}
     for key in tuple(ONE_KERNELS) + MULTI + ("xchg_fwd", "xchg_inv"):
         log(f"{KERNELS[key][0]} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))
@@ -2300,6 +2547,11 @@ def main() -> int:
             f"{info['max_active_clusters']} clusters at once; "
             f"{info['clusters']} clusters")
     for name in (DIT_KERNEL, "xchg_group_kernel"):
+        log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
+    log("the wide kernels (ntt_wide.cuh): one CTA of 256 threads a tile of "
+        "max(n, 4096) words up to n = 16384 (8 bytes a word of shared "
+        "memory), a stage pass a launch above; ptxas:")
+    for name in WIDE_KERNELS:
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
     log(f"timing on {card} (CUDA events, median of 5 runs of 10 calls):")
@@ -2491,6 +2743,23 @@ def main() -> int:
         ms = cuda_time_ms(call)
         log(f"  {what:16s} {ms:.4f} ms per call of {polys} channel "
             f"polynomials: {polys / ms / 1e3:.3f} M per second")
+    log(f"WideRing calls end to end on {card} (pair I/O, host work "
+        "included; CUDA events, median of 3 runs of 2 calls; kernel launches "
+        "a call):")
+    for label, wr, ins, words in wide_cases:
+        if words is not None:
+            continue
+        bn = ins["x"][0].shape[0]
+        for op, call in wide_calls(wr, ins).items():
+            ms = cuda_time_ms(call, warmup=1, reps=3, inner=2)
+            torch.cuda.synchronize()
+            for key in K.LAUNCHES:
+                K.LAUNCHES[key] = 0
+            call()
+            torch.cuda.synchronize()
+            log(f"  WideRing {label} {op:14s} {ms:.4f} ms per call of {bn} "
+                f"polynomials: {bn / ms / 1e3:.3f} M per second; launches "
+                f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
     for r, (x_, a_, b_), outs in zip(fs_rings, fs_in, fs_out):
         bn = x_.shape[0]
         for what, call in ((f"Ring({r.n}).ntt", lambda: r.ntt(x_)),

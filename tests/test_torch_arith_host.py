@@ -355,21 +355,29 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_host(tmp_path_factory, name: str, source: str, *flags) -> Path:
+    """``source`` (C++ that includes headers of ``csrc/``) built with g++
+    into a shared library in a fresh temporary directory; skips the test
+    where g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
-    out = tmp_path_factory.mktemp("arith_host")
-    src = out / "shim.cpp"
-    src.write_text(SHIM)
-    so = out / "libarith_host.so"
+    out = tmp_path_factory.mktemp(name)
+    src = out / f"{name}.cpp"
+    src.write_text(source)
+    so = out / f"lib{name}.so"
     subprocess.run(
-        [gxx, "-x", "c++", "-O2", "-shared", "-fPIC", f"-I{CSRC}",
+        [gxx, "-x", "c++", *flags, "-shared", "-fPIC", f"-I{CSRC}",
          "-o", str(so), str(src)],
         check=True, capture_output=True,
     )
-    h = ctypes.CDLL(str(so))
+    return so
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    h = ctypes.CDLL(str(build_host(tmp_path_factory, "arith_host", SHIM,
+                                   "-O2")))
     P, U, L = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_long
     h.h_cond_sub.argtypes = [P, U, P, L]
     h.h_shoup.argtypes = [P, P, P, U, P, L]
@@ -390,19 +398,8 @@ def lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def cluster_so(tmp_path_factory):
     """The cluster bodies built for the host (loaded only by a child)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed")
-    out = tmp_path_factory.mktemp("cluster_host")
-    src = out / "cluster.cpp"
-    src.write_text(CLUSTER_SHIM)
-    so = out / "libcluster_host.so"
-    subprocess.run(
-        [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         f"-I{CSRC}", "-o", str(so), str(src)],
-        check=True, capture_output=True,
-    )
-    return str(so)
+    return str(build_host(tmp_path_factory, "cluster_host", CLUSTER_SHIM,
+                          "-std=c++20", "-O1", "-pthread"))
 
 
 def _ptr(a: np.ndarray):

@@ -11,12 +11,14 @@ import pytest
 import torch
 
 from agilex_ntt_tpu_torch import (
-    CyclicRing, Ring, RNSRing, find_primes, golden as G,
+    CyclicRing, Ring, RNSRing, WideRing, find_primes, golden as G,
 )
 from agilex_ntt_tpu_torch.ops import basechange as B
 from agilex_ntt_tpu_torch.ops import fourstep as FS
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
+from agilex_ntt_tpu_torch.ops import wide as W
+from agilex_ntt_tpu_torch.ops import wide_kernel as WK
 from agilex_ntt_tpu_torch.params import find_psi
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +60,54 @@ def _transform_tables(device):
     return out
 
 
+def _wide_matches_cpu(device):
+    """WideRing on the card (ntt_wide.cuh) against the CPU's plain version,
+    every method, at a 45-bit and a 62-bit prime: one CTA a tile of rows at
+    n = 8 and 256, a row a CTA at 16384, the stage passes at 32768 and
+    65536 (one launch more for each doubling); inputs over the lazy ranges,
+    numpy and (lo, hi) pair I/O."""
+    rng = np.random.default_rng(9)
+    for n, batch in ((8, 1001), (256, 37), (16384, 3), (32768, 2),
+                     (65536, 2)):
+        for bits in (45, 62):
+            q = find_primes(n, 1, bits=bits)[0]
+            card = WideRing(n, q, device=device)
+            cpu = WideRing(n, q, device="cpu")
+            x4, a4, b4 = (rng.integers(0, 4 * q, size=(batch, n),
+                                       dtype=np.uint64) for _ in range(3))
+            y2 = rng.integers(0, 2 * q, size=(batch, n), dtype=np.uint64)
+            x4.flat[0], y2.flat[0] = 4 * q - 1, 2 * q - 1
+            a, b = a4 % np.uint64(q), b4 % np.uint64(q)
+            calls = (("ntt", (x4,), {}), ("intt", (y2,), {}),
+                     ("intt", (y2,), {"scale": 3 * q + 7}),
+                     ("polymul", (a, b), {}), ("polymul", (a, b[0]), {}),
+                     ("pointwise_mul", (a4, b4), {}), ("add", (a4, b4), {}),
+                     ("sub", (a4, b4), {}))
+            for name, args, kw in calls:
+                before = dict(K.LAUNCHES)
+                got = getattr(card, name)(*args, **kw)
+                want = getattr(cpu, name)(*args, **kw)
+                assert got.dtype == np.uint64 and np.array_equal(got, want), (
+                    n, bits, name, kw)
+                ran = {k: v - before[k] for k, v in K.LAUNCHES.items()
+                       if v != before[k]}
+                if name in ("ntt", "intt"):
+                    key = "wide_fwd" if name == "ntt" else "wide_inv"
+                    assert ran == {key: max(1, n.bit_length() - 14)}, ran
+            pair = tuple(torch.from_numpy(t).to(device)
+                         for t in W.split_u64_np(x4))
+            lo, hi = card.ntt(pair)
+            assert lo.device.type == "cuda" and lo.dtype == torch.uint32
+            assert np.array_equal(
+                W.join_u64_np(lo.cpu().numpy(), hi.cpu().numpy()),
+                cpu.ntt(x4))
+            if n == 256:
+                assert np.array_equal(card.ntt(x4[:4]),
+                                      G.fwd_ntt_u64(x4[:4], card.params))
+                assert np.array_equal(card.intt(y2[:4]),
+                                      G.inv_ntt_u64(y2[:4], card.params))
+
+
 @pytest.mark.parametrize("n,batch", [(8, 5), (32, 1000), (256, 1001),
                                      (4096, 64), (16384, 8), (32768, 4)])
 def test_transforms_match_plain(cuda, n, batch):
@@ -65,11 +115,13 @@ def test_transforms_match_plain(cuda, n, batch):
     kernels at one channel (``launch_info``: a CTA holds 4096 words), one
     launch a call; inputs over [0, 4q) and [0, 2q) with their tops and 0.
     The first case also runs the other callers' tables
-    (``_transform_tables``)."""
+    (``_transform_tables``), and the wide ring's kernels against the CPU's
+    (``_wide_matches_cpu``)."""
     ring = Ring(n, device=cuda)
     cases = [(f"ring n={n}", ring.tables, batch, (ring.polymul_scale,))]
     if (n, batch) == (8, 5):
         cases += _transform_tables(cuda)
+        _wide_matches_cpu(cuda)
     for what, tabs, batch, scales in cases:
         n, q = tabs.n, tabs.q
         gen = torch.Generator(cuda).manual_seed(n + batch)
@@ -145,6 +197,15 @@ def test_wrappers_refuse_mixed_devices(cuda):
     ring = Ring(64, device=cuda)
     with pytest.raises(ValueError, match="ring tables"):
         K.fwd_ntt(torch.zeros((2, 64), dtype=torch.uint32), ring.tables)
+    wide = WideRing(64, device=cuda)
+    cpu_pair = tuple(torch.zeros((2, 64), dtype=torch.uint32)
+                     for _ in range(2))
+    for call in (lambda: WK.wide_fwd(cpu_pair, wide.tables),
+                 lambda: WK.wide_inv(cpu_pair, wide.tables, 1),
+                 lambda: WK.wide_pointwise(cpu_pair, cpu_pair, wide.tables,
+                                           "add")):
+        with pytest.raises(ValueError, match="ring tables"):
+            call()
 
 
 def _channels(gen, qs, mult, shape, device):

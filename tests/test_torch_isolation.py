@@ -2,8 +2,9 @@
 command-line check, single- and multi-prime, the DIT inverse and the
 sharded ring, loads neither JAX nor the JAX package; and its CKKS, BGV and
 BFV evaluators run a key generation, an encryption and a multiply, the
-sharded RNS ring a channel x coefficient polymul and CKKS a multiply on a
-mesh, in an interpreter where importing either raises."""
+sharded RNS ring a channel x coefficient polymul, CKKS a multiply on a
+mesh and the wide ring a polymul, in an interpreter where importing either
+raises."""
 
 import subprocess
 import sys
@@ -16,7 +17,8 @@ import sys
 import agilex_ntt_tpu_torch
 from agilex_ntt_tpu_torch import RNSRing, Ring
 from agilex_ntt_tpu_torch.ops import (
-    basechange, dit_inv, fourstep, gadget, ntt_kernel, plain_ntt,
+    basechange, dit_inv, fourstep, gadget, ntt_kernel, plain_ntt, wide,
+    wide_kernel,
 )
 from agilex_ntt_tpu_torch.parallel import (
     chsp, fourstep_shard, mesh, overlap, shards, stage_shard,
@@ -111,6 +113,12 @@ ct = one.encrypt(one.encode(z), keys)
 want, got = one.multiply(ct, ct, keys), mctx.multiply(mctx.place(ct),
                                                      mctx.place(ct), keys)
 print("MESH", torch.equal(want.c0, got.c0) and torch.equal(want.c1, got.c1))
+from agilex_ntt_tpu_torch import WideRing, golden
+wr = WideRing(64, device="cpu")
+a = np.arange(1, 65, dtype=np.uint64) * np.uint64(72057594037927931)
+b = a[::-1] % np.uint64(wr.q)
+print("WIDE", [int(v) for v in wr.polymul(a, b)]
+      == golden.negacyclic_convolution(a, b, wr.q))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)
@@ -129,4 +137,5 @@ def test_ckks_runs_with_jax_and_the_jax_package_blocked():
     assert "BFVContext 1 True" in proc.stdout, proc.stdout
     assert "CHSP True" in proc.stdout, proc.stdout
     assert "MESH True" in proc.stdout, proc.stdout
+    assert "WIDE True" in proc.stdout, proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout
