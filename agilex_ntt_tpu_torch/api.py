@@ -202,9 +202,9 @@ class Ring(_TransformRing):
       psi: a primitive 2n-th root of unity mod q; default the one
         ``find_psi`` picks (the JAX package's choice).
       method: "radix2" (n <= 32768) or "fourstep"; default four-step above
-        32768.  "auto" is the JAX package's choice from its autotune cache;
-        the port has no such cache yet, so "auto" takes the default, as the
-        JAX package does when its cache has no entry.
+        32768.  "auto" takes the route that ``utils/autotune.py`` measured
+        fastest for this n and q's bit length on this device's kind (its
+        cache, at the largest tuned batch), and the default on a miss.
       fourstep_kernel: "tiled" (the default of a four-step ring) or "flat"
         (n <= ``FLAT_FUSE_MAX_N``).  "flat" is an alias kept for parity with
         the JAX package's API: on the card (B, n) and (B, n1, n2) are the
@@ -232,7 +232,13 @@ class Ring(_TransformRing):
         self.config = NTTConfig(n=n, q=q)
         self.n = n
         self.q = q
-        self.method = _resolve_method(n, None if method == "auto" else method)
+        if method == "auto":
+            # the persisted autotune cache (utils/autotune.py); a miss takes
+            # the default.  It is only read here.
+            from .utils.autotune import cached_config  # lazy: import cycle
+
+            method = (cached_config(n, q, device=device) or {}).get("method")
+        self.method = _resolve_method(n, method)
         if fourstep_kernel not in (None, "tiled", "flat"):
             raise ValueError(
                 f"unknown fourstep_kernel {fourstep_kernel!r}; "

@@ -140,7 +140,23 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       must launch; every output equals the plain limb-pair version
       (``ops/wide.py``) run on the card word for word (the polymul's
       Montgomery product also alone), its first rows the golden model,
-      and the KAT vectors their known answers.
+      and the KAT vectors their known answers;
+   j. the tooling and entry points: every preset's ``Ring`` and
+      ``RNSRing`` (``models/presets.py``) ntt, intt and polymul at B=64, the
+      first rows of each channel against the golden model;
+      ``utils/autotune.tune`` for ntt, intt and polymul at (4096, 8192),
+      (16384, 2048), (32768, 1024) and (65536, 512) into a temporary cache
+      (every candidate's time printed, none may fail), then
+      ``Ring(n, method="auto")`` on that cache: the winner's route, its
+      kernel by the counters (K1 or K7a) and its words equal to the
+      default ring's (``Ring(4096).ntt`` at B=8192 by ``device_time``,
+      ``device_time_profiled`` and ``cuda_time_ms`` is phase 4's, after its
+      profiler checks: a short profile can record nothing once about a
+      minute has passed since the process's first one); ``utils/report``'s
+      rows at (8192, 4096) and (1024, 32768) with each launched kernel's
+      ptxas lines and launch shape; and the ten examples
+      (``agilex_ntt_tpu_torch/examples``) through their ``main`` on the
+      card, each with its wall seconds.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -183,40 +199,28 @@ Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import io
 import json
-import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
-# int32 rates from the SM's pipes, at the clock behind the data sheet's
-# 67 TFLOP/s float32 (132 SMs x 128 FP32 lanes x 2 for an FMA = 1.98 GHz).
-# Multiplies issue only on the FMA pipe and compares, selects and min/max
-# only on the ALU pipe, each 64 lanes an SM; adds go to either pipe; an SM
-# issues at most 128 lane-operations a clock.
-INT32_PIPE_PER_S = 67e12 / 4
-INT32_ISSUE_PER_S = 67e12 / 2
-
-# int32 operations the kernels' arithmetic needs (ntt_arith.cuh) as
-# (multiplies, compares or selects, adds), each at its fewest instructions:
-# a Shoup product is 3 multiplies (the subtract fused into a multiply-add),
-# a conditional subtraction an add and an unsigned min, and x + y - z one
-# three-input add.
-OPS_BUTTERFLY = (3, 1, 3)  # CT or GS: a Shoup product, a cond_sub, 2 adds
-OPS_LAST_INV_BUTTERFLY = (6, 2, 4)  # two scaled products and reductions
-OPS_FINAL_REDUCE = (0, 2, 2)  # two conditional subtractions per output word
-OPS_MONT = (4, 1, 1)  # 4 multiplies, the carry test, one three-input add
-OPS_ACCUMULATE = (0, 1, 2)  # an add and a conditional subtraction
-OPS_SHOUP = (3, 0, 0)  # a lazy Shoup product, the subtract fused
-OPS_SCALE_REDUCE = (3, 1, 1)  # a Shoup product and a conditional subtraction
-# K11 a word: the forward stage's lazy Shoup product, conditional
-# subtraction and add (the role is one scalar a shard: no select); the
-# inverse v-half's difference and Shoup product
-OPS_XCHG_FWD = (3, 1, 2)
-OPS_XCHG_INV = (3, 0, 1)
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+# the profiler helpers and the bound model (PERF.md section 2)
+from agilex_ntt_tpu_torch.utils.profiling import (  # noqa: E402
+    XCHG_KERNEL, device_breakdown, kernel_share, kernels_seen,
+)
+from agilex_ntt_tpu_torch.utils.report import (  # noqa: E402
+    HBM_BYTES_PER_S, OPS_SCALE_REDUCE, OPS_SHOUP, OPS_WIDE_MONT,
+    OPS_XCHG_FWD, OPS_XCHG_INV, bound, butterflies, dot_ops, fwd4_ops,
+    fwd_ops, inv4_ops, inv_ops, ops_sum, polymul4_ops, ptxas_lines, scaled,
+    wide_fwd_ops, wide_inv_ops,
+)
 
 MAIN_N, MAIN_BATCH, MAIN_K, MAIN_DOT_BATCH = 4096, 8192, 3, 2048
 # (n, batch, polydot k, polydot batch)
@@ -404,18 +408,10 @@ WIDE_RINGS = ((MAIN_N, 62, MAIN_BATCH), (MAIN_N, 45, MAIN_BATCH),
 WIDE_KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "ntt_kat.npz"
 WIDE_GOLDEN_ROWS = 4
 WIDE_OPS = ("ntt", "intt", "polymul", "pointwise_mul", "add", "sub")
-# int32 instructions of the u64 arithmetic (ntt_wide.cuh), as (multiplies,
-# compares or selects, adds), counted at their fewest: a 64x64 wide
-# product (IMAD.WIDE) counts as two multiplies, a 64-bit add or subtract
-# as two adds, a 64-bit compare as two compares and a select as two.  A
-# 64-bit low product is one wide and two plain multiplies; __umul64hi four
-# wide products and four adds; a Shoup product (16, 0, 6) both lows, the
-# high and a subtract; a conditional subtraction (0, 4, 2) a subtract, a
-# compare and a select.
-OPS_WIDE_BUTTERFLY = (16, 4, 14)  # CT or GS: Shoup, cond_sub, 3 adds
-OPS_WIDE_FINAL = (0, 8, 4)  # two conditional subtractions a word
-OPS_WIDE_SCALE = (16, 4, 8)  # the inverse's scale: Shoup and cond_sub
-OPS_WIDE_MONT = (24, 2, 12)  # a full product, m, its high, the sum
+# phase 3j: the presets' batch, the autotuner's (n, batch), the report's
+TUNE_SHAPES = ((4096, 8192), (16384, 2048), (32768, 1024), (65536, 512))
+PRESET_BATCH = 64
+REPORT_SHAPES = ((MAIN_N, MAIN_BATCH), (32768, 1024))
 SINGLE = ("fwd", "inv", "polymul", "polydot")
 MULTI = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 FOURSTEP = ("fwd4", "inv4", "polymul4", "col_fwd", "col_inv")
@@ -437,100 +433,6 @@ def card_line() -> str:
     return out[0]
 
 
-def ops_sum(*terms):
-    """Sum of (count, (multiplies, compares, adds)) terms."""
-    return tuple(sum(c * ops[i] for c, ops in terms) for i in range(3))
-
-
-def fwd_ops(batch: int, n: int):
-    logn = n.bit_length() - 1
-    return ops_sum((batch * n // 2 * logn, OPS_BUTTERFLY),
-                   (batch * n, OPS_FINAL_REDUCE))
-
-
-def inv_ops(batch: int, n: int):
-    logn = n.bit_length() - 1
-    return ops_sum((batch * n // 2 * (logn - 1), OPS_BUTTERFLY),
-                   (batch * n // 2, OPS_LAST_INV_BUTTERFLY))
-
-
-def dot_ops(batch: int, k: int, n: int):
-    return ops_sum((2 * k, fwd_ops(batch, n)), (batch * n * k, OPS_MONT),
-                   (batch * n * (k - 1), OPS_ACCUMULATE),
-                   (1, inv_ops(batch, n)))
-
-
-def butterflies(batch: int, n: int):
-    """log2(n) stages of plain butterflies: no final reduction and no
-    scaled last stage."""
-    return ops_sum((batch * n // 2 * (n.bit_length() - 1), OPS_BUTTERFLY))
-
-
-def fwd4_ops(batch: int, n1: int, n2: int, *, rows: bool = True):
-    """The forward four-step transform: size-n1 column transforms, the
-    twiddle product, and (with ``rows``) size-n2 row transforms.  The lazy
-    Shoup twiddle takes any 32-bit word, so the whole transform needs no
-    reduction before T; the column pass alone (K9a) does one."""
-    n = n1 * n2
-    terms = [(1, butterflies(batch * n2, n1)), (batch * n, OPS_SHOUP)]
-    if rows:
-        terms.append((1, fwd_ops(batch * n1, n2)))
-    else:  # the column pass alone returns the reference's lazy words,
-        # whose column transform is reduced before T
-        terms.append((batch * n, OPS_FINAL_REDUCE))
-    return ops_sum(*terms)
-
-
-def inv4_ops(batch: int, n1: int, n2: int, *, rows: bool = True):
-    """The inverse: (with ``rows``) size-n2 row inverses, the inverse
-    twiddle, and size-n1 column inverses whose last stage folds the scale.
-    One scaled stage is enough for the whole transform, and the inverse
-    twiddle takes the rows' unreduced [0, 2q) output."""
-    n = n1 * n2
-    terms = [(batch * n, OPS_SHOUP), (1, inv_ops(batch * n2, n1))]
-    if rows:
-        terms.append((1, butterflies(batch * n1, n2)))
-    return ops_sum(*terms)
-
-
-def polymul4_ops(batch: int, n1: int, n2: int):
-    return ops_sum((2, fwd4_ops(batch, n1, n2)), (batch * n1 * n2, OPS_MONT),
-                   (1, inv4_ops(batch, n1, n2)))
-
-
-def wide_fwd_ops(batch: int, n: int):
-    logn = n.bit_length() - 1
-    return ops_sum((batch * n // 2 * logn, OPS_WIDE_BUTTERFLY),
-                   (batch * n, OPS_WIDE_FINAL))
-
-
-def wide_inv_ops(batch: int, n: int):
-    logn = n.bit_length() - 1
-    return ops_sum((batch * n // 2 * logn, OPS_WIDE_BUTTERFLY),
-                   (batch * n, OPS_WIDE_SCALE))
-
-
-def scaled(L: int, ops):
-    """The operations of L channels."""
-    return tuple(L * v for v in ops)
-
-
-def bound(words_moved: int, ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    the int32 operations over the rate of the pipes they need."""
-    mul, cmp, add = ops
-    t_bytes = words_moved * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = max(mul / INT32_PIPE_PER_S, cmp / INT32_PIPE_PER_S,
-                (mul + cmp + add) / INT32_ISSUE_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-# names of ntt_kernels.cu's kernels, demangled or not
-OUR_KERNEL = re.compile(
-    r"(?<![A-Za-z_])(fwd4|inv4|polymul4|col_fwd4|col_inv4"
-    r"|fwd4_cluster|inv4_cluster|polymul4_cluster|col_fwd4_slab"
-    r"|col_inv4_slab|polydot_rns_cluster|fwd_rns_cluster|inv_rns_cluster"
-    r"|dit_inv_cluster|xchg_group)_kernel")
 # wrapper counter -> (TPU kernel, its cluster or slab kernel)
 CLUSTER_KERNELS = {"fwd4": ("K7a", "fwd4_cluster_kernel"),
                    "inv4": ("K7b", "inv4_cluster_kernel"),
@@ -544,88 +446,9 @@ RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
                "inv_rns": ("K4b", "inv_rns_cluster_kernel")}
 ONE_KERNELS = {"fwd": ("K1", "fwd_rns_cluster_kernel"),
                "inv": ("K2", "inv_rns_cluster_kernel")}
-XCHG_KERNEL = re.compile(r"(?<![A-Za-z_])xchg_group_kernel")
 DIT_KERNEL = "dit_inv_cluster_kernel"
 WIDE_KERNELS = ("wide_fwd_kernel", "wide_fwd_pass_kernel", "wide_inv_kernel",
                 "wide_inv_pass_kernel", "wide_pointwise_kernel")
-
-
-def device_breakdown(torch, call, what: str, call_ms: float, top: int = 5):
-    """Where one call's device time goes, from ``torch.profiler``: the
-    kernels' device time (each kernel counted once, by its own event),
-    split into this repository's NTT kernels and the PyTorch operations
-    around them, against ``call_ms``, the call's unprofiled time on CUDA
-    events; and the PyTorch operations that launched the most of it.
-    Returns the names of the kernels that ran."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        log(f"  {what}: the profiler recorded no device time")
-        return []
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    ntt = sum(e.self_device_time_total for e in kernels
-              if OUR_KERNEL.search(e.key)) / 1e3
-    launches = sum(e.count for e in kernels)
-    log(f"  {what}: {launches} kernel launches, device busy {busy:.4f} ms of "
-        f"{call_ms:.4f} ms a call ({1 - busy / call_ms:.1%} idle): NTT "
-        f"kernels {ntt:.4f} ms, PyTorch ops {busy - ntt:.4f} ms")
-    ops = [e for e in events if e.device_type == DeviceType.CPU
-           and e.key.startswith("aten::")]
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"    {e.key:24s} {e.count:5d} calls, {e.self_device_time_total / 1e3:.4f} "
-            f"ms on the device")
-    return [e.key for e in kernels]
-
-
-def kernels_seen(torch, call):
-    """(name, launches, device ms) of each kernel one call launched, from
-    ``torch.profiler``; empty when the profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return [(e.key[:70], e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
-
-
-def kernel_share(torch, call, what: str) -> None:
-    """K11's launches and share of one call's device time
-    (``torch.profiler``), beside the call's other kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
-    if not kernels:
-        log(f"  {what}: the profiler recorded no device time")
-        return
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    xchg = [e for e in kernels if XCHG_KERNEL.search(e.key)]
-    x_ms = sum(e.self_device_time_total for e in xchg) / 1e3
-    log(f"  {what}: K11 {sum(e.count for e in xchg)} launches, {x_ms:.4f} ms "
-        f"= {x_ms / busy:.1%} of {busy:.4f} ms device time "
-        f"({sum(e.count for e in kernels)} kernel launches in all)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]:
-        log(f"    {e.key[:60]:60s} {e.count:5d} x, "
-            f"{e.self_device_time_total / 1e3:.4f} ms")
 
 
 def ckks_path(np, CKKSContext, device, rows=None) -> dict:
@@ -1053,7 +876,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
     from agilex_ntt_tpu_torch import (
@@ -1063,7 +885,9 @@ def main() -> int:
     from agilex_ntt_tpu_torch.ops import fourstep as FS
     from agilex_ntt_tpu_torch.ops import ntt_kernel as K
     from agilex_ntt_tpu_torch.ops import plain_ntt as P
-    from agilex_ntt_tpu_torch.utils.profiling import cuda_time_ms
+    from agilex_ntt_tpu_torch.utils.profiling import (
+        cuda_time_ms, device_time, device_time_profiled,
+    )
     from agilex_ntt_tpu_torch.utils.xchg_probe import profiled
 
     t_start = time.perf_counter()
@@ -1078,16 +902,10 @@ def main() -> int:
     lib_path = _build.build()
     _build.load()
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    kernel = "?"
-    ptxas = {}  # kernel -> its register and spill lines
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        # the length prefix of the mangled name, then e.g. fwd4_cluster_kernel
-        entry = re.search(r"\d+([a-z][a-z_]*\d?(?:_[a-z]+)*_kernel)[EI]", line)
-        if "Compiling entry" in line and entry:
-            kernel = entry.group(1)
-        elif "registers" in line or "spill" in line:
-            ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
-            log(f"  ptxas {kernel}: " + ptxas[kernel][-1])
+    ptxas = ptxas_lines(lib_path.parent / "build.log")  # kernel -> its lines
+    for kernel, lines in ptxas.items():
+        for line in lines:
+            log(f"  ptxas {kernel}: {line}")
 
     # -- 2. each kernel against its plain version ------------------------------
     def rand(gen, bound_, shape):
@@ -2287,6 +2105,137 @@ def main() -> int:
 
     wide_cases, wide_launches = wide_path()
     torch.cuda.empty_cache()
+
+    # -- 3j. the tooling and entry points -------------------------------------
+    def tooling_path():
+        """Phase 3j: the presets against the golden model, the autotuner
+        into a temporary cache and ``Ring(method="auto")`` reading it, the
+        three timers side by side, the report's rows, and every example."""
+        from agilex_ntt_tpu_torch import examples
+        from agilex_ntt_tpu_torch.models import PRESETS, preset_ring, preset_rns
+        from agilex_ntt_tpu_torch.utils import autotune, report
+
+        t3j = time.perf_counter()
+        g = GOLDEN_ROWS
+        log(f"presets: Ring and RNSRing of each on the card, ntt, intt and "
+            f"polymul at B={PRESET_BATCH}, the first {g} rows (each channel's) "
+            "against the golden model:")
+        for name, p in PRESETS.items():
+            one, rns_ = preset_ring(name, device=dev), preset_rns(name, device=dev)
+            gen = torch.Generator(dev).manual_seed(p.n)
+            for label, ring_, chans in (
+                    (f"Ring q={one.q}", one, [one.params]),
+                    (f"RNSRing L={rns_.L}", rns_, [r.params for r in rns_.rings])):
+                shape = (len(chans), PRESET_BATCH, p.n)
+                a_, b_ = (torch.stack([rand(gen, c.q, shape[1:]) for c in chans])
+                          .to(torch.uint32).view(shape[1:] if ring_ is one else shape)
+                          for _ in range(2))
+                fa = ring_.ntt(a_)
+                outs = {"ntt": fa, "intt": ring_.intt(fa),
+                        "polymul": ring_.polymul(a_, b_)}
+
+                def rows(t, ch):  # channel ch's first g rows on the host
+                    return t.reshape(shape)[ch, :g].cpu().numpy().astype(np.uint64)
+
+                for ch, params in enumerate(chans):
+                    q64 = np.uint64(params.q)
+                    want_f = G.fwd_ntt_u64(rows(a_, ch), params)
+                    want = {"ntt": want_f,
+                            "intt": G.inv_ntt_u64(want_f, params),
+                            "polymul": G.inv_ntt_u64(
+                                want_f * G.fwd_ntt_u64(rows(b_, ch), params) % q64,
+                                params)}
+                    for what, got_ in outs.items():
+                        if not np.array_equal(rows(got_, ch), want[what]):
+                            raise AssertionError(
+                                f"preset {name} {label} channel {ch} {what} "
+                                "disagrees with the golden model")
+            log(f"  {name:7s} n={p.n:5d} L={p.num_primes} ({p.note}): Ring and "
+                f"RNSRing ntt, intt, polymul equal the golden model")
+
+        with tempfile.TemporaryDirectory() as td:
+            cache = os.path.join(td, "autotune.json")
+            os.environ["NTT_TORCH_AUTOTUNE_CACHE"] = cache
+            try:
+                log("autotune.tune into a temporary cache (default timer: the "
+                    "least of 3 device_time runs; ms a call):")
+                winners = {}
+                for n_, b_ in TUNE_SHAPES:
+                    for op in autotune._OPS:
+                        r = autotune.tune(n_, b_, op, cache_path=cache,
+                                          device=dev)
+                        cands = "; ".join(
+                            f"{c['config']['method']} "
+                            + (f"{c['seconds'] * 1e3:.4f}" if c["seconds"]
+                               is not None else f"FAILED {c['error']}")
+                            for c in r["candidates"])
+                        log(f"  {op:7s} n={n_:5d} B={b_:4d}: {cands} -> "
+                            f"{r['config']['method']}")
+                        failed = [c for c in r["candidates"]
+                                  if c["seconds"] is None]
+                        if failed:
+                            raise AssertionError(f"autotune candidates failed "
+                                                 f"at {op} n={n_}: {failed}")
+                        winners[(op, n_)] = r["config"]["method"]
+                log('Ring(n, method="auto") on that cache: its route, its '
+                    "launches of one ntt, its words against the default ring's:")
+                for n_, b_ in TUNE_SHAPES:
+                    auto = Ring(n_, method="auto", device=dev)
+                    if auto.method != winners[("ntt", n_)]:
+                        raise AssertionError(
+                            f"Ring({n_}, method='auto') took {auto.method}, the "
+                            f"cache's winner is {winners[('ntt', n_)]}")
+                    plain_ring = Ring(n_, device=dev)
+                    x_ = rand(torch.Generator(dev).manual_seed(n_), auto.q,
+                              (b_, n_)).to(torch.uint32)
+                    torch.cuda.synchronize()
+                    for key in K.LAUNCHES:
+                        K.LAUNCHES[key] = 0
+                    y_auto = auto.ntt(x_)
+                    torch.cuda.synchronize()
+                    seen = {k: v for k, v in K.LAUNCHES.items() if v}
+                    want_keys = ({"fwd"} if auto.method == "radix2"
+                                 else {"fwd4"})
+                    if set(seen) != want_keys:
+                        raise AssertionError(
+                            f"Ring({n_}, method='auto') ({auto.method}) "
+                            f"launched {seen}, not {want_keys}")
+                    if not torch.equal(y_auto, plain_ring.ntt(x_)):
+                        raise AssertionError(
+                            f"Ring({n_}, method='auto').ntt differs from the "
+                            "default ring's")
+                    log(f"  n={n_:5d}: {auto.method} (default "
+                        f"{plain_ring.method}), launches {seen} "
+                        f"({'K1' if auto.method == 'radix2' else 'K7a'}), "
+                        "words equal to the default ring's")
+            finally:
+                del os.environ["NTT_TORCH_AUTOTUNE_CACHE"]
+
+            log("report.kernel_report (H100 SXM derivation constants):")
+            for n_, b_ in REPORT_SHAPES:
+                for line in report.format_rows(
+                        report.kernel_report(n_, b_, out_dir=td, device=dev)):
+                    log(f"  {line}")
+
+        log("examples, each through its main on the card (wall seconds, its "
+            "last line):")
+        for name in examples.NAMES:
+            mod = importlib.import_module(f"agilex_ntt_tpu_torch.examples.{name}")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    mod.main(["--device", "cuda"])
+                torch.cuda.synchronize()
+            except BaseException:
+                log(f"  example {name} failed; its output:\n{out.getvalue()}")
+                raise
+            last = out.getvalue().strip().splitlines()[-1]
+            log(f"  {name:22s} rc 0 in {time.perf_counter() - t0:.2f} s: {last}")
+        log(f"phase 3j took {time.perf_counter() - t3j:.1f} s")
+
+    tooling_path()
+    torch.cuda.empty_cache()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -2881,9 +2830,9 @@ def main() -> int:
             f"{counted(single)}, sharded {ms:9.4f} ms {counted(sharded)}")
     log(f"  (timed in {time.perf_counter() - t_h:.1f} s)")
     log("where the key switch's device time goes (torch.profiler, one call):")
-    device_breakdown(torch, lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
+    device_breakdown(lambda: ks_ring.keyswitch(ks_x, ksk, ext_ring, dnum),
                      "keyswitch coeff keys", call_ms["keyswitch coeff keys"])
-    device_breakdown(torch, lambda: ks_ring.keyswitch(
+    device_breakdown(lambda: ks_ring.keyswitch(
         ks_x, ksk_ntt, ext_ring, dnum, ksk_domain="ntt"), "keyswitch ntt keys",
         call_ms["keyswitch ntt keys"])
     # profiled after every timing, so that no profiler session precedes a
@@ -2900,7 +2849,7 @@ def main() -> int:
                 ("col_fwd", lambda: K.fwd_col_fourstep(xi, ft)),
                 ("col_inv", lambda: K.inv_col_fourstep(yi, ft))):
             what, name = CLUSTER_KERNELS[key]
-            seen = kernels_seen(torch, call)
+            seen = kernels_seen(call)
             log(f"  n={n_} B={xi.shape[0]} {what}: " +
                 ", ".join(f"{k} {c} x {ms:.4f} ms" for k, c, ms in seen))
             if seen and not any(name in k for k, _, _ in seen):
@@ -2932,7 +2881,7 @@ def main() -> int:
             (f"K11 {xshape}", lambda: K.xchg_step(*x32s, q=xq, fwd=True,
                                                   is_u=True),
              "xchg_group_kernel")):
-        seen = kernels_seen(torch, call)
+        seen = kernels_seen(call)
         log(f"  {what}: " + ", ".join(f"{k} {c} x {ms:.4f} ms"
                                       for k, c, ms in seen))
         if seen and not any(kernel in k for k, _, _ in seen):
@@ -2943,7 +2892,7 @@ def main() -> int:
     log("host-to-device copies in a call after the first (torch.profiler):")
 
     def copies_in(call):
-        return [(k, c) for k, c, _ in kernels_seen(torch, call) if "HtoD" in k]
+        return [(k, c) for k, c, _ in kernels_seen(call) if "HtoD" in k]
 
     control = copies_in(lambda: torch.ones(4, dtype=torch.int32).to(dev))
     log(f"  control, a host tensor to the card: {control}")
@@ -2961,11 +2910,27 @@ def main() -> int:
         log(f"  {what}: {copies if copies else 'none'}")
         if copies:
             raise AssertionError(f"{what} copies to the card on every call")
+    # phase 3j's three timers, taken here: about a minute after a process's
+    # first torch.profiler session its one-launch sessions recorded no
+    # kernel (utils/profiler_probe.py), so phase 3j opens no session before
+    # phase 4's checks above
+    ring_ = Ring(MAIN_N, device=dev)
+    x_ = rand(torch.Generator(dev).manual_seed(3), ring_.q,
+              (MAIN_BATCH, MAIN_N)).to(torch.uint32)
+    t_delta = device_time(ring_.ntt, x_) * 1e3
+    t_prof = device_time_profiled(ring_.ntt, x_, iters=8)
+    t_events = cuda_time_ms(lambda: ring_.ntt(x_))
+    prof_note = ("the profiler recorded no device event"
+                 if t_prof is None else f"{t_prof * 1e3:.4f} ms")
+    log(f"Ring({MAIN_N}).ntt at B={MAIN_BATCH}, three timers: "
+        f"device_time {t_delta:.4f} ms, device_time_profiled "
+        f"{prof_note}, cuda_time_ms {t_events:.4f} ms")
+
     log("K11's share of a sharded transform's device time (torch.profiler):")
     for comm, sr in srs.items():
-        kernel_share(torch, lambda: sr.ntt(sx),
+        kernel_share(lambda: sr.ntt(sx),
                      f"ShardedRing.ntt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
-        kernel_share(torch, lambda: sr.intt(sx),
+        kernel_share(lambda: sr.intt(sx),
                      f"ShardedRing.intt ({comm}, n={SHARD_N}, B={SHARD_BATCH})")
     # K11 by its device time: CUDA events around back-to-back calls of a
     # 15 us kernel time the wrapper's enqueue, not the kernel.  One shard's
@@ -3020,7 +2985,7 @@ def main() -> int:
     t_int, int_kernels = time.perf_counter(), set()
     for what, call in ik["calls"].items():
         if what != "BGV apply_matvec":
-            int_kernels.update(device_breakdown(torch, call, what,
+            int_kernels.update(device_breakdown(call, what,
                                                 int_ms[what], top=3))
     log(f"  (profiled in {time.perf_counter() - t_int:.1f} s)")
     # K1 and K2 launch the kernels of K4a and K4b at one channel: the
@@ -3039,12 +3004,12 @@ def main() -> int:
         "card (torch.profiler, one call; kernel launches of every kind):")
     for name in ("CKKS multiply", "BGV multiply", "BFV multiply"):
         what = f"{name} dp={SHARD_KS_DP}"
-        device_breakdown(torch, sch[name][0], what, mesh_ms[what], top=3)
+        device_breakdown(sch[name][0], what, mesh_ms[what], top=3)
     log("where the CKKS ops' device time goes (torch.profiler, one call; "
         "kernel launches of every kind):")
     t_ck, ckks_kernels = time.perf_counter(), set()
     for what, call in ck["calls"].items():
-        ckks_kernels.update(device_breakdown(torch, call, what, ckks_ms[what],
+        ckks_kernels.update(device_breakdown(call, what, ckks_ms[what],
                                              top=3))
     log(f"  (profiled in {time.perf_counter() - t_ck:.1f} s)")
     want_kernels = (RNS_KERNELS["fwd_rns"][1], RNS_KERNELS["inv_rns"][1],
@@ -3056,7 +3021,7 @@ def main() -> int:
         if len(seen) != len(want_kernels):
             raise AssertionError(f"the profiler saw no {set(want_kernels) - set(seen)} "
                                  "in the CKKS calls")
-    device_breakdown(torch, ik["calls"]["BGV apply_matvec"], "BGV apply_matvec",
+    device_breakdown(ik["calls"]["BGV apply_matvec"], "BGV apply_matvec",
                      int_ms["BGV apply_matvec"], top=3)
     # the kernels line gives K11 its device time at the whole shard
     for row in rows:

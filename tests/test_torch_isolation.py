@@ -3,8 +3,8 @@ command-line check, single- and multi-prime, the DIT inverse and the
 sharded ring, loads neither JAX nor the JAX package; and its CKKS, BGV and
 BFV evaluators run a key generation, an encryption and a multiply, the
 sharded RNS ring a channel x coefficient polymul, CKKS a multiply on a
-mesh and the wide ring a polymul, in an interpreter where importing either
-raises."""
+mesh and the wide ring a polymul, an example its checks and the autotuner
+a choice, in an interpreter where importing either raises."""
 
 import subprocess
 import sys
@@ -23,7 +23,16 @@ from agilex_ntt_tpu_torch.ops import (
 from agilex_ntt_tpu_torch.parallel import (
     chsp, fourstep_shard, mesh, overlap, shards, stage_shard,
 )
-from agilex_ntt_tpu_torch.utils import crt, profiling
+from agilex_ntt_tpu_torch.utils import (
+    autotune, crt, profiler_probe, profiling, report,
+)
+from agilex_ntt_tpu_torch import examples, native
+from agilex_ntt_tpu_torch.models import presets
+from agilex_ntt_tpu_torch.examples import _common
+for name in examples.NAMES:
+    __import__(f"agilex_ntt_tpu_torch.examples.{name}")
+presets.preset_rns("n4096", device="cpu")
+report.kernel_report(1024, 4, out_dir=sys.argv[1], device="cpu")
 from agilex_ntt_tpu_torch import schemes
 from agilex_ntt_tpu_torch.schemes import bfv, bgv, ckks
 from agilex_ntt_tpu_torch.__main__ import main
@@ -51,9 +60,9 @@ print("LEAKED", leaked)
 """
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     proc = subprocess.run(
-        [sys.executable, "-c", PROBE],
+        [sys.executable, "-c", PROBE, str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -119,6 +128,12 @@ a = np.arange(1, 65, dtype=np.uint64) * np.uint64(72057594037927931)
 b = a[::-1] % np.uint64(wr.q)
 print("WIDE", [int(v) for v in wr.polymul(a, b)]
       == golden.negacyclic_convolution(a, b, wr.q))
+from agilex_ntt_tpu_torch.examples import bgv_exact
+bgv_exact.main(["--device", "cpu"])
+from agilex_ntt_tpu_torch.utils import autotune
+picked = autotune.tune(16384, 2, "polymul", timer=lambda fn, x, it: 1.0,
+                       use_cache=False, device="cpu")
+print("TUNED", picked["config"])
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)
@@ -138,4 +153,6 @@ def test_ckks_runs_with_jax_and_the_jax_package_blocked():
     assert "CHSP True" in proc.stdout, proc.stdout
     assert "MESH True" in proc.stdout, proc.stdout
     assert "WIDE True" in proc.stdout, proc.stdout
+    assert "bgv_exact: all checks passed with ==" in proc.stdout, proc.stdout
+    assert "TUNED {'method': 'radix2'}" in proc.stdout, proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout
