@@ -14,6 +14,15 @@ bit-identical to the single-device transforms.
 
 ``comm="overlap"`` keeps the JAX package's chunking: the local batch is
 split into up to ``_OVERLAP_CHUNKS`` independent chains.
+
+On a mesh of several processes (``multihost.pod_mesh``) ``fwd_grid`` and
+``inv_grid`` take the sp group of this process (``line``) and run SPMD on
+its one shard: the column pass (K1 on the column tables), its slice of the
+twiddle and the row pass as above, the two retiles an ``all_to_all`` each
+over the sp group (``comm.all_to_all``).  With ``"overlap"`` the chunks'
+retiles are posted ahead: every chunk's first retile at once, then each
+chunk's second as soon as its column pass is done, so that a chunk's
+retile is on the wire while the next chunk computes.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from ..ops import modmul as mm
 from ..ops import ntt_kernel as K
 from ..ops.fourstep import FourStepPlan
 from ..ops.plain_ntt import FourStepTables, make_fourstep_tables
+from . import comm as transport
 from . import shards
 
 COMMS = ("ppermute", "overlap")
@@ -133,13 +143,18 @@ def _inv_body(ys, plan: FourStepPlan, scale: int):
     return [_cols_to_rows(cms, d, n1p).reshape(b, n1p * n2) for d in range(P)]
 
 
+def _num_chunks(b: int) -> int:
+    nch = _OVERLAP_CHUNKS
+    while nch > 1 and b % nch:
+        nch //= 2
+    return nch
+
+
 def _chunked(body, xs, *args):
     """``body`` on up to ``_OVERLAP_CHUNKS`` independent batch chunks of the
     shards, joined back per shard."""
     b = xs[0].shape[0]
-    nch = _OVERLAP_CHUNKS
-    while nch > 1 and b % nch:
-        nch //= 2
+    nch = _num_chunks(b)
     if nch == 1:
         return body(xs, *args)
     step = b // nch
@@ -149,6 +164,78 @@ def _chunked(body, xs, *args):
         shards.u32(torch.cat([shards.words(o[d]) for o in outs], dim=0))
         for d in range(len(xs))
     ]
+
+
+def _row_chunks(b: int, comm: str):
+    """The batch rows of each chunk: one chunk for "ppermute", the
+    ``_chunked`` count for "overlap"."""
+    step = b // (_num_chunks(b) if comm == "overlap" else 1)
+    return [slice(r, r + step) for r in range(0, b, step)]
+
+
+def _stacked(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The (P, ...) blocks of an ``all_to_all``, joined in order along
+    ``dim`` of a block."""
+    return shards.u32(torch.cat(list(shards.words(t).unbind(0)), dim=dim))
+
+
+def _rows_out(outs) -> torch.Tensor:
+    if len(outs) == 1:
+        return outs[0]
+    return shards.u32(torch.cat([shards.words(o) for o in outs], dim=0))
+
+
+def _fwd_line(x, line, plan: FourStepPlan, comm: str):
+    """``fwd_group`` of this process's shard ``x``, shard ``line.index`` of
+    the sp group ``line`` whose other shards are in other processes."""
+    P, d = line.size, line.index
+    n1, n2 = plan.n1, plan.n2
+    n1p, n2p = n1 // P, n2 // P
+    ft = _tables(plan, x.device)
+    m = x.view(x.shape[0], n1p, n2)
+    chunks = _row_chunks(x.shape[0], comm)
+    to_cols = [transport.all_to_all(
+        [m[c, :, e * n2p:(e + 1) * n2p] for e in range(P)], line)
+        for c in chunks]
+    to_rows = []
+    for c, pending in zip(chunks, to_cols):
+        b = c.stop - c.start
+        yc = K.fwd_ntt(_columns(_stacked(pending.wait(), 1)), ft.col)
+        mid = _twiddle(_uncolumns(yc, b, n2p), plan, P, d, False)
+        to_rows.append(transport.all_to_all(
+            [mid[:, e * n1p:(e + 1) * n1p] for e in range(P)], line))
+    outs = []
+    for c, pending in zip(chunks, to_rows):
+        b = c.stop - c.start
+        rows = _stacked(pending.wait(), 2).reshape(b * n1p, n2)
+        outs.append(K.fwd_ntt(rows, ft.row).view(b, n1p * n2))
+    return _rows_out(outs)
+
+
+def _inv_line(y, line, plan: FourStepPlan, scale: int, comm: str):
+    """``inv_group`` of this process's shard ``y`` (as ``_fwd_line``)."""
+    P, d = line.size, line.index
+    n1, n2 = plan.n1, plan.n2
+    n1p, n2p = n1 // P, n2 // P
+    ft = _tables(plan, y.device)
+    chunks = _row_chunks(y.shape[0], comm)
+    to_cols = []
+    for c in chunks:
+        b = c.stop - c.start
+        m = K.inv_ntt(y[c].view(b * n1p, n2), ft.row).view(b, n1p, n2)
+        to_cols.append(transport.all_to_all(
+            [m[:, :, e * n2p:(e + 1) * n2p] for e in range(P)], line))
+    to_rows = []
+    for c, pending in zip(chunks, to_cols):
+        b = c.stop - c.start
+        mu = _twiddle(_stacked(pending.wait(), 1), plan, P, d, True)
+        cm = _uncolumns(K.inv_ntt(_columns(mu), ft.col,
+                                  scale=ft.col_scale(scale)), b, n2p)
+        to_rows.append(transport.all_to_all(
+            [cm[:, e * n1p:(e + 1) * n1p] for e in range(P)], line))
+    return _rows_out([
+        _stacked(pending.wait(), 2).reshape(c.stop - c.start, n1p * n2)
+        for c, pending in zip(chunks, to_rows)])
 
 
 def fwd_group(xs, plan: FourStepPlan, comm: str = "ppermute"):
@@ -173,17 +260,24 @@ def _check_call(plan: FourStepPlan, num_devices: int, comm: str) -> None:
         raise ValueError(f"unknown comm {comm!r}")
 
 
-def fwd_grid(grid, plan: FourStepPlan, comm: str = "ppermute"):
-    """``fwd_group`` on every sp group (dp row) of a grid."""
+def fwd_grid(grid, plan: FourStepPlan, comm: str = "ppermute", line=None):
+    """``fwd_group`` on every sp group (dp row) of a grid; with ``line``
+    (a grid of one shard a process) on this process's shard."""
     _check_call(plan, len(grid[0]), comm)
+    if line is not None:
+        return shards.map_grid(lambda x: _fwd_line(x, line, plan, comm), grid)
     return [fwd_group(row, plan, comm) for row in grid]
 
 
 def inv_grid(grid, plan: FourStepPlan, scale: Optional[int] = None,
-             comm: str = "ppermute"):
-    """``inv_group`` on every sp group of a grid; scale defaults to n^-1."""
+             comm: str = "ppermute", line=None):
+    """``inv_group`` on every sp group of a grid; scale defaults to n^-1.
+    ``line`` as in :func:`fwd_grid`."""
     _check_call(plan, len(grid[0]), comm)
     scale = plan.n_inv if scale is None else scale
+    if line is not None:
+        return shards.map_grid(
+            lambda y: _inv_line(y, line, plan, scale, comm), grid)
     return [inv_group(row, plan, scale, comm) for row in grid]
 
 

@@ -16,6 +16,11 @@ rows block; coefficient sharding (sp) runs the stage-sharded transform
 (ch): whole channels a device, on the multi-prime kernels, or with sp the
 channel x coefficient four-step transform (``chsp.py``).  Results are
 bit-identical to the single-device ring.
+
+A mesh may also span several processes, one card each
+(``multihost.pod_mesh``): ``ShardedRing`` then runs SPMD, each process on
+its own block, the blocks moving between processes in ``comm.py``.
+``ShardedRNSRing`` takes single-process meshes only.
 """
 
 from __future__ import annotations
@@ -34,19 +39,44 @@ from . import chsp, fourstep_shard, shards, stage_shard
 
 
 class Mesh:
-    """Named axes over a grid of devices (``make_mesh``).
+    """Named axes over a grid of devices (``make_mesh``, ``pod_mesh``).
 
     ``devices`` is a numpy object array of ``torch.device`` with one
-    dimension per axis; ``shape`` maps each axis name to its size."""
+    dimension per axis; ``shape`` maps each axis name to its size.
 
-    def __init__(self, devices: np.ndarray, axis_names):
+    A mesh of several processes (``multihost.pod_mesh``) also records
+    ``owners``, the rank that owns each position (an int array shaped like
+    ``devices``), this process's ``rank``, the group of every process
+    (``process_group``) and, for each axis, the group of each line of
+    positions along it (``axis_groups[axis][ranks]``).  A device of
+    another rank is that rank's to address, not this process's.  In a
+    single-process mesh ``owners`` is None and every position is local."""
+
+    def __init__(self, devices: np.ndarray, axis_names, *, owners=None,
+                 rank: int = 0, process_group=None, axis_groups=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        self.owners = owners
+        self.rank = rank
+        self.process_group = process_group
+        self.axis_groups = axis_groups or {}
 
     def device(self, **coords: int) -> torch.device:
         """The device at the given axis coordinates (others at 0)."""
         return self.devices[tuple(coords.get(a, 0) for a in self.axis_names)]
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.owners is not None
+
+    @property
+    def home(self) -> torch.device:
+        """This process's device: its own position's in a mesh of several
+        processes, the first device otherwise."""
+        if self.owners is None:
+            return self.devices.flat[0]
+        return self.devices.flat[int(np.flatnonzero(self.owners == self.rank)[0])]
 
     def __repr__(self):
         return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
@@ -82,14 +112,17 @@ def make_mesh(*, devices=None, **axes: int) -> Mesh:
 def dp_shard_batch(x, mesh: Mesh, axis: str = "dp"):
     """Place (B, ..., n) with the batch sharded over ``axis``: a list of the
     rows blocks, block i on the mesh device at ``axis`` = i.  ShardedRing's
-    methods take the list as they take the global tensor."""
+    methods take the list as they take the global tensor.  On a mesh of
+    several processes every block stays on this process's device (the
+    others' devices are theirs to address)."""
     P = mesh.shape[axis]
-    x = shards.as_u32(x, mesh.device())
+    x = shards.as_u32(x, mesh.home)
     shards.check_batch(x, P, "dp_shard_batch")
     rows = x.shape[0] // P
     return [
         shards.u32(shards.words(x[i * rows:(i + 1) * rows])
-                   .to(mesh.device(**{axis: i})).contiguous())
+                   .to(mesh.home if mesh.multiprocess
+                       else mesh.device(**{axis: i})).contiguous())
         for i in range(P)
     ]
 
@@ -106,12 +139,19 @@ class ShardedRing:
                     (``fourstep_shard.py``); the default for four-step rings.
     sp_comm ("stage" only): "ppermute" copies the partner's whole shard
         before each cross stage; "overlap" reads it in place
-        (``overlap.py``).  Bit-identical.
+        (``overlap.py``), or across processes takes it in chunks, each
+        computed as it arrives.  Bit-identical.
     Either axis may be None.  Methods take the global (B, n) tensor (or the
     list ``dp_shard_batch`` gives) and return the global result on the
     mesh's first device; inside ``polymul`` and ``polydot`` the shards stay
     on their devices between steps.  All results are bit-identical to the
     single-device ring.
+
+    On a mesh of several processes (``multihost.pod_mesh``) every process
+    calls each method with the same global tensor, the axes give each
+    process one block, and each process transforms its own block (SPMD);
+    the blocks move between processes through ``comm.py`` and every process
+    gets the global result on its own device.
     """
 
     def __init__(
@@ -163,12 +203,17 @@ class ShardedRing:
         self._devices = shards.grid_devices(mesh, dp_axis, sp_axis)
         self._dp = len(self._devices)
         self._tables = {}
+        # where the blocks live across processes (None: all in this one)
+        self._layout = shards.grid_layout(mesh, dp_axis, sp_axis)
+        self._line = None if self._layout is None else self._layout.line
 
     # -- plumbing ------------------------------------------------------------
 
     @property
     def _first(self) -> torch.device:
-        return self._devices[0][0]
+        """Where the global tensors live: the mesh's first device, or this
+        process's device on a mesh of several processes."""
+        return self._devices[0][0] if self._layout is None else self.mesh.home
 
     def shard(self, x) -> torch.Tensor:
         """Place a (B, n) array with this ring's sharding: the global tensor
@@ -203,26 +248,30 @@ class ShardedRing:
         return shards.pad_rows(x, self._dp), x.shape[0]
 
     def _split(self, x: torch.Tensor):
-        return shards.split(x, self._devices)
+        return shards.split(x, self._devices, self._layout)
 
     def _true_rows(self, grid, b: int) -> torch.Tensor:
         """The global result of a grid, padded rows sliced off."""
-        return shards.join(grid, self._first, b)
+        return shards.join(grid, self._first, b, self._layout)
 
     # -- transforms on grids (shards stay on their devices) -------------------
 
     def _ntt_grid(self, grid):
         if self.sp_axis is not None:
             if self.sp_method == "fourstep":
-                return fourstep_shard.fwd_grid(grid, self._plan, self.sp_comm)
-            return stage_shard.fwd_grid(grid, self.ring.params, self.sp_comm)
+                return fourstep_shard.fwd_grid(grid, self._plan, self.sp_comm,
+                                               self._line)
+            return stage_shard.fwd_grid(grid, self.ring.params, self.sp_comm,
+                                        self._line)
         return shards.map_grid(self._local_ntt, grid)
 
     def _intt_grid(self, grid, scale: Optional[int] = None):
         if self.sp_axis is not None:
             if self.sp_method == "fourstep":
-                return fourstep_shard.inv_grid(grid, self._plan, scale, self.sp_comm)
-            return stage_shard.inv_grid(grid, self.ring.params, scale, self.sp_comm)
+                return fourstep_shard.inv_grid(grid, self._plan, scale,
+                                               self.sp_comm, self._line)
+            return stage_shard.inv_grid(grid, self.ring.params, scale,
+                                        self.sp_comm, self._line)
         return shards.map_grid(lambda x: self._local_intt(x, scale), grid)
 
     def _local_ntt(self, x: torch.Tensor) -> torch.Tensor:
@@ -407,6 +456,11 @@ class ShardedRNSRing:
         if not isinstance(rns, RNSRing):
             raise TypeError(
                 f"ShardedRNSRing wraps an RNSRing; got {type(rns).__name__}"
+            )
+        if mesh.multiprocess:
+            raise NotImplementedError(
+                "ShardedRNSRing runs on a single-process mesh; a mesh of "
+                "several processes (pod_mesh) takes ShardedRing only"
             )
         self.rns = rns
         self.mesh = mesh

@@ -21,6 +21,14 @@ sit:
 Every output is a new buffer, so no shard overwrites words that another
 launch of the same stage still reads.  Selected with ``sp_comm="overlap"``;
 bit-identical to the whole-shard copy of ``comm="ppermute"``.
+
+Across processes (a mesh of ``multihost.pod_mesh``) the partner's shard is
+in another process and cannot be read in place.  There ``xchg_remote``
+runs the JAX kernel's design with ``torch.distributed`` for its DMAs: it
+cuts the shard into up to ``MAX_CHUNKS`` row chunks (``num_chunks``),
+posts every chunk's exchange at once (``comm.post_exchange``), then, chunk
+by chunk, waits for that chunk and launches K11 on it, so that the later
+chunks are on the wire while the earlier ones compute.
 """
 
 from __future__ import annotations
@@ -28,6 +36,18 @@ from __future__ import annotations
 import torch
 
 from ..ops import ntt_kernel as K
+from . import comm
+
+# chunks a shard across processes (the JAX module's rule): at most 8, each
+# a multiple of 8 rows, else fewer; a shard of under 16 rows is one chunk
+MAX_CHUNKS = 8
+
+
+def num_chunks(batch: int) -> int:
+    c = MAX_CHUNKS
+    while c > 1 and batch % (c * 8):
+        c //= 2
+    return c
 
 
 def launch_by_device(xs, partners, rows, roles, *, fwd: bool, q: int,
@@ -76,3 +96,22 @@ def xchg_stage(xs, rows, roles, *, tdev: int, fwd: bool, q: int,
                   for d in range(len(xs)) if roles[d]],
                  q=q, fwd=fwd, last=last, scale=scale)
     return outs
+
+
+def xchg_remote(x, line, peer: int, row, is_u: bool, *, fwd: bool, q: int,
+                last: bool = False, scale=None):
+    """This process's half of one cross stage: its shard ``x`` and the
+    shard ``peer`` of ``line`` (another process's), twiddle row ``row`` =
+    (w, w') and role ``is_u``.  Every chunk's exchange is posted first,
+    then each chunk is waited for and computed (one K11 launch a chunk).
+    Bit-identical to the whole-shard exchange.  Returns the new shard."""
+    step = x.shape[0] // num_chunks(x.shape[0])
+    chunks = [slice(r, r + step) for r in range(0, x.shape[0], step)]
+    posted = [comm.post_exchange(x, line, peer, rows, tag)
+              for tag, rows in enumerate(chunks)]
+    out = torch.empty_like(x)
+    for rows, pending in zip(chunks, posted):
+        K.xchg_group([K.half_entry(x[rows], pending.wait(), *row, is_u,
+                                   out[rows])],
+                     q=q, fwd=fwd, last=last, scale=scale)
+    return out

@@ -15,8 +15,15 @@ The residues (L, B, ..., n) of a sharded RNS ring add the channel axis
 and coefficient block d on the mesh device at ch = c, dp = i, sp = d
 (``split_channels``, ``join_channels``).
 
+On a mesh of several processes (``multihost.pod_mesh``) each process owns
+one block of a grid (``Layout``): ``split`` keeps that block and leaves
+the others None, the transforms run on it alone (SPMD, the moves in
+``comm.py``), and ``join`` gathers every process's block, so that each
+process gets the global tensor.
+
 Data movement runs on int32 views of the uint32 words: PyTorch's CUDA
-copies, ``cat`` and gathers cover int32 everywhere.
+copies, ``cat`` and gathers cover int32 everywhere, and gloo refuses
+``torch.uint32``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-Grid = List[List[torch.Tensor]]
+from . import comm
+
+Grid = List[List[Optional[torch.Tensor]]]
 
 
 def axis_size(mesh, axis: Optional[str]) -> int:
@@ -43,6 +52,46 @@ def grid_devices(mesh, dp_axis: Optional[str], sp_axis: Optional[str]):
         ]
         for i in range(axis_size(mesh, dp_axis))
     ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a grid's blocks live on a mesh of several processes:
+    ``owners[i][d]`` is the rank that owns block [i][d], ``position`` the
+    block of this process, ``group`` the group of every process, and
+    ``line`` the sp group of this process's dp row (``comm.Line``; None
+    without an sp axis)."""
+
+    owners: tuple
+    position: tuple
+    group: object
+    line: Optional[comm.Line]
+
+
+def grid_layout(mesh, dp_axis: Optional[str],
+                sp_axis: Optional[str]) -> Optional[Layout]:
+    """The ``Layout`` of the grid of ``grid_devices(mesh, dp_axis,
+    sp_axis)``; None on a single-process mesh.  Each process must own
+    exactly one block of the grid (the axes span every process)."""
+    if not mesh.multiprocess:
+        return None
+    owners = tuple(
+        tuple(int(mesh.owners[tuple({dp_axis: i, sp_axis: d}.get(a, 0)
+                                    for a in mesh.axis_names)])
+              for d in range(axis_size(mesh, sp_axis)))
+        for i in range(axis_size(mesh, dp_axis)))
+    flat = sorted(r for row in owners for r in row)
+    if flat != list(range(mesh.owners.size)):
+        raise ValueError(
+            f"on a mesh of {mesh.owners.size} processes the sharded axes "
+            f"({dp_axis!r}, {sp_axis!r}) must give each process one block; "
+            f"they give the ranks {flat}")
+    i, d = next((i, row.index(mesh.rank)) for i, row in enumerate(owners)
+                if mesh.rank in row)
+    line = None
+    if sp_axis is not None:
+        line = comm.Line(owners[i], mesh.axis_groups[sp_axis][owners[i]], d)
+    return Layout(owners, (i, d), mesh.process_group, line)
 
 
 def words(x: torch.Tensor) -> torch.Tensor:
@@ -78,9 +127,11 @@ def pad_rows(x: torch.Tensor, multiple: int, axis: int = 0) -> torch.Tensor:
     return u32(torch.cat([words(x), zeros], dim=axis))
 
 
-def split(x: torch.Tensor, devices) -> Grid:
+def split(x: torch.Tensor, devices,
+          layout: Optional[Layout] = None) -> Grid:
     """Cut (B, ..., n) into the grid of ``devices``: B must divide by the dp
-    size, n by the sp size; each block contiguous on its device."""
+    size, n by the sp size; each block contiguous on its device.  With a
+    ``layout`` only this process's block is cut, the others are None."""
     rows = x.shape[0] // len(devices)
     cols = x.shape[-1] // len(devices[0])
     w = words(x)
@@ -88,15 +139,22 @@ def split(x: torch.Tensor, devices) -> Grid:
         [
             u32(w[i * rows:(i + 1) * rows, ..., d * cols:(d + 1) * cols]
                 .to(dev).contiguous())
+            if layout is None or layout.position == (i, d) else None
             for d, dev in enumerate(row)
         ]
         for i, row in enumerate(devices)
     ]
 
 
-def join(grid: Grid, device: torch.device, rows: Optional[int] = None) -> torch.Tensor:
+def join(grid: Grid, device: torch.device, rows: Optional[int] = None,
+         layout: Optional[Layout] = None) -> torch.Tensor:
     """The global tensor of a grid on ``device``, its first ``rows`` rows
-    (all by default)."""
+    (all by default).  With a ``layout`` every process's block arrives by
+    ``comm.all_gather``, and every process gets the global tensor."""
+    if layout is not None:
+        i, d = layout.position
+        got = comm.all_gather(grid[i][d], layout.group)
+        grid = [[got[r] for r in row] for row in layout.owners]
     full = torch.cat(
         [torch.cat([words(b).to(device) for b in row], dim=-1) for row in grid],
         dim=0,
@@ -166,8 +224,10 @@ def map_channels(fn, *grids):
 
 
 def map_grid(fn, *grids: Grid) -> Grid:
-    """fn applied block by block to equally laid-out grids."""
-    return [[fn(*blocks) for blocks in zip(*rows)] for rows in zip(*grids)]
+    """fn applied block by block to equally laid-out grids; a block that
+    another process owns (None) stays None."""
+    return [[None if blocks[0] is None else fn(*blocks)
+             for blocks in zip(*rows)] for rows in zip(*grids)]
 
 
 def tables_on(tables, device: torch.device):

@@ -33,7 +33,11 @@ Every function here is single-controller, as the JAX package's: one process
 drives every device of the mesh.  ``fwd_grid``/``inv_grid`` transform a
 grid of shards (``shards.py``) and leave each block on its device;
 ``stage_sharded_fwd``/``stage_sharded_inv`` take and return the global
-(B, n) tensor.
+(B, n) tensor.  On a mesh of several processes (``multihost.pod_mesh``)
+``fwd_grid``/``inv_grid`` take the sp group of this process (``line``) and
+run SPMD on its one shard: the same stages, the partner's shard arriving
+from its process (``comm.exchange``, then one K11 launch a stage; with
+``"overlap"`` chunk by chunk, ``overlap.xchg_remote``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from ..ops import ntt_kernel as K
 from ..ops.plain_ntt import RingTables, _u32_tensor
 from ..ops.modmul import mont_qinv_neg
+from . import comm as transport
 from . import overlap, shards
 
 COMMS = ("ppermute", "overlap")
@@ -99,27 +104,51 @@ def _check(params, num_devices: int, comm: str) -> None:
 
 
 def _cross_stage(xs, params, *, inverse, tdev, a_log, index_of, last, scale,
-                 comm):
+                 comm, line=None):
     """One cross stage over the P shards ``xs`` of one sp group; returns the
-    new shards."""
-    S = xs[0].shape[1]
-    rows = [_cross_row(params, index_of(d), S, inverse, x.device)
-            for d, x in enumerate(xs)]
-    roles = [((d >> a_log) & 1) == 0 for d in range(len(xs))]
+    new shards.  With ``line`` only this process's shard is here (the
+    others None) and its partner arrives from its process."""
+    def row(d):
+        return _cross_row(params, index_of(d), xs[d].shape[1], inverse,
+                          xs[d].device)
+
+    def role(d):
+        return ((d >> a_log) & 1) == 0
+
     kw = dict(fwd=not inverse, q=params.q, last=last, scale=scale)
+    if line is not None:
+        d = line.index
+        out = [None] * len(xs)
+        if comm == "overlap":
+            out[d] = overlap.xchg_remote(xs[d], line, d ^ tdev, row(d),
+                                         role(d), **kw)
+        else:
+            recv = transport.exchange(xs[d], d ^ tdev, line)
+            out[d] = overlap.launch_by_device([xs[d]], [recv], [row(d)],
+                                              [role(d)], **kw)[0]
+        return out
+    rows = [row(d) for d in range(len(xs))]
+    roles = [role(d) for d in range(len(xs))]
     if comm == "overlap":
         return overlap.xchg_stage(xs, rows, roles, tdev=tdev, **kw)
-    recvs = [torch.empty_like(x) for x in xs]
     # last shard first: the launch takes its entries in order, so the first
     # entries find their copies still in L2
+    recvs = [None] * len(xs)
     for d in reversed(range(len(xs))):
-        shards.words(recvs[d]).copy_(shards.words(xs[d ^ tdev]))
+        recvs[d] = transport.exchange(xs[d], xs[d ^ tdev])
     return overlap.launch_by_device(xs, recvs, rows, roles, **kw)
 
 
-def fwd_group(xs, params, comm: str = "ppermute"):
+def _local(xs, transform):
+    """``transform(x, d)`` on every shard here; the others stay None."""
+    return [None if x is None else transform(x, d) for d, x in enumerate(xs)]
+
+
+def fwd_group(xs, params, comm: str = "ppermute", line=None):
     """Forward NTT of the P coefficient shards ``xs`` (each (B, S) uint32 in
-    [0, 4q), shard d on its device) -> the P output shards in [0, q)."""
+    [0, 4q), shard d on its device) -> the P output shards in [0, q).
+    With ``line``, shard ``line.index`` alone is here (the others None) and
+    the others are in the processes of ``line``."""
     P = len(xs)
     n_cross = _log2(P)
     for s in range(n_cross):
@@ -127,44 +156,56 @@ def fwd_group(xs, params, comm: str = "ppermute"):
         xs = _cross_stage(
             xs, params, inverse=False, tdev=tdev, a_log=_log2(tdev),
             index_of=lambda d, s=s: (1 << s) + (d >> (n_cross - s)),
-            last=False, scale=None, comm=comm,
+            last=False, scale=None, comm=comm, line=line,
         )
-    return [K.fwd_ntt(x, _shard_tables(params, P, d, x.device))
-            for d, x in enumerate(xs)]
+    return _local(xs, lambda x, d: K.fwd_ntt(
+        x, _shard_tables(params, P, d, x.device)))
 
 
-def inv_group(xs, params, scale: int, comm: str = "ppermute"):
+def inv_group(xs, params, scale: int, comm: str = "ppermute", line=None):
     """Inverse NTT of the P shards ``xs`` (each (B, S) uint32 in [0, 2q))
-    times ``scale`` -> [0, q)."""
+    times ``scale`` -> [0, q).  ``line`` as in :func:`fwd_group`."""
     P = len(xs)
     n = params.n
     n_cross = _log2(P)
     n_local = _log2(n) - n_cross
     # K2's last stage carries the scale: 1 when a cross stage follows
     local_scale = 1 if n_cross else scale
-    xs = [K.inv_ntt(x, _shard_tables(params, P, d, x.device), scale=local_scale)
-          for d, x in enumerate(xs)]
+    xs = _local(xs, lambda x, d: K.inv_ntt(
+        x, _shard_tables(params, P, d, x.device), scale=local_scale))
     for s in range(n_local, n_local + n_cross):
         tdev = 1 << (s - n_local)  # t / S
         xs = _cross_stage(
             xs, params, inverse=True, tdev=tdev, a_log=_log2(tdev),
             index_of=lambda d, s=s: (n >> (s + 1)) + (d >> (s - n_local + 1)),
             last=s == n_local + n_cross - 1, scale=scale, comm=comm,
+            line=line,
         )
     return xs
 
 
-def fwd_grid(grid, params, comm: str = "ppermute"):
-    """``fwd_group`` on every sp group (dp row) of a grid."""
+def _rows(grid, line):
+    """The sp groups of a grid to transform: every row, or with ``line``
+    (a grid of one shard a process) the row holding this process's."""
+    return [line is None or row[line.index] is not None for row in grid]
+
+
+def fwd_grid(grid, params, comm: str = "ppermute", line=None):
+    """``fwd_group`` on every sp group (dp row) of a grid; ``line``: this
+    process's sp group on a mesh of several processes."""
     _check(params, len(grid[0]), comm)
-    return [fwd_group(row, params, comm) for row in grid]
+    return [fwd_group(row, params, comm, line) if here else row
+            for row, here in zip(grid, _rows(grid, line))]
 
 
-def inv_grid(grid, params, scale: Optional[int] = None, comm: str = "ppermute"):
-    """``inv_group`` on every sp group of a grid; scale defaults to n^-1."""
+def inv_grid(grid, params, scale: Optional[int] = None, comm: str = "ppermute",
+             line=None):
+    """``inv_group`` on every sp group of a grid; scale defaults to n^-1.
+    ``line`` as in :func:`fwd_grid`."""
     _check(params, len(grid[0]), comm)
     scale = params.n_inv if scale is None else scale
-    return [inv_group(row, params, scale, comm) for row in grid]
+    return [inv_group(row, params, scale, comm, line) if here else row
+            for row, here in zip(grid, _rows(grid, line))]
 
 
 def _run(x, params, mesh, axis, dp_axis, comm, body):

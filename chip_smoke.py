@@ -156,7 +156,20 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       rows at (8192, 4096) and (1024, 32768) with each launched kernel's
       ptxas lines and launch shape; and the ten examples
       (``agilex_ntt_tpu_torch/examples``) through their ``main`` on the
-      card, each with its wall seconds.
+      card, each with its wall seconds;
+   k. the sharded ring with one process a card
+      (``utils/multihost_probe.py``): the kernels built, two spawned
+      processes on ``cuda:0`` over gloo (NCCL refuses two processes on
+      one card, so every transfer is staged through pinned host memory,
+      and the phase says so), each calling ``init_distributed`` and
+      ``pod_mesh``: ``ShardedRing(Ring(32768))`` over sp=2 at B=1024 with
+      both ``sp_comm`` (ntt, intt, polymul), ``Ring(4096)`` over dp=2 at
+      B=8191 (a remainder batch) and ``Ring(2^16)`` over sp=2 (four-step,
+      B=512), each process's global result equal word for word to the
+      unsharded ring on its card and, on the first rows, to the plain
+      version, its K1, K2 and K11 launches a call asserted; on a machine
+      with four cards or more the same on NCCL, one process a card (sp=4
+      at B=1024 and 8192, dp=4, dp=2 x sp=2, four-step sp=4).
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -191,7 +204,8 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    ``WideRing`` calls end to end with their launches.  One card
    measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
-   timed by ``utils/xchg_probe.py --cards 4``.
+   timed by ``utils/xchg_probe.py --cards 4`` (one process) and
+   ``utils/multihost_probe.py --procs 4`` (one process a card).
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -2236,6 +2250,38 @@ def main() -> int:
 
     tooling_path()
     torch.cuda.empty_cache()
+
+    # -- 3k. the sharded ring with one process a card ------------------------
+    from agilex_ntt_tpu_torch.utils import multihost_probe as MP
+
+    t3k = time.perf_counter()
+    worlds = [(2, "gloo", MP.ONE_CARD_PLAN, True)]
+    if torch.cuda.device_count() >= 4:
+        worlds.append((4, "nccl", MP.FOUR_CARD_PLAN, False))
+    k_launches = dict.fromkeys(K.LAUNCHES, 0)
+    for procs, backend, plan, one_card in worlds:
+        log(f"backend {backend}")
+        log(f"world size {procs}")
+        log(card)
+        if one_card:
+            log("every process on cuda:0: gloo, each transfer staged through "
+                "pinned host memory (comm.stages_through_host)")
+        results = MP.run_world(procs, backend, MP.check_calls, plan,
+                               one_card=one_card)
+        if one_card and not all(r["staged"] and r["device"] == DEVICE + ":0"
+                                for r in results):
+            raise AssertionError("the one-card world did not run on cuda:0 "
+                                 "with its transfers staged through the host")
+        for key, count in MP.report_checks(results).items():
+            k_launches[key] += count
+    missing = [key for key in ("fwd", "inv", "xchg_fwd", "xchg_inv")
+               if k_launches[key] < 1]
+    if missing:
+        raise AssertionError(f"the processes launched no {missing} kernel")
+    log(f"phase 3k: every process's global result equals the unsharded "
+        f"ring's words and the plain version's first rows; launches over "
+        f"the processes {({k: v for k, v in k_launches.items() if v})}; "
+        f"phase 3k took {time.perf_counter() - t3k:.1f} s")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -2397,7 +2443,7 @@ def main() -> int:
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
              "3e": slice_launches, "3f": ckks_launches, "3g": int_launches,
-             "3h": h_launches, "3i": wide_launches}
+             "3h": h_launches, "3i": wide_launches, "3k": k_launches}
     for key in tuple(ONE_KERNELS) + MULTI + ("xchg_fwd", "xchg_inv"):
         log(f"{KERNELS[key][0]} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))

@@ -559,6 +559,28 @@ def test_exchange_and_dit_kernels_match_plain(cuda):
         assert torch.equal(sr.intt(xb), big.intt(xb)), devices
 
 
+def test_sharded_ring_across_processes_on_card(cuda):
+    """Two processes on ``cuda:0`` over gloo (``utils/multihost_probe``):
+    each starts the group and builds ``pod_mesh``; ``ShardedRing(Ring(4096))``
+    over sp=2 with both ``sp_comm``, ntt and intt, each process's global
+    result equal word for word to the unsharded ring on its card and, on
+    the first rows, to the plain version, with its K1, K2 and K11 launches;
+    every transfer staged through pinned host memory."""
+    from agilex_ntt_tpu_torch.ops import _build
+    from agilex_ntt_tpu_torch.utils import multihost_probe as MP
+
+    _build.build()  # here, so that the processes only load it
+    plan = tuple((f"Ring(4096) sp=2 {comm}", 4096, False, (1, 2), kw, 64,
+                  ("ntt", "intt"))
+                 for comm, kw in (("ppermute", MP.STAGE),
+                                  ("overlap", MP.OVERLAP)))
+    results = MP.run_world(2, "gloo", MP.check_calls, plan, one_card=True,
+                           timeout=300)
+    assert [r["rank"] for r in results] == [0, 1]
+    assert all(r["staged"] and r["device"] == "cuda:0" for r in results)
+    assert all(len(r["calls"]) == 4 for r in results)
+
+
 def test_sharded_rns_on_card(cuda):
     """``ShardedRNSRing`` in every layout on ``["cuda:0"] * 8`` (and over
     four cards where the machine has them): dp on K4a/K4b/K5/K6b a rows

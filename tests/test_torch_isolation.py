@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it and running its
 command-line check, single- and multi-prime, the DIT inverse and the
-sharded ring, loads neither JAX nor the JAX package; and its CKKS, BGV and
+sharded ring and the multi-process setup (one process), loads neither
+JAX nor the JAX package; and its CKKS, BGV and
 BFV evaluators run a key generation, an encryption and a multiply, the
 sharded RNS ring a channel x coefficient polymul, CKKS a multiply on a
 mesh and the wide ring a polymul, an example its checks and the autotuner
@@ -21,10 +22,10 @@ from agilex_ntt_tpu_torch.ops import (
     wide_kernel,
 )
 from agilex_ntt_tpu_torch.parallel import (
-    chsp, fourstep_shard, mesh, overlap, shards, stage_shard,
+    chsp, comm, fourstep_shard, mesh, multihost, overlap, shards, stage_shard,
 )
 from agilex_ntt_tpu_torch.utils import (
-    autotune, crt, profiler_probe, profiling, report,
+    autotune, crt, multihost_probe, profiler_probe, profiling, report,
 )
 from agilex_ntt_tpu_torch import examples, native
 from agilex_ntt_tpu_torch.models import presets
@@ -54,6 +55,9 @@ for comm in ("ppermute", "overlap"):
         np.ones((3, 1024), dtype=np.uint32), np.ones((3, 1024), dtype=np.uint32))
 mesh.ShardedRing(r, m, sp_axis="sp", sp_method="fourstep").ntt(
     np.ones((2, 1024), dtype=np.uint32))
+pm = multihost.pod_mesh(dp=2, sp=2, local_devices=["cpu"] * 4)
+mesh.ShardedRing(r, pm, sp_axis="sp").ntt(np.ones((2, 1024), dtype=np.uint32))
+assert multihost.process_local_batch(8) == slice(0, 8)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)
