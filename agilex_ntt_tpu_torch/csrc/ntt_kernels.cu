@@ -30,8 +30,8 @@
 //                                        ntt_xchg.cuh)
 // the wide-modulus ring (q < 2^62 on u64 words; no Pallas kernel, the JAX
 // package's plain jnp of agilex_ntt_tpu/ops/wide.py; see ntt_wide.cuh):
-//   wide_fwd_kernel, wide_fwd_pass_kernel  <- fwd_stages64
-//   wide_inv_kernel, wide_inv_pass_kernel  <- inv_stages64
+//   wide_fwd_cluster_kernel, wide_fwd_pass_kernel  <- fwd_stages64
+//   wide_inv_cluster_kernel, wide_inv_pass_kernel  <- inv_stages64
 //   wide_pointwise_kernel                  <- WideRing's elementwise bodies
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
 // four-step section below and ntt_fourstep_cluster.cuh for their design):
@@ -803,56 +803,67 @@ xchg_group_kernel(const __grid_constant__ XchgStage st) {
     xchg_group_body<kFwd>(st, blockIdx.y, i);
 }
 
-// The wide ring (ntt_wide.cuh).  The body kernels: CTA blockIdx.x takes
-// tile blockIdx.x into shared memory, runs its stages and stores it.
-__global__ void __launch_bounds__(kWideThreads)
-wide_fwd_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
-                uint32_t* yhi, const uint64_t* __restrict__ roots,
-                const uint64_t* __restrict__ precon, const WideBody b) {
-  extern __shared__ uint64_t wide_words[];
-  wide_load(wide_words, xlo, xhi, blockIdx.x, b, threadIdx.x, kWideThreads);
-  __syncthreads();
-  wide_fwd_body(wide_words, blockIdx.x, b, roots, precon, threadIdx.x,
-                kWideThreads);
-  wide_store(wide_words, ylo, yhi, blockIdx.x, b, false, 0, 0, threadIdx.x,
-             kWideThreads);
+// The wide ring (ntt_wide.cuh).  The cluster kernels: cluster blockIdx.x
+// >> logc transforms unit blockIdx.x >> logc; CTAs of 256 threads holding
+// 4096 words (36 KiB of shared memory), four an SM: at most 64 registers
+// and about 100-190 bytes spilled, which measured 3-6% faster than three
+// an SM (80 registers) and than five, and 8-14% faster than two without a
+// spill (utils/wide_probe.py --variants; PERF.md): the passes wait on
+// latency more than on instruction throughput.
+constexpr int kWideCtasPerSm = 4;
+
+__global__ void __launch_bounds__(kWideThreads, kWideCtasPerSm)
+wide_fwd_cluster_kernel(const uint32_t* xlo, const uint32_t* xhi,
+                        uint32_t* ylo, uint32_t* yhi,
+                        const uint64_t* __restrict__ roots,
+                        const uint64_t* __restrict__ precon,
+                        const WideShape sh) {
+  extern __shared__ uint64_t wide_slab[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  wide_fwd_body(cl, wide_slab, xlo, xhi, ylo, yhi, roots, precon, sh,
+                (int)cl.block_rank(), blockIdx.x >> sh.logc);
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-wide_inv_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
-                uint32_t* yhi, const uint64_t* __restrict__ iroots,
-                const uint64_t* __restrict__ iprecon, const WideBody b,
-                bool scale, uint64_t sc, uint64_t scp) {
-  extern __shared__ uint64_t wide_words[];
-  wide_load(wide_words, xlo, xhi, blockIdx.x, b, threadIdx.x, kWideThreads);
-  __syncthreads();
-  wide_inv_body(wide_words, blockIdx.x, b, iroots, iprecon, threadIdx.x,
-                kWideThreads);
-  wide_store(wide_words, ylo, yhi, blockIdx.x, b, scale, sc, scp,
-             threadIdx.x, kWideThreads);
+__global__ void __launch_bounds__(kWideThreads, kWideCtasPerSm)
+wide_inv_cluster_kernel(const uint32_t* xlo, const uint32_t* xhi,
+                        uint32_t* ylo, uint32_t* yhi,
+                        const uint64_t* __restrict__ iroots,
+                        const uint64_t* __restrict__ iprecon,
+                        const WideShape sh, uint64_t sc, uint64_t scp) {
+  extern __shared__ uint64_t wide_slab[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  wide_inv_body(cl, wide_slab, xlo, xhi, ylo, yhi, iroots, iprecon, sh,
+                (int)cl.block_rank(), blockIdx.x >> sh.logc, sc, scp);
 }
 
-// One stage pass over every butterfly of the (B, n) operand.
+// A pass in device memory, stages [st, st + k) (k <= 3) of every row: one
+// group of 2^k words a thread a turn.
 __global__ void __launch_bounds__(kWideThreads)
 wide_fwd_pass_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
                      uint32_t* yhi, const uint64_t* __restrict__ roots,
                      const uint64_t* __restrict__ precon, uint64_t q,
-                     int logn, int s, long long butterflies) {
-  for (long long k = (long long)blockIdx.x * kWideThreads + threadIdx.x;
-       k < butterflies; k += (long long)gridDim.x * kWideThreads)
-    wide_fwd_pass(xlo, xhi, ylo, yhi, roots, precon, q, logn, s, k);
+                     int logn, int st, int k, long long groups) {
+  with_radix<k4RadixLog>(k, [&](auto r) {
+    for (long long g = (long long)blockIdx.x * kWideThreads + threadIdx.x;
+         g < groups; g += (long long)gridDim.x * kWideThreads)
+      wide_fwd_pass_group<decltype(r)::value>(xlo, xhi, ylo, yhi, roots,
+                                              precon, q, logn, st, g);
+  });
 }
 
 __global__ void __launch_bounds__(kWideThreads)
 wide_inv_pass_kernel(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
                      uint32_t* yhi, const uint64_t* __restrict__ iroots,
                      const uint64_t* __restrict__ iprecon, uint64_t q,
-                     int logn, int s, long long butterflies, uint64_t sc,
+                     int logn, int st, int k, long long groups, uint64_t sc,
                      uint64_t scp) {
-  for (long long k = (long long)blockIdx.x * kWideThreads + threadIdx.x;
-       k < butterflies; k += (long long)gridDim.x * kWideThreads)
-    wide_inv_pass(xlo, xhi, ylo, yhi, iroots, iprecon, q, logn, s, k, sc,
-                  scp);
+  with_radix<k4RadixLog>(k, [&](auto r) {
+    for (long long g = (long long)blockIdx.x * kWideThreads + threadIdx.x;
+         g < groups; g += (long long)gridDim.x * kWideThreads)
+      wide_inv_pass_group<decltype(r)::value>(xlo, xhi, ylo, yhi, iroots,
+                                              iprecon, q, logn, st, g, sc,
+                                              scp);
+  });
 }
 
 __global__ void __launch_bounds__(kWideThreads)
@@ -880,13 +891,39 @@ unsigned wide_grid(long long items) {
   return (unsigned)(blocks < kWideMaxBlocks ? blocks : kWideMaxBlocks);
 }
 
-// A body launch's shared memory allowed, its shape checked.
-cudaError_t wide_body_launch(const void* kernel, int logn, long long batch,
-                             uint64_t q, WideBody* b) {
-  if (logn < 1 || logn > 30 || batch < 1) return cudaErrorInvalidValue;
-  *b = wide_body(logn, batch, q);
-  if (wide_tiles(*b) > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  return allow_smem(kernel, wide_smem_bytes(*b));
+// The cluster kernel of a wide transform (0 forward, 1 inverse).
+const void* wide_kernel(int which) {
+  return which == 1 ? (const void*)wide_inv_cluster_kernel
+                    : (const void*)wide_fwd_cluster_kernel;
+}
+
+// A cluster launch of a wide transform at (B, 2^logn): its shape, and the
+// kernel's attributes set (shared memory; the non-portable cluster size
+// above 8 CTAs).
+cudaError_t wide_launch(int which, int logn, long long batch, uint64_t q,
+                        WideShape* sh) {
+  if (logn < 1 || logn > 30 || batch < 1 || (which != 0 && which != 1))
+    return cudaErrorInvalidValue;
+  *sh = make_wide_shape(logn, batch, q);
+  if (!cluster_grid_ok(wide_units(*sh), sh->logc)) return cudaErrorInvalidValue;
+  return allow_cluster(wide_kernel(which), sh->logc, wide_smem_bytes(*sh));
+}
+
+// The device passes of a transform: stages [0, logn - logl) in passes of at
+// most 3, `launch(st, k)` each; the forward walks them top down, the
+// inverse bottom up.  Returns the first error.
+template <typename Launch>
+cudaError_t wide_passes(const WideShape& sh, bool inverse, Launch launch) {
+  const int so = sh.logn - sh.logl;
+  for (int done = 0; done < so;) {
+    const int k = inverse ? inv_pass_stages(so - done)
+                          : fwd_pass_stages(so - done);
+    const int st = inverse ? so - done - k : done;
+    const cudaError_t err = launch(st, k);
+    if (err != cudaSuccess) return err;
+    done += k;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1300,38 +1337,38 @@ int ntt_enable_peer(int device, int peer) {
 // The wide ring's transforms on (B, n) lo and hi uint32 words: x in
 // [0, 4q) -> y in [0, q) forward; [0, 2q) -> [0, q) inverse, scaled by
 // (sc, scp) = (s, floor(s 2^64 / q)) mod 2^64.  roots/precon (iroots/
-// iprecon): the u64 [n] tables.  Above n = 2^kWideBlockLog the forward runs
-// logn - kWideBlockLog stage passes in device memory, then the body on each
-// block (the inverse: the body, then the passes); `launches` gets the
+// iprecon): the u64 [n] tables.  One cluster launch up to n = 2^16; above,
+// the forward first runs passes in device memory until the independent
+// blocks fit a cluster, then the cluster body on each block (the inverse:
+// the body, then the passes, the last one scaled); `launches` gets the
 // number of kernel launches.
 int ntt_wide_fwd(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
                  uint32_t* yhi, const uint64_t* roots, const uint64_t* precon,
                  uint64_t q, long long batch, int logn, void* stream,
                  int* launches) {
   *launches = 0;
-  WideBody b;
-  cudaError_t err = wide_body_launch((const void*)wide_fwd_kernel, logn,
-                                     batch, q, &b);
+  WideShape sh;
+  cudaError_t err = wide_launch(0, logn, batch, q, &sh);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-  const long long butterflies = batch << (logn - 1);
   const uint32_t *src_lo = xlo, *src_hi = xhi;
-  for (int s = 0; s < logn - b.logl; ++s) {
-    wide_fwd_pass_kernel<<<wide_grid(butterflies), kWideThreads, 0, st>>>(
-        src_lo, src_hi, ylo, yhi, roots, precon, q, logn, s, butterflies);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launches;
+  err = wide_passes(sh, false, [&](int s0, int k) {
+    const long long groups = batch << (logn - k);
+    wide_fwd_pass_kernel<<<wide_grid(groups), kWideThreads, 0, st>>>(
+        src_lo, src_hi, ylo, yhi, roots, precon, q, logn, s0, k, groups);
     src_lo = ylo;
     src_hi = yhi;
-  }
-  wide_fwd_kernel<<<(unsigned)wide_tiles(b), kWideThreads,
-                    wide_smem_bytes(b), st>>>(src_lo, src_hi, ylo, yhi, roots,
-                                              precon, b);
-  err = cudaGetLastError();
+    ++*launches;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(wide_units(sh), sh.logc, kWideThreads,
+                       wide_smem_bytes(sh), stream);
+  err = cudaLaunchKernelEx(&launch.cfg, wide_fwd_cluster_kernel, src_lo,
+                           src_hi, ylo, yhi, roots, precon, sh);
   if (err != cudaSuccess) return (int)err;
   ++*launches;
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
 }
 
 int ntt_wide_inv(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
@@ -1340,27 +1377,60 @@ int ntt_wide_inv(const uint32_t* xlo, const uint32_t* xhi, uint32_t* ylo,
                  uint64_t scp, long long batch, int logn, void* stream,
                  int* launches) {
   *launches = 0;
-  WideBody b;
-  cudaError_t err = wide_body_launch((const void*)wide_inv_kernel, logn,
-                                     batch, q, &b);
+  WideShape sh;
+  cudaError_t err = wide_launch(1, logn, batch, q, &sh);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bool passes = b.logl < logn;
-  wide_inv_kernel<<<(unsigned)wide_tiles(b), kWideThreads,
-                    wide_smem_bytes(b), st>>>(xlo, xhi, ylo, yhi, iroots,
-                                              iprecon, b, !passes, sc, scp);
-  err = cudaGetLastError();
+  ClusterLaunch launch(wide_units(sh), sh.logc, kWideThreads,
+                       wide_smem_bytes(sh), stream);
+  err = cudaLaunchKernelEx(&launch.cfg, wide_inv_cluster_kernel, xlo, xhi,
+                           ylo, yhi, iroots, iprecon, sh, sc, scp);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launches;
-  const long long butterflies = batch << (logn - 1);
-  for (int s = logn - b.logl - 1; s >= 0; --s) {
-    wide_inv_pass_kernel<<<wide_grid(butterflies), kWideThreads, 0, st>>>(
-        ylo, yhi, ylo, yhi, iroots, iprecon, q, logn, s, butterflies, sc,
-        scp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = wide_passes(sh, true, [&](int s0, int k) {
+    const long long groups = batch << (logn - k);
+    wide_inv_pass_kernel<<<wide_grid(groups), kWideThreads, 0, st>>>(
+        ylo, yhi, ylo, yhi, iroots, iprecon, q, logn, s0, k, groups, sc, scp);
     ++*launches;
-  }
+    return cudaGetLastError();
+  });
+  return (int)err;
+}
+
+// The launch of a wide transform's cluster kernel (0 forward, 1 inverse) at
+// (B, 2^logn): info = {log2 of the CTAs a block (the cluster), log2 of the
+// blocks a CTA, shared memory bytes a CTA, threads a CTA, registers a
+// thread, CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the
+// most such clusters the card runs at once, the clusters launched, the
+// passes in device memory, log2 of the block's words}.
+int ntt_wide_launch_info(int which, int logn, long long batch, int* info) {
+  for (int i = 0; i < 10; ++i) info[i] = 0;
+  WideShape sh;
+  cudaError_t err = wide_launch(which, logn, batch, 1, &sh);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = wide_smem_bytes(sh);
+  info[0] = sh.logc;
+  info[1] = sh.logp;
+  info[2] = (int)bytes;
+  info[3] = kWideThreads;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, wide_kernel(which));
+  if (err != cudaSuccess) return (int)err;
+  info[4] = attr.numRegs;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[5], wide_kernel(which), kWideThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(1, sh.logc, kWideThreads, bytes, nullptr);
+  err = cudaOccupancyMaxActiveClusters(&info[6], wide_kernel(which),
+                                       &launch.cfg);
+  if (err != cudaSuccess) return (int)err;
+  info[7] = (int)wide_units(sh);
+  wide_passes(sh, which == 1, [&](int, int) {
+    ++info[8];
+    return cudaSuccess;
+  });
+  info[9] = sh.logl;
   return (int)cudaSuccess;
 }
 

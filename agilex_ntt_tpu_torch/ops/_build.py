@@ -88,6 +88,8 @@ SIGNATURES = {
     # batch, logn, stream, launches
     "ntt_wide_inv": (_P, _P, _P, _P, _P, _P, _U64, _U64, _U64, _LL, _I, _P,
                      _P),
+    # kernel (0 forward, 1 inverse), logn, batch, info (10 ints)
+    "ntt_wide_launch_info": (_I, _I, _LL, _P),
     # a lo, a hi, b lo, b hi, y lo, y hi, count, mode, q, -q^-1 mod 2^64,
     # 2^128 mod q, stream, launches
     "ntt_wide_pointwise": (_P, _P, _P, _P, _P, _P, _LL, _I, _U64, _U64, _U64,

@@ -7,8 +7,9 @@ shape, on the device of the ring's ``WideTables``:
   * on a CUDA tensor a wrapper launches its kernels on the current stream,
     raises if a launch returns a CUDA error, and adds its kernel launches to
     ``ntt_kernel.LAUNCHES`` (``"wide_fwd"``, ``"wide_inv"``,
-    ``"wide_pointwise"``): one launch up to n = 16384, and one stage pass
-    more for each doubling above it;
+    ``"wide_pointwise"``): a transform is one cluster launch up to n =
+    65536, and above it one pass in device memory more for every three
+    doublings or fewer (``wide_launch_info``);
   * on a CPU tensor it computes the plain version (``ops/wide.py``).
 
 There is no fallback: a CUDA tensor is never handed to the plain version.
@@ -146,6 +147,12 @@ def _u32(x: Pair) -> Pair:
     return tuple(t.to(torch.uint32) for t in x)
 
 
+def _aligned(x: Pair) -> Pair:
+    """x with each tensor on a 16-byte boundary (the kernels' vector loads
+    and stores): a view that is not is copied."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in x)
+
+
 def _launch(x: Pair, name: str, launch) -> Pair:
     """Allocate outputs shaped as x and call ``launch(lib, out, launches)``
     on x's device; raise on a CUDA error, count its kernel launches."""
@@ -165,6 +172,7 @@ def wide_fwd(x: Pair, tables: WideTables) -> Pair:
     _check(x, tables, "wide_fwd", 2)
     if x[0].device.type == "cpu":
         return _u32(wide_fwd_plain(_i64(x), tables))
+    x = _aligned(x)
     words = tables.words
     return _launch(x, "wide_fwd", lambda lib, y, count: (
         lib.ntt_wide_fwd(
@@ -180,6 +188,7 @@ def wide_inv(x: Pair, tables: WideTables, scale: int) -> Pair:
     _check(x, tables, "wide_inv", 2)
     if x[0].device.type == "cpu":
         return _u32(wide_inv_plain(_i64(x), tables, scale))
+    x = _aligned(x)
     words = tables.words
     sc, scp = scale & MASK64, ((scale << 64) // tables.q) & MASK64
     return _launch(x, "wide_inv", lambda lib, y, count: (
@@ -210,3 +219,34 @@ def wide_pointwise(a: Pair, b: Pair, tables: WideTables, mode: str) -> Pair:
             b[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), a[0].numel(),
             MODES[mode], tables.q, tables.qinv_neg, tables.r2, _stream(a[0]),
             count)))
+
+
+_WIDE_KERNEL = {"wide_fwd": 0, "wide_inv": 1}
+
+
+def wide_launch_info(tables: WideTables, which: str = "wide_fwd",
+                     batch: int = 1) -> dict:
+    """The cluster launch of ``which`` transform (``"wide_fwd"`` or
+    ``"wide_inv"``) at (batch, n), as ``ntt_wide_launch_info`` reports it on
+    the tables' card: ``ctas`` a block (the cluster), ``blocks`` a CTA,
+    ``smem_bytes`` and ``threads`` a CTA, ``registers`` a thread,
+    ``ctas_per_sm``, ``max_active_clusters``, ``clusters`` launched,
+    ``passes`` in device memory and ``block`` (the words a cluster
+    transforms)."""
+    if which not in _WIDE_KERNEL:
+        raise ValueError(f"wide_launch_info: unknown kernel {which!r}")
+    if tables.device.type != "cuda":
+        raise ValueError("wide_launch_info: the tables are not on a card")
+    lib = _build.load()
+    info = (ctypes.c_int * 10)()
+    with torch.cuda.device(tables.device):
+        rc = lib.ntt_wide_launch_info(_WIDE_KERNEL[which], tables.log_n, batch,
+                                      info)
+    _build.check(lib, rc, "wide_launch_info")
+    keys = ("ctas", "blocks", "smem_bytes", "threads", "registers",
+            "ctas_per_sm", "max_active_clusters", "clusters", "passes",
+            "block")
+    out = dict(zip(keys, info))
+    for key in ("ctas", "blocks", "block"):
+        out[key] = 1 << out[key]
+    return out

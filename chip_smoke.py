@@ -132,12 +132,15 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       BFV exactly);
    i. the wide-modulus ring (``WideRing``, u64 kernels of
       ``csrc/ntt_wide.cuh``): ``WideRing(4096)`` at its default 62-bit
-      prime and at a 45-bit one (B=8192) and ``WideRing(32768)`` (B=256,
-      a stage pass before the shared-memory body), ntt, intt, polymul,
-      pointwise_mul, add and sub on (lo, hi) pair I/O, inputs over [0, 4q)
-      forward and [0, 2q) inverse; then the KAT vectors w45 and w62 at n =
-      1024 on numpy uint64 I/O.  wide_fwd, wide_inv and wide_pointwise
-      must launch; every output equals the plain limb-pair version
+      prime and at a 45-bit one (B=8192, a row a CTA), ``WideRing(32768)``
+      (B=256, a cluster of 8 CTAs), ``WideRing(65536)`` (B=64, a cluster
+      of 16) and ``WideRing(2^17)`` (B=32, a pass in device memory before
+      the cluster body), ntt, intt, polymul, pointwise_mul, add and sub on
+      (lo, hi) pair I/O, inputs over [0, 4q) forward and [0, 2q) inverse;
+      then the KAT vectors w45 and w62 at n = 1024 (four rows a CTA) on
+      numpy uint64 I/O.  Each call's launches are asserted (a transform one
+      launch through n = 65536, two at 2^17); every output equals the
+      plain limb-pair version
       (``ops/wide.py``) run on the card word for word (the polymul's
       Montgomery product also alone), its first rows the golden model,
       and the KAT vectors their known answers;
@@ -414,11 +417,12 @@ SHARD_RNS_REMAINDER, SHARD_RNS_K = RNS_BATCH - 1, 2
 # the key switch and the schemes on a dp mesh of one card
 SHARD_KS_DP = 4
 # the wide ring (phase 3i): WideRing(n, q) as (n, bits of q, batch): the
-# default 62-bit prime and a 45-bit one at the main path's shape, and n =
-# 32768, which takes a stage pass before the shared-memory body; then the
-# known-answer vectors w45 and w62 at n = 1024
+# default 62-bit prime and a 45-bit one at the main path's shape (a row a
+# CTA), n = 32768 and 65536 (one cluster launch of 8 and 16 CTAs) and 2^17,
+# the first n past the largest cluster (a pass in device memory, then the
+# cluster body); then the known-answer vectors w45 and w62 at n = 1024
 WIDE_RINGS = ((MAIN_N, 62, MAIN_BATCH), (MAIN_N, 45, MAIN_BATCH),
-              (32768, 62, 256))
+              (32768, 62, 256), (1 << 16, 62, 64), (1 << 17, 62, 32))
 WIDE_KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "ntt_kat.npz"
 WIDE_GOLDEN_ROWS = 4
 WIDE_OPS = ("ntt", "intt", "polymul", "pointwise_mul", "add", "sub")
@@ -461,8 +465,9 @@ RNS_KERNELS = {"fwd_rns": ("K4a", "fwd_rns_cluster_kernel"),
 ONE_KERNELS = {"fwd": ("K1", "fwd_rns_cluster_kernel"),
                "inv": ("K2", "inv_rns_cluster_kernel")}
 DIT_KERNEL = "dit_inv_cluster_kernel"
-WIDE_KERNELS = ("wide_fwd_kernel", "wide_fwd_pass_kernel", "wide_inv_kernel",
-                "wide_inv_pass_kernel", "wide_pointwise_kernel")
+WIDE_KERNELS = ("wide_fwd_cluster_kernel", "wide_fwd_pass_kernel",
+                "wide_inv_cluster_kernel", "wide_inv_pass_kernel",
+                "wide_pointwise_kernel")
 
 
 def ckks_path(np, CKKSContext, device, rows=None) -> dict:
@@ -2045,8 +2050,19 @@ def main() -> int:
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
         t0 = time.perf_counter()
-        wide_out = [{op: call() for op, call in wide_calls(wr, ins).items()}
-                    for _, wr, ins, _ in wide_cases]
+        wide_out, ran = [], []  # ran: (label, op, that call's launches)
+
+        def counted(label, op, call):
+            before = dict(K.LAUNCHES)
+            out = call()
+            ran.append((label, op, {k: v - before[k]
+                                    for k, v in K.LAUNCHES.items()
+                                    if v != before[k]}))
+            return out
+
+        for label, wr, ins, _ in wide_cases:
+            wide_out.append({op: counted(label, op, call)
+                             for op, call in wide_calls(wr, ins).items()})
         # the numpy uint64 I/O of the known-answer vectors, split and joined on
         # the host
         kat_out = {label: (wr.ntt(words["input"]), wr.intt(words["ntt"]),
@@ -2063,6 +2079,23 @@ def main() -> int:
                    if wide_launches[key] < 1]
         if missing:
             raise AssertionError(f"the wide path launched no {missing} kernel")
+        # each call's launches: a transform is one cluster launch through n =
+        # 65536 and one pass in device memory more at 2^17; polymul is two
+        # forward transforms, the Montgomery product and the inverse
+        rings = {label: wr for label, wr, _, _ in wide_cases}
+        for label, op, got in ran:
+            wr = rings[label]
+            t = 1 + (wr.n > 1 << 16)
+            want = {"ntt": {"wide_fwd": t}, "intt": {"wide_inv": t},
+                    "polymul": {"wide_fwd": 2 * t, "wide_pointwise": 1,
+                                "wide_inv": t}}.get(op, {"wide_pointwise": 1})
+            info = WK.wide_launch_info(wr.tables, "wide_fwd", 1)
+            if got != want or info["passes"] != t - 1:
+                raise AssertionError(f"WideRing {label} {op}: launches {got}, "
+                                     f"expected {want} ({info['passes']} "
+                                     "passes in device memory)")
+        log(f"wide launches asserted for each of the {len(ran)} calls: a "
+            "transform one launch through n = 65536, two at 2^17")
         log("wide kernels vs plain versions (tolerance 0), first rows vs golden:")
         for (label, wr, ins, words), outs in zip(wide_cases, wide_out):
             want = wide_plain(wr, ins)
@@ -2543,9 +2576,22 @@ def main() -> int:
             f"{info['clusters']} clusters")
     for name in (DIT_KERNEL, "xchg_group_kernel"):
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
-    log("the wide kernels (ntt_wide.cuh): one CTA of 256 threads a tile of "
-        "max(n, 4096) words up to n = 16384 (8 bytes a word of shared "
-        "memory), a stage pass a launch above; ptxas:")
+    log("the wide kernels (ntt_wide.cuh) by shape: register-radix passes on "
+        "4096 words a CTA, a cluster a block through n = 65536, passes in "
+        "device memory above; ptxas:")
+    for label, wr, ins, words in wide_cases:
+        if words is not None:
+            continue
+        for which in ("wide_fwd", "wide_inv"):
+            info = WK.wide_launch_info(wr.tables, which, ins["x"][0].shape[0])
+            log(f"  {which} {label}: {info['passes']} passes in device memory,"
+                f" blocks of {info['block']} words, {info['ctas']} CTAs a "
+                f"block, {info['blocks']} blocks a CTA, {info['threads']} "
+                f"threads, {info['registers']} registers, "
+                f"{info['smem_bytes']} bytes of shared memory a CTA, "
+                f"{info['ctas_per_sm']} CTAs an SM, at most "
+                f"{info['max_active_clusters']} clusters at once; "
+                f"{info['clusters']} clusters")
     for name in WIDE_KERNELS:
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     rows = []
@@ -2738,6 +2784,23 @@ def main() -> int:
         ms = cuda_time_ms(call)
         log(f"  {what:16s} {ms:.4f} ms per call of {polys} channel "
             f"polynomials: {polys / ms / 1e3:.3f} M per second")
+    log(f"wide transform kernels alone by shape on {card} (CUDA events, "
+        "median of 5 runs of 10 calls; bound: utils/report.py, 8 bytes a word "
+        "each way and the two u64 tables):")
+    for label, wr, ins, words in wide_cases:
+        if words is not None:
+            continue
+        bn, n_ = ins["x"][0].shape[0], wr.n
+        for key, call, ops in (
+            ("wide_fwd", lambda: WK.wide_fwd(ins["x"], wr.tables),
+             wide_fwd_ops(bn, n_)),
+            ("wide_inv", lambda: WK.wide_inv(ins["y"], wr.tables, wr.n_inv),
+             wide_inv_ops(bn, n_)),
+        ):
+            ms = cuda_time_ms(call)
+            bound_ms, bound_by = bound(4 * bn * n_ + 4 * n_, ops)
+            log(f"  {key} {label:28s} {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound")
     log(f"WideRing calls end to end on {card} (pair I/O, host work "
         "included; CUDA events, median of 3 runs of 2 calls; kernel launches "
         "a call):")

@@ -62,13 +62,15 @@ def _transform_tables(device):
 
 def _wide_matches_cpu(device):
     """WideRing on the card (ntt_wide.cuh) against the CPU's plain version,
-    every method, at a 45-bit and a 62-bit prime: one CTA a tile of rows at
-    n = 8 and 256, a row a CTA at 16384, the stage passes at 32768 and
-    65536 (one launch more for each doubling); inputs over the lazy ranges,
-    numpy and (lo, hi) pair I/O."""
+    every method, at a 45-bit and a 62-bit prime: several rows a CTA at n =
+    8 and 256 (the last CTA part-empty), a row a CTA at 4096, clusters of
+    2, 4, 8 and 16 CTAs at 8192 to 65536 (one launch a transform), and
+    the passes in device memory at 2^17 and 2^19 (one launch more for every
+    three doublings or fewer); inputs over the lazy ranges, numpy and (lo,
+    hi) pair I/O."""
     rng = np.random.default_rng(9)
-    for n, batch in ((8, 1001), (256, 37), (16384, 3), (32768, 2),
-                     (65536, 2)):
+    for n, batch in ((8, 1001), (256, 37), (4096, 3), (8192, 3), (16384, 3),
+                     (32768, 2), (65536, 2), (1 << 17, 1), (1 << 19, 1)):
         for bits in (45, 62):
             q = find_primes(n, 1, bits=bits)[0]
             card = WideRing(n, q, device=device)
@@ -93,7 +95,8 @@ def _wide_matches_cpu(device):
                        if v != before[k]}
                 if name in ("ntt", "intt"):
                     key = "wide_fwd" if name == "ntt" else "wide_inv"
-                    assert ran == {key: max(1, n.bit_length() - 14)}, ran
+                    passes = -(-max(0, n.bit_length() - 17) // 3)
+                    assert ran == {key: 1 + passes}, ran
             pair = tuple(torch.from_numpy(t).to(device)
                          for t in W.split_u64_np(x4))
             lo, hi = card.ntt(pair)
@@ -101,6 +104,19 @@ def _wide_matches_cpu(device):
             assert np.array_equal(
                 W.join_u64_np(lo.cpu().numpy(), hi.cpu().numpy()),
                 cpu.ntt(x4))
+            # limbs one word off a 16-byte boundary (the kernels' vector
+            # loads): the wrapper copies them first
+            off = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+                        .view(batch, n) for t in pair)
+            assert off[0].data_ptr() % 16 != 0
+            lo, hi = card.ntt(off)
+            assert np.array_equal(
+                W.join_u64_np(lo.cpu().numpy(), hi.cpu().numpy()),
+                cpu.ntt(x4))
+            info = WK.wide_launch_info(card.tables, "wide_inv", batch)
+            logc = max(0, min(n.bit_length() - 1, 16) - 12)
+            assert (info["ctas"], info["threads"], info["passes"]) == (
+                1 << logc, 256, -(-max(0, n.bit_length() - 17) // 3)), info
             if n == 256:
                 assert np.array_equal(card.ntt(x4[:4]),
                                       G.fwd_ntt_u64(x4[:4], card.params))
