@@ -367,7 +367,7 @@ class Ring(_TransformRing):
             )
         lead, k = tuple(a.shape[:-2]), a.shape[-2]
         if a.numel() == 0:
-            raise ValueError(f"empty operands: shape {tuple(a.shape)}")
+            raise ValueError(f"empty batch: shape {tuple(a.shape)}")
         af = a.reshape(-1, k, self.n).contiguous()
         bf = b.reshape(-1, k, self.n).contiguous()
         if self.fourstep is not None:
@@ -709,8 +709,8 @@ class RNSRing:
                 f"expected shape (L={self.L}, ..., n={self.n}), got "
                 f"{tuple(x.shape)}"
             )
-        if x.numel() == 0:
-            raise ValueError(f"empty batch: shape {tuple(x.shape)}")
+        if x.numel() == 0:  # one channel's shape, as the JAX package names it
+            raise ValueError(f"empty batch: shape {tuple(x.shape[1:])}")
 
     def _col(self, values: torch.Tensor, ndim: int) -> torch.Tensor:
         """An (L,) tensor of per-channel constants as an (L, 1, ..., 1)
@@ -951,15 +951,25 @@ class RNSRing:
         """BGV modulus switch by the last prime, keeping the phase mod t."""
         return basechange.rescale_bgv(self._i64(x), self.qs, int(t)).to(torch.uint32)
 
+    def _count(self, count: int) -> int:
+        """``count`` of ``mod_down``/``mod_down_bgv``, checked with the JAX
+        package's message."""
+        c = int(count)
+        if not 1 <= c <= self.L - 1:
+            raise ValueError(f"count must be in [1, {self.L - 1}], got {c}")
+        return c
+
     def mod_down(self, x, count: int = 1) -> torch.Tensor:
         """Drop the last ``count`` primes by iterated centered rounding:
         (L, ..., n) -> (L-count, ..., n)."""
-        y = basechange.mod_down(self._i64(x), self.qs, int(count))
+        x = self._i64(x)
+        y = basechange.mod_down(x, self.qs, self._count(count))
         return y.to(torch.uint32)
 
     def mod_down_bgv(self, x, t: int, count: int = 1) -> torch.Tensor:
         """Iterated t-correcting divide, the BGV ModDown."""
-        y = basechange.mod_down_bgv(self._i64(x), self.qs, int(t), int(count))
+        x = self._i64(x)
+        y = basechange.mod_down_bgv(x, self.qs, int(t), self._count(count))
         return y.to(torch.uint32)
 
     def gadget_decompose(
@@ -1341,6 +1351,17 @@ class WideRing:
         """(..., n) -> (B, n), contiguous."""
         return tuple(t.reshape(-1, self.n).contiguous() for t in pair)
 
+    def _run(self, body, shape, host: bool, *pairs):
+        """``body(*(B, n) pairs)``, the result in ``shape`` and the input's
+        kind; an empty batch gives its empty result without a launch, as
+        the JAX package's ``WideRing`` does."""
+        if 0 in shape:
+            out = tuple(torch.empty(shape, dtype=torch.uint32,
+                                    device=self.device) for _ in range(2))
+        else:
+            out = body(*(self._rows(p) for p in pairs))
+        return self._egest(out, shape, host)
+
     def _binary(self, a, b):
         """Both operands broadcast to one shape: ((lo, hi), (lo, hi), shape,
         was_numpy of a)."""
@@ -1356,16 +1377,16 @@ class WideRing:
     def ntt(self, x):
         """Forward negacyclic NTT, [0, 4q) in, [0, q) out (HEXL order)."""
         pair, host = self._ingest(x)
-        out = wide_kernel.wide_fwd(self._rows(pair), self.tables)
-        return self._egest(out, pair[0].shape, host)
+        return self._run(lambda p: wide_kernel.wide_fwd(p, self.tables),
+                         pair[0].shape, host, pair)
 
     def intt(self, x, *, scale: Optional[int] = None):
         """Inverse negacyclic NTT, lazy [0, 2q) in, [0, q) out; ``scale``
         replaces the final n^-1."""
         pair, host = self._ingest(x)
         sc = self.n_inv if scale is None else scale
-        out = wide_kernel.wide_inv(self._rows(pair), self.tables, sc)
-        return self._egest(out, pair[0].shape, host)
+        return self._run(lambda p: wide_kernel.wide_inv(p, self.tables, sc),
+                         pair[0].shape, host, pair)
 
     # -- ring arithmetic --------------------------------------------------------
 
@@ -1374,16 +1395,22 @@ class WideRing:
         Montgomery product (R = 2**64), the inverse with R^-1 folded into
         its n^-1 scale."""
         pa, pb, shape, host = self._binary(a, b)
-        fa = wide_kernel.wide_fwd(self._rows(pa), self.tables)
-        fb = wide_kernel.wide_fwd(self._rows(pb), self.tables)
-        prod = wide_kernel.wide_pointwise(fa, fb, self.tables, "mont")
-        out = wide_kernel.wide_inv(prod, self.tables, self.polymul_scale)
-        return self._egest(out, shape, host)
+        tabs = self.tables
+
+        def body(ra, rb):
+            fa = wide_kernel.wide_fwd(ra, tabs)
+            fb = wide_kernel.wide_fwd(rb, tabs)
+            prod = wide_kernel.wide_pointwise(fa, fb, tabs, "mont")
+            return wide_kernel.wide_inv(prod, tabs, self.polymul_scale)
+
+        return self._run(body, shape, host, pa, pb)
 
     def _elementwise(self, a, b, mode: str):
         pa, pb, shape, host = self._binary(a, b)
-        out = wide_kernel.wide_pointwise(pa, pb, self.tables, mode)
-        return self._egest(out, shape, host)
+        return self._run(
+            lambda ra, rb: wide_kernel.wide_pointwise(ra, rb, self.tables,
+                                                      mode),
+            shape, host, pa, pb)
 
     def pointwise_mul(self, a, b):
         """Exact elementwise a*b mod q in [0, q) for NTT-domain operands."""

@@ -8,7 +8,8 @@ transform whose cross stages run on the exchange kernel K11, the four-step
 sharded transform, and ``ShardedRNSRing`` with the channel x coefficient
 four-step transform (``chsp.py``).  ``multihost.py`` starts a process
 group and builds a mesh over every process's card (``pod_mesh``), on
-which ``ShardedRing`` runs one process a card (the moves in ``comm.py``).
+which ``ShardedRing`` and ``ShardedRNSRing`` (with the schemes' ``mesh=``)
+run one process a card (the moves in ``comm.py``).
 """
 
 from .fourstep_shard import fourstep_sharded_fwd, fourstep_sharded_inv

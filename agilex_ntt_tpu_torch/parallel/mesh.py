@@ -18,9 +18,11 @@ channel x coefficient four-step transform (``chsp.py``).  Results are
 bit-identical to the single-device ring.
 
 A mesh may also span several processes, one card each
-(``multihost.pod_mesh``): ``ShardedRing`` then runs SPMD, each process on
-its own block, the blocks moving between processes in ``comm.py``.
-``ShardedRNSRing`` takes single-process meshes only.
+(``multihost.pod_mesh``): ``ShardedRing`` and ``ShardedRNSRing`` then run
+SPMD, each process on its own block, the blocks moving between processes
+in ``comm.py``, and every process gets the global result.  There the dp
+and sp axes must give each process one block, and ``ShardedRNSRing``
+takes no ch axis.
 """
 
 from __future__ import annotations
@@ -434,12 +436,27 @@ class ShardedRNSRing:
       * otherwise (sp, dp x sp): one ``ShardedRing`` a channel, stacked.
 
     Methods take the global tensor (or its (L, B_i, ...) rows blocks, in
-    order) and return the global result on the mesh's first device.  The elementwise ops run on the blocks; the
-    permutations (``rotate``, ``automorphism``) on the gathered tensor; the
-    channel-mixing ops (base conversion, rescaling, the gadget split, the
-    HPS scale and return) on each dp/sp block with its channels gathered,
-    the output channel axis whole.  ``sp_comm`` is passed to the stacked
-    ``ShardedRing``s.  Bit-identical to the single-device RNSRing.
+    order) and return the global result on the mesh's first device.  The
+    elementwise ops run on the blocks; the permutations (``rotate``,
+    ``automorphism``) on the gathered tensor; the channel-mixing ops (base
+    conversion, rescaling, the gadget split, the HPS scale and return) on
+    each dp/sp block with its channels gathered, the output channel axis
+    whole.  ``sp_comm`` is passed to the stacked ``ShardedRing``s.
+    Bit-identical to the single-device RNSRing.
+
+    On a mesh of several processes (``multihost.pod_mesh``, one card a
+    process) every process calls each method with the same global tensor
+    and gets the global result on its own device (``mesh.home``): under
+    dp each process launches the multi-prime kernel on its rows block,
+    under sp and dp x sp the stacked ``ShardedRing``s run SPMD, the mixing
+    ops run on this process's dp/sp block, the permutations on the global
+    tensor every process holds, and the blocks meet by ``comm.all_gather``
+    (``shards.join_channels``).  The key switch's extended-basis ring is
+    built on the same mesh.  Every route is decided from the global shape
+    and the configuration, so every process issues the same collectives in
+    the same order.  Refused there with a ``ValueError``: a ch axis, and
+    dp/sp axes that do not give each process exactly one block (a process
+    that owns several positions, or none).
     """
 
     def __init__(
@@ -457,10 +474,11 @@ class ShardedRNSRing:
             raise TypeError(
                 f"ShardedRNSRing wraps an RNSRing; got {type(rns).__name__}"
             )
-        if mesh.multiprocess:
-            raise NotImplementedError(
-                "ShardedRNSRing runs on a single-process mesh; a mesh of "
-                "several processes (pod_mesh) takes ShardedRing only"
+        if mesh.multiprocess and ch_axis is not None:
+            raise ValueError(
+                f"ShardedRNSRing on a mesh of several processes takes no ch "
+                f"axis (got ch_axis={ch_axis!r}): shard the batch (dp) or "
+                "the coefficients (sp)"
             )
         self.rns = rns
         self.mesh = mesh
@@ -508,6 +526,9 @@ class ShardedRNSRing:
         self._dp = len(self._devices[0])
         self._tables: Dict[tuple, object] = {}
         self._consts: Dict[tuple, tuple] = {}
+        # where the blocks live across processes (None: all in this one);
+        # without a ch axis the mixing ops' grid is the same grid
+        self._layout = shards.channel_layout(mesh, dp_axis, sp_axis)
 
     @property
     def L(self) -> int:
@@ -517,7 +538,11 @@ class ShardedRNSRing:
 
     @property
     def _first(self) -> torch.device:
-        return self._devices[0][0][0]
+        """Where the global tensors live: the mesh's first device, or this
+        process's device on a mesh of several processes."""
+        if self._layout is None:
+            return self._devices[0][0][0]
+        return self.mesh.home
 
     def _global(self, x, ndim: int = 3) -> torch.Tensor:
         """x as the global uint32 tensor on the first device, checked: a
@@ -535,8 +560,9 @@ class ShardedRNSRing:
     def shard(self, x) -> torch.Tensor:
         """Place (L, B, ..., n) residues: channels over ch (if set), batch
         over dp, coefficients over sp.  The global tensor on the first
-        device; raises, as a placement on the mesh does, where an axis does
-        not divide its dimension."""
+        device (this process's on a mesh of several processes); raises, as
+        a placement on the mesh does, where an axis does not divide its
+        dimension."""
         x = shards.as_u32(x, self._first, axis=1)
         self.rns._check(x)
         if x.dim() < 3:
@@ -554,7 +580,8 @@ class ShardedRNSRing:
         return self.rns.rings[c * per:(c + 1) * per]
 
     def _block_tables(self, c: int, device: torch.device):
-        """Channel block c's ``RNSTables`` on ``device``, built once."""
+        """Channel block c's ``RNSTables`` on ``device``, built once (only
+        for a block this process owns, so only on its own device)."""
         key = (c, device)
         hit = self._tables.get(key)
         if hit is None:
@@ -591,8 +618,9 @@ class ShardedRNSRing:
         devices = self._devices if devices is None else devices
         b = xs[0].shape[1]
         grids = [shards.split_channels(shards.pad_rows(x, self._dp, axis=1),
-                                       devices) for x in xs]
-        return shards.join_channels(body(*grids), self._first, b)
+                                       devices, self._layout) for x in xs]
+        return shards.join_channels(body(*grids), self._first, b,
+                                    self._layout)
 
     def _launch(self, kernel, *grids):
         """One multi-prime kernel launch a block, on its channels' tables."""
@@ -810,9 +838,10 @@ class ShardedRNSRing:
 
     def mod_down(self, x, count: int = 1) -> torch.Tensor:
         """Iterated rescale on the mesh (see RNSRing.mod_down)."""
+        x = self._global(x)
+        c = self.rns._count(count)
         return self._mixing(
-            lambda v: basechange.mod_down(v, self.rns.qs, int(count)),
-            self._global(x))
+            lambda v: basechange.mod_down(v, self.rns.qs, c), x)
 
     def rescale_bgv(self, x, t: int) -> torch.Tensor:
         """BGV t-correcting modulus switch on the mesh (see
@@ -824,10 +853,10 @@ class ShardedRNSRing:
     def mod_down_bgv(self, x, t: int, count: int = 1) -> torch.Tensor:
         """Iterated t-correcting divide on the mesh (see
         RNSRing.mod_down_bgv)."""
+        x = self._global(x)
+        c = self.rns._count(count)
         return self._mixing(
-            lambda v: basechange.mod_down_bgv(v, self.rns.qs, int(t),
-                                              int(count)),
-            self._global(x))
+            lambda v: basechange.mod_down_bgv(v, self.rns.qs, int(t), c), x)
 
     def hps_scale_sk(self, d, qs, aux, t: int) -> torch.Tensor:
         """BFV HPS scale-and-round + Shenoy-Kumaresan exact return on the

@@ -16,10 +16,12 @@ and coefficient block d on the mesh device at ch = c, dp = i, sp = d
 (``split_channels``, ``join_channels``).
 
 On a mesh of several processes (``multihost.pod_mesh``) each process owns
-one block of a grid (``Layout``): ``split`` keeps that block and leaves
-the others None, the transforms run on it alone (SPMD, the moves in
-``comm.py``), and ``join`` gathers every process's block, so that each
-process gets the global tensor.
+one block of a grid (``Layout``; ``channel_layout`` for a channel grid,
+whose channel axis is then whole): ``split`` and ``split_channels`` keep
+that block and leave the others None, the transforms run on it alone
+(SPMD, the moves in ``comm.py``), and ``join`` and ``join_channels``
+gather every process's block, so that each process gets the global
+tensor.
 
 Data movement runs on int32 views of the uint32 words: PyTorch's CUDA
 copies, ``cat`` and gathers cover int32 everywhere, and gloo refuses
@@ -82,10 +84,13 @@ def grid_layout(mesh, dp_axis: Optional[str],
         for i in range(axis_size(mesh, dp_axis)))
     flat = sorted(r for row in owners for r in row)
     if flat != list(range(mesh.owners.size)):
+        several = sorted({r for r in flat if flat.count(r) > 1})
         raise ValueError(
-            f"on a mesh of {mesh.owners.size} processes the sharded axes "
+            f"on a mesh of {mesh.owners.size} positions the sharded axes "
             f"({dp_axis!r}, {sp_axis!r}) must give each process one block; "
-            f"they give the ranks {flat}")
+            f"they give the ranks {flat}"
+            + (f" (ranks {several} own several positions)" if several
+               else ""))
     i, d = next((i, row.index(mesh.rank)) for i, row in enumerate(owners)
                 if mesh.rank in row)
     line = None
@@ -178,11 +183,27 @@ def channel_devices(mesh, ch_axis: Optional[str], dp_axis: Optional[str],
     ]
 
 
-def split_channels(x: torch.Tensor, devices) -> List[Grid]:
+def channel_layout(mesh, dp_axis: Optional[str],
+                   sp_axis: Optional[str]) -> Optional[Layout]:
+    """The ``Layout`` of a channel grid ``channel_devices(mesh, None,
+    dp_axis, sp_axis)`` (one channel block, c = 0): ``owners[0][i][d]``,
+    ``position`` (0, i, d).  None on a single-process mesh; as
+    ``grid_layout``, each process must own exactly one block."""
+    layout = grid_layout(mesh, dp_axis, sp_axis)
+    if layout is None:
+        return None
+    return Layout((layout.owners,), (0,) + layout.position, layout.group,
+                  layout.line)
+
+
+def split_channels(x: torch.Tensor, devices,
+                   layout: Optional[Layout] = None) -> List[Grid]:
     """Cut (L, B, ..., n) into the channel grid of ``devices``
     (``channel_devices``): block [c][i][d] holds channel block c, rows
     block i and coefficient block d, contiguous on its device.  L must
-    divide by the ch size, B by the dp size, n by the sp size."""
+    divide by the ch size, B by the dp size, n by the sp size.  With a
+    ``layout`` (``channel_layout``) only this process's block is cut, the
+    others are None."""
     chans = x.shape[0] // len(devices)
     rows = x.shape[1] // len(devices[0])
     cols = x.shape[-1] // len(devices[0][0])
@@ -192,6 +213,7 @@ def split_channels(x: torch.Tensor, devices) -> List[Grid]:
             [
                 u32(w[c * chans:(c + 1) * chans, i * rows:(i + 1) * rows, ...,
                       d * cols:(d + 1) * cols].to(dev).contiguous())
+                if layout is None or layout.position == (c, i, d) else None
                 for d, dev in enumerate(row)
             ]
             for i, row in enumerate(plane)
@@ -200,10 +222,19 @@ def split_channels(x: torch.Tensor, devices) -> List[Grid]:
     ]
 
 
-def join_channels(grid, device: torch.device,
-                  rows: Optional[int] = None) -> torch.Tensor:
+def join_channels(grid, device: torch.device, rows: Optional[int] = None,
+                  layout: Optional[Layout] = None) -> torch.Tensor:
     """The global (L, B, ..., n) tensor of a channel grid on ``device``, its
-    first ``rows`` rows (all by default)."""
+    first ``rows`` rows (all by default).  With a ``layout`` every
+    process's block arrives by ``comm.all_gather`` over the group of every
+    process, and every process gets the global tensor: the blocks are of
+    one shape (the batch padded to the dp size before the split; a mixing
+    op's output channels are the same count in every block)."""
+    if layout is not None:
+        c, i, d = layout.position
+        got = comm.all_gather(grid[c][i][d], layout.group)
+        grid = [[[got[r] for r in row] for row in plane]
+                for plane in layout.owners]
     full = torch.cat([
         torch.cat([
             torch.cat([words(b).to(device) for b in row], dim=-1)
@@ -216,9 +247,11 @@ def join_channels(grid, device: torch.device,
 
 def map_channels(fn, *grids):
     """fn(c, *blocks) block by block over equally laid-out channel grids, c
-    the channel block's index."""
+    the channel block's index; a block that another process owns (None)
+    stays None."""
     return [
-        [[fn(c, *blocks) for blocks in zip(*rows)] for rows in zip(*planes)]
+        [[None if blocks[0] is None else fn(c, *blocks)
+          for blocks in zip(*rows)] for rows in zip(*planes)]
         for c, planes in enumerate(zip(*grids))
     ]
 

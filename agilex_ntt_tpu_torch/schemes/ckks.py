@@ -247,9 +247,15 @@ class CKKSContext:
                  over ``sp_axis``), word for word the single-device path.
                  Ciphertexts carry exactly one batch dim (level, B, n);
                  ``place`` puts them on the mesh.  Keygen, encode, encrypt
-                 and decrypt stay on the base rings.
-    device:      ``None`` for the current CUDA device, or ``"cpu"`` for the
-                 plain versions.
+                 and decrypt stay on the base rings.  On a mesh of several
+                 processes (``multihost.pod_mesh``) every process builds
+                 the context with a Generator of the same seed and makes
+                 the same calls: each draws the same keys, noise and masks
+                 (no key is broadcast), runs its own block of each op and
+                 gets the global ciphertext on its own card.
+    device:      ``None`` for the current CUDA device (on a mesh of several
+                 processes, this process's device ``mesh.home``), or
+                 ``"cpu"`` for the plain versions.
     ring_kwargs: forwarded to every ``RNSRing`` (``method``, ``psi``,
                  ``fourstep_kernel``); the TPU-only ``backend``,
                  ``block_rows`` and ``interpret`` raise ``TypeError``.
@@ -291,6 +297,8 @@ class CKKSContext:
         self.delta = int(delta) if delta is not None else 1 << (bits - 1)
         self.error_std = float(error_std)
         self.rng = rng if rng is not None else np.random.default_rng(0)
+        if device is None and mesh is not None and mesh.multiprocess:
+            device = mesh.home  # never another rank's card
         self.device = _resolve_device(device)
         self.mesh = mesh
         self.dp_axis = dp_axis

@@ -170,9 +170,19 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       B=8191 (a remainder batch) and ``Ring(2^16)`` over sp=2 (four-step,
       B=512), each process's global result equal word for word to the
       unsharded ring on its card and, on the first rows, to the plain
-      version, its K1, K2 and K11 launches a call asserted; on a machine
-      with four cards or more the same on NCCL, one process a card (sp=4
-      at B=1024 and 8192, dp=4, dp=2 x sp=2, four-step sp=4).
+      version, its K1, K2 and K11 launches a call asserted; in the same
+      world ``ShardedRNSRing`` over dp=2 and sp=2 (``MP.RNS_ONE_CARD``):
+      ``RNSRing(4096, 3)``'s ntt, intt, polymul, polydot (k=2), add,
+      base_convert, rescale and mod_down at 2048 rows a dp block, the
+      n16384 key switch (keyswitch, hoisted_keyswitch; L=4, dnum=4, K=5,
+      B=64) and CKKS multiply + rescale and rotate 1, BGV multiply and BFV
+      multiply with ``mesh=pod_mesh(...)`` on the n16384 chain (B=64,
+      t=65537), each process's words equal to the unsharded ring's or
+      context's on its card, every multi-prime kernel (K4a, K4b, K5, K6b)
+      launched at dp=2 and K1, K2 and K11 at sp=2, no allocation on
+      another card; on a machine with four cards or more the same on
+      NCCL, one process a card (sp=4 at B=1024 and 8192, dp=4, dp=2 x
+      sp=2, four-step sp=4; the RNS plan at dp=4 and dp=2 x sp=2).
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -2285,36 +2295,58 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3k. the sharded ring with one process a card ------------------------
-    from agilex_ntt_tpu_torch.utils import multihost_probe as MP
+    def multihost_path():
+        """Phase 3k in its own scope; returns the launches summed over
+        the processes."""
+        from agilex_ntt_tpu_torch.utils import multihost_probe as MP
 
-    t3k = time.perf_counter()
-    worlds = [(2, "gloo", MP.ONE_CARD_PLAN, True)]
-    if torch.cuda.device_count() >= 4:
-        worlds.append((4, "nccl", MP.FOUR_CARD_PLAN, False))
-    k_launches = dict.fromkeys(K.LAUNCHES, 0)
-    for procs, backend, plan, one_card in worlds:
-        log(f"backend {backend}")
-        log(f"world size {procs}")
-        log(card)
-        if one_card:
-            log("every process on cuda:0: gloo, each transfer staged through "
-                "pinned host memory (comm.stages_through_host)")
-        results = MP.run_world(procs, backend, MP.check_calls, plan,
-                               one_card=one_card)
-        if one_card and not all(r["staged"] and r["device"] == DEVICE + ":0"
-                                for r in results):
-            raise AssertionError("the one-card world did not run on cuda:0 "
-                                 "with its transfers staged through the host")
-        for key, count in MP.report_checks(results).items():
-            k_launches[key] += count
-    missing = [key for key in ("fwd", "inv", "xchg_fwd", "xchg_inv")
-               if k_launches[key] < 1]
-    if missing:
-        raise AssertionError(f"the processes launched no {missing} kernel")
-    log(f"phase 3k: every process's global result equals the unsharded "
-        f"ring's words and the plain version's first rows; launches over "
-        f"the processes {({k: v for k, v in k_launches.items() if v})}; "
-        f"phase 3k took {time.perf_counter() - t3k:.1f} s")
+        t3k = time.perf_counter()
+        worlds = [(2, "gloo", MP.ONE_CARD_PLAN, MP.RNS_ONE_CARD, True)]
+        if torch.cuda.device_count() >= 4:
+            worlds.append((4, "nccl", MP.FOUR_CARD_PLAN, MP.RNS_FOUR_CARD,
+                           False))
+        k_launches = dict.fromkeys(K.LAUNCHES, 0)
+        for procs, backend, plan, layouts, one_card in worlds:
+            log(f"backend {backend}")
+            log(f"world size {procs}")
+            log(card)
+            if one_card:
+                log("every process on cuda:0: gloo, each transfer staged "
+                    "through pinned host memory (comm.stages_through_host)")
+            # check_rns raises when a call differs from the unsharded one,
+            # when a layout launched none of its kernels (MP.MULTI_PRIME at
+            # dp, MP.STAGE_SP under sp) and when a process allocated on
+            # another card
+            results = MP.run_world(procs, backend, MP.check_world, plan,
+                                   layouts, one_card=one_card)
+            ring_seen = [r["ring"] for r in results]
+            rns_seen = [r["rns"] for r in results]
+            if one_card and not all(
+                    r["staged"] and r["device"] == DEVICE + ":0"
+                    for r in ring_seen + rns_seen):
+                raise AssertionError("the one-card world did not run on "
+                                     "cuda:0 with its transfers staged "
+                                     "through the host")
+            for key, count in MP.report_checks(ring_seen).items():
+                k_launches[key] += count
+            k_rns = MP.report_rns(rns_seen)
+            log(f"ShardedRNSRing and the schemes on pod_mesh ({procs} "
+                f"processes, {backend}): launches over the processes {k_rns}")
+            for key, count in k_rns.items():
+                k_launches[key] += count
+        missing = [key for key in ("fwd", "inv", "xchg_fwd", "xchg_inv")
+                   + MP.MULTI_PRIME if k_launches[key] < 1]
+        if missing:
+            raise AssertionError(f"the processes launched no {missing} "
+                                 "kernel")
+        log(f"phase 3k: every process's global result equals the unsharded "
+            f"ring's or context's words (and, for ShardedRing, the plain "
+            f"version's first rows); launches over the processes "
+            f"{({k: v for k, v in k_launches.items() if v})}; "
+            f"phase 3k took {time.perf_counter() - t3k:.1f} s")
+        return k_launches
+
+    k_launches = multihost_path()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------

@@ -42,6 +42,69 @@ CASES = (
 )
 
 
+# ShardedRNSRing's cases: RNSRing(RNS_N, RNS_L) on the primes
+# find_primes(RNS_N, RNS_L + 2)[:RNS_L]; base_convert's destination is the
+# other two.  (name, mesh (dp, sp), ShardedRNSRing arguments, op, op
+# argument, batch, polydot k)
+RNS_N, RNS_L = 256, 3
+RNS_OPS = (("ntt", None, 0), ("intt", None, 0), ("polymul", None, 0),
+           ("polydot", None, 2), ("add", None, 0), ("sub", None, 0),
+           ("neg", None, 0), ("rotate", 5, 0),
+           ("automorphism", (5, "coeff"), 0), ("automorphism", (3, "ntt"), 0),
+           ("base_convert", "dst", 0), ("rescale", None, 0),
+           ("mod_down", 2, 0))
+RNS_CASES = (
+    *((f"rns {layout} {op}{'' if arg is None else f' {arg}'} B={b}", axes,
+       kw, op, arg, b, k)
+      for layout, axes, kw, b in (("dp", DP, {}, 5),
+                                  ("dp x sp", DPSP, dict(sp_axis="sp"), 6))
+      for op, arg, k in RNS_OPS),
+    ("rns dp ntt B=8", DP, {}, "ntt", None, 8, 0),
+)
+# the key switch at RNS_N, RNS_L: dnum = RNS_L digits, one special prime
+# (find_primes(RNS_N, RNS_L + 3)[-1]); (name, mesh, arguments, op, batch)
+KS_DNUM, KS_STEPS = RNS_L, (3, 5)
+KS_CASES = tuple(
+    (f"{op} {layout} B={b}", axes, kw, op, b)
+    for layout, axes, kw, b in (("dp", DP, {}, 5),
+                                ("dp x sp", DPSP, dict(sp_axis="sp"), 6))
+    for op in ("keyswitch", "hoisted_keyswitch"))
+
+
+def apply_rns(target, op, arg, xs, dst):
+    """A case of ``RNS_CASES`` on a ``ShardedRNSRing`` or an ``RNSRing`` of
+    either package; ``dst``: base_convert's destination primes."""
+    if op == "rotate":
+        return target.rotate(xs[0], arg)
+    if op == "automorphism":
+        return target.automorphism(xs[0], arg[0], domain=arg[1])
+    if op == "base_convert":
+        return target.base_convert(xs[0], dst)
+    if op == "mod_down":
+        return target.mod_down(xs[0], arg)
+    return getattr(target, op)(*xs)
+
+
+def jax_rns_outputs(inputs) -> dict:
+    """Every case of ``RNS_CASES`` on the JAX package's unsharded
+    ``RNSRing`` (XLA), the cases of one call as one batch (axis 1)."""
+    from agilex_ntt_tpu import RNSRing as JaxRNSRing
+    from agilex_ntt_tpu import find_primes
+
+    primes = find_primes(RNS_N, RNS_L + 2)
+    ring = JaxRNSRing(RNS_N, qs=primes[:RNS_L], backend="xla")
+    calls, out = {}, {}
+    for name, _, _, op, arg, _, _ in RNS_CASES:
+        calls.setdefault((op, arg), []).append(name)
+    for (op, arg), names in calls.items():
+        xs = [np.concatenate(parts, axis=1)
+              for parts in zip(*(inputs[m] for m in names))]
+        got = np.asarray(apply_rns(ring, op, arg, xs, primes[RNS_L:]))
+        rows = np.cumsum([inputs[m][0].shape[1] for m in names])[:-1]
+        out.update(zip(names, np.split(got, rows, axis=1)))
+    return out
+
+
 def apply(target, op, arg, xs):
     """The case's call on a ``ShardedRing`` or a ring of either package
     ("ntt_list" takes the list of ``dp_shard_batch``, "shard" is the

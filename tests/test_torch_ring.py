@@ -111,6 +111,14 @@ def test_polydot_matches_jax_and_fused_kernel(rings, jax_ref):
     assert _same(lead, np.asarray(fused).reshape(2, 4, N))
     with pytest.raises(ValueError, match="polydot"):
         ring.polydot(a, b[:, :2])
+    # empty operands raise with the JAX package's text
+    empty = np.zeros((0, 2, N), dtype=np.uint32)
+    with pytest.raises(ValueError) as want:
+        ref.polydot(empty, empty)
+    assert str(want.value) == f"empty batch: shape (0, 2, {N})"
+    with pytest.raises(ValueError) as got:
+        ring.polydot(empty, empty)
+    assert str(got.value) == str(want.value)
 
 
 def test_pointwise_ops_match_jax_bit_for_bit(rings):

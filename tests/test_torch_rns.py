@@ -211,14 +211,39 @@ def test_to_rns_from_rns_round_trip(rings, jax_ref):
     assert centered[0, 2] == -1 and (crt_compose(res.numpy(), ring.qs) == big).all()
 
 
+def _message(call) -> str:
+    with pytest.raises(ValueError) as err:
+        call()
+    return str(err.value)
+
+
 def test_drop_prime(rings, jax_ref):
-    ring, _ = rings
+    ring, ref = rings
     low = ring.drop_prime()
     assert low.qs == jax_ref.run(_jax_chain)[2] == QS[:2]
     assert low.device == ring.device
     assert ring.drop_prime(2).qs == QS[:1]
     with pytest.raises(ValueError, match="count"):
         ring.drop_prime(3)
+    # a bad count of mod_down and mod_down_bgv (also on a mesh), and an
+    # empty batch, raise with the JAX package's text
+    from agilex_ntt_tpu_torch.parallel import ShardedRNSRing, make_mesh
+
+    sharded = ShardedRNSRing(ring, make_mesh(dp=2, devices=["cpu"] * 2))
+    x = _residues((2, N), 30)
+    for count in (0, 3):
+        want = _message(lambda: ref.mod_down(x, count))
+        assert want == f"count must be in [1, 2], got {count}"
+        want_bgv = _message(lambda: ref.mod_down_bgv(x, 65537, count))
+        assert want_bgv == want
+        for target in (ring, sharded):
+            assert _message(lambda: target.mod_down(x, count)) == want
+            assert _message(
+                lambda: target.mod_down_bgv(x, 65537, count)) == want
+    empty = np.zeros((3, 0, N), dtype=np.uint32)
+    want = _message(lambda: ref.ntt(empty))
+    assert want == f"empty batch: shape (0, {N})"
+    assert _message(lambda: ring.ntt(empty)) == want
 
 
 def test_rns_kernels_match_pallas_interpret(rings, jax_ref):

@@ -92,6 +92,27 @@ def _inputs() -> dict:
     return cases
 
 
+def _empty_results(ring, pair) -> dict:
+    """Every method on an empty (0, N) batch, numpy uint64 and (lo, hi)
+    input (``pair`` splits the array): each result's kind, shapes and
+    dtypes, or the error."""
+    x = np.zeros((0, N), dtype=np.uint64)
+    out = {}
+    for op in ("ntt", "intt", "polymul", "pointwise_mul", "add", "sub"):
+        fn = getattr(ring, op)
+        for kind, arg in (("numpy", x), ("pair", pair(x))):
+            args = (arg,) * (1 if op in ("ntt", "intt") else 2)
+            got = _errors(lambda: fn(*args))
+            if got is None:
+                res = fn(*args)
+                parts = res if isinstance(res, tuple) else (res,)
+                got = (type(res).__name__ if kind == "numpy" else "pair",
+                       [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                        for t in parts])
+            out[f"{op} {kind}"] = got
+    return out
+
+
 def _errors(fn) -> tuple:
     try:
         fn()
@@ -157,6 +178,7 @@ def _jax_side(cases) -> dict:
                 r[op + "_pair"] = join(fn(limbs(c["a"]), limbs(c["b"])))
                 r[op + "_lazy"] = fn(c["lazy_a"], c["lazy_b"])
             r["err_dim"] = _errors(lambda: ring.ntt(np.zeros((2, N // 2))))
+            r["empty"] = _empty_results(ring, limbs)
             r["err_ring"] = _errors(lambda: JRing(N, q))
             out[q] = r
         out["err_q"] = _errors(lambda: JWide(N, (1 << 62) + 1))
@@ -423,6 +445,7 @@ def _port_side(cases) -> dict:
             r[op + "_pair"] = join32(fn(limbs32(c["a"]), limbs32(c["b"])))
             r[op + "_lazy"] = fn(c["lazy_a"], c["lazy_b"])
         r["err_dim"] = _errors(lambda: ring.ntt(np.zeros((2, N // 2))))
+        r["empty"] = _empty_results(ring, limbs32)
         r["err_ring"] = _errors(lambda: Ring(N, q, device="cpu"))
         out[q] = r
     out["err_q"] = _errors(lambda: WideRing(N, (1 << 62) + 1, device="cpu"))
@@ -591,6 +614,13 @@ def test_wide_ring_matches_jax(request, tmp_path_factory):
     assert got["err_q"][0] == "ValueError" and "2**62" in got["err_q"][1]
     assert got[Q45]["err_ring"][0] == "ValueError"
     assert got[Q62]["ntt"].dtype == np.uint64
+    # an empty batch: the empty (0, N) result of the input's kind, no error
+    for q in (Q45, Q62):
+        assert len(got[q]["empty"]) == 12
+        for name, res in got[q]["empty"].items():
+            kind = "ndarray" if name.endswith("numpy") else "pair"
+            assert res[0] == kind and all(
+                shape == (0, N) for shape, _ in res[1]), (q, name, res)
     assert _kat_matches() == []
     libs = [str(build_host(tmp_path_factory, name, SHIM, "-std=c++20", "-O1",
                            "-pthread", *defines))
