@@ -7,9 +7,10 @@ sharded paths also run on one card): ``ShardedRing``, the stage-sharded
 transform whose cross stages run on the exchange kernel K11, the four-step
 sharded transform, and ``ShardedRNSRing`` with the channel x coefficient
 four-step transform (``chsp.py``).  ``multihost.py`` starts a process
-group and builds a mesh over every process's card (``pod_mesh``), on
-which ``ShardedRing`` and ``ShardedRNSRing`` (with the schemes' ``mesh=``)
-run one process a card (the moves in ``comm.py``).
+group; ``make_mesh`` and ``pod_mesh`` then build the global mesh over
+every process's devices (one card a process or several), on which
+``ShardedRing`` and ``ShardedRNSRing`` (with the schemes' ``mesh=``) run
+SPMD, each process on its own blocks (the moves in ``comm.py``).
 """
 
 from .fourstep_shard import fourstep_sharded_fwd, fourstep_sharded_inv

@@ -21,6 +21,12 @@ The inverse runs the same steps backwards on K4b: the row tables carry
 n2^-1 and the column pass the rest of the scale, scale * n2 mod q (so a
 polymul's Montgomery R folds into the column pass).  Outputs are
 bit-identical to each channel's single-device four-step transform.
+
+On a mesh of several processes ``fwd_grid``/``inv_grid`` take the channel
+grid's ``shards.Layout``: each process runs the passes of the blocks it
+holds, an sp group whose shards are all in this process as above, and
+the retiles of any other group through ``shards.Fetch`` (the parts of
+the group's other processes sent point to point, ``comm.transfer``).
 """
 
 from __future__ import annotations
@@ -99,26 +105,6 @@ def _twiddle(m: torch.Tensor, plans, P: int, d: int, inverse: bool):
     return mm.shoup_mulmod_lazy(m.to(torch.int64), w, p, q).to(torch.uint32)
 
 
-def _rows_to_cols(ms, d: int, n2p: int) -> torch.Tensor:
-    """Shard d's columns from every shard's (Lc, B, n1/P, n2) rows block:
-    (Lc, B, n1, n2/P) on shard d's device."""
-    dev = ms[d].device
-    return shards.u32(torch.cat(
-        [shards.words(m)[..., d * n2p:(d + 1) * n2p].to(dev) for m in ms],
-        dim=2,
-    ))
-
-
-def _cols_to_rows(ms, d: int, n1p: int) -> torch.Tensor:
-    """Shard d's rows from every shard's (Lc, B, n1, n2/P) columns block:
-    (Lc, B, n1/P, n2) on shard d's device."""
-    dev = ms[d].device
-    return shards.u32(torch.cat(
-        [shards.words(m)[:, :, d * n1p:(d + 1) * n1p, :].to(dev) for m in ms],
-        dim=3,
-    ))
-
-
 def _columns(m: torch.Tensor) -> torch.Tensor:
     """(Lc, B, n1, c) -> (Lc, B c, n1): each column as a contiguous row."""
     lc, b, n1, c = m.shape
@@ -136,50 +122,61 @@ def _uncolumns(y: torch.Tensor, b: int, c: int) -> torch.Tensor:
 # -- one sp group of a channel block ---------------------------------------------
 
 
-def fwd_group(xs, plans: Tuple[FourStepPlan, ...]):
+def fwd_group(xs, plans: Tuple[FourStepPlan, ...], fetch=None):
     """Forward four-step NTT of the P coefficient shards ``xs`` of one sp
     group of a channel block, each (Lc, B, n/P) uint32, channel l in
-    [0, 4 q_l), on its device -> [0, q_l)."""
+    [0, 4 q_l), on its device -> [0, q_l).  With a ``shards.Fetch`` only
+    this process's shards are here (the others None), and the retiles'
+    parts of the others come through it."""
     P = len(xs)
-    lc, b, _ = xs[0].shape
+    here = [d for d, x in enumerate(xs) if x is not None]
+    lc, b, _ = xs[here[0]].shape
     n1, n2 = plans[0].n1, plans[0].n2
     n1p, n2p = n1 // P, n2 // P
-    ms = [x.view(lc, b, n1p, n2) for x in xs]
-    mids = []
-    for d in range(P):
+    cols = fourstep_shard._rows_to_cols(
+        [None if x is None else x.view(lc, b, n1p, n2) for x in xs], n2p,
+        fetch)
+    mids = [None] * P
+    for d in here:
         col = _tables(plans, xs[d].device)[0]
-        yc = K.fwd_ntt_rns(_columns(_rows_to_cols(ms, d, n2p)), col)
-        mids.append(_twiddle(_uncolumns(yc, b, n2p), plans, P, d, False))
-    outs = []
-    for d in range(P):
+        yc = K.fwd_ntt_rns(_columns(cols(d)), col)
+        mids[d] = _twiddle(_uncolumns(yc, b, n2p), plans, P, d, False)
+    rows = fourstep_shard._cols_to_rows(mids, n1p, fetch)
+    outs = [None] * P
+    for d in here:
         row = _tables(plans, xs[d].device)[1]
-        rows = _cols_to_rows(mids, d, n1p).reshape(lc, b * n1p, n2)
-        outs.append(K.fwd_ntt_rns(rows, row).view(lc, b, n1p * n2))
+        outs[d] = K.fwd_ntt_rns(rows(d).reshape(lc, b * n1p, n2), row
+                                ).view(lc, b, n1p * n2)
     return outs
 
 
-def inv_group(ys, plans: Tuple[FourStepPlan, ...], scales: Tuple[int, ...]):
+def inv_group(ys, plans: Tuple[FourStepPlan, ...], scales: Tuple[int, ...],
+              fetch=None):
     """Inverse four-step NTT of the P shards ``ys`` (channel l in
-    [0, 2 q_l)), channel l times ``scales[l]`` -> [0, q_l)."""
+    [0, 2 q_l)), channel l times ``scales[l]`` -> [0, q_l).  ``fetch`` as
+    in :func:`fwd_group`."""
     P = len(ys)
-    lc, b, _ = ys[0].shape
+    here = [d for d, y in enumerate(ys) if y is not None]
+    lc, b, _ = ys[here[0]].shape
     n1, n2 = plans[0].n1, plans[0].n2
     n1p, n2p = n1 // P, n2 // P
     # the row pass carries n2^-1 (its tables' own scale), the column pass
     # the rest: scale * n2
     col_scales = tuple(s * p.n2 % p.q for p, s in zip(plans, scales))
-    ms = []
-    for y in ys:
-        row = _tables(plans, y.device)[1]
-        ms.append(K.inv_ntt_rns(y.view(lc, b * n1p, n2), row)
-                  .view(lc, b, n1p, n2))
-    cms = []
-    for d in range(P):
+    ms = [None] * P
+    for d in here:
+        row = _tables(plans, ys[d].device)[1]
+        ms[d] = K.inv_ntt_rns(ys[d].view(lc, b * n1p, n2), row
+                              ).view(lc, b, n1p, n2)
+    cols = fourstep_shard._rows_to_cols(ms, n2p, fetch)
+    cms = [None] * P
+    for d in here:
         col = _tables(plans, ys[d].device)[0]
-        mu = _twiddle(_rows_to_cols(ms, d, n2p), plans, P, d, True)
+        mu = _twiddle(cols(d), plans, P, d, True)
         c = K.inv_ntt_rns(_columns(mu), col, scales=col_scales)
-        cms.append(_uncolumns(c, b, n2p))
-    return [_cols_to_rows(cms, d, n1p).reshape(lc, b, n1p * n2)
+        cms[d] = _uncolumns(c, b, n2p)
+    rows = fourstep_shard._cols_to_rows(cms, n1p, fetch)
+    return [None if ys[d] is None else rows(d).reshape(lc, b, n1p * n2)
             for d in range(P)]
 
 
@@ -189,24 +186,40 @@ def _block_plans(plans, num_blocks: int):
     return [tuple(plans[c * per:(c + 1) * per]) for c in range(num_blocks)]
 
 
-def fwd_grid(grid, plans: Tuple[FourStepPlan, ...]):
+def _groups(grid, layout, body):
+    """``body(group, c, fetch)`` on every sp group ``grid[c][i]`` that this
+    process holds a shard of; ``fetch``: None when every shard of the
+    group is here, else its ``shards.Fetch`` (``Layout.mover``)."""
+    out = []
+    for c, plane in enumerate(grid):
+        row = []
+        for i, g in enumerate(plane):
+            how = None if layout is None else layout.mover((c, i),
+                                                           lines=False)
+            row.append(g if how == "skip" else body(g, c, how))
+        out.append(row)
+    return out
+
+
+def fwd_grid(grid, plans: Tuple[FourStepPlan, ...], layout=None):
     """``fwd_group`` on every sp group of a channel grid (``grid[c][i]`` is
-    the sp group of channel block c, rows block i)."""
+    the sp group of channel block c, rows block i); ``layout``: the grid's
+    ``shards.Layout`` on a mesh of several processes."""
     per = _block_plans(plans, len(grid))
-    return [[fwd_group(g, per[c]) for g in plane]
-            for c, plane in enumerate(grid)]
+    return _groups(grid, layout, lambda g, c, f: fwd_group(g, per[c], f))
 
 
 def inv_grid(grid, plans: Tuple[FourStepPlan, ...],
-             scales: Optional[Tuple[int, ...]] = None):
+             scales: Optional[Tuple[int, ...]] = None, layout=None):
     """``inv_group`` on every sp group of a channel grid; ``scales`` (one a
-    channel of the whole ring) default to n^-1 mod q_l."""
+    channel of the whole ring) default to n^-1 mod q_l.  ``layout`` as in
+    :func:`fwd_grid`."""
     if scales is None:
         scales = tuple(p.n_inv for p in plans)
     per = _block_plans(plans, len(grid))
     per_s = _block_plans(tuple(scales), len(grid))
-    return [[inv_group(g, per[c], per_s[c]) for g in plane]
-            for c, plane in enumerate(grid)]
+    return _groups(grid, layout,
+                   lambda g, c, f: inv_group(g, per[c], per_s[c], f))
 
 
 # -- public entry points ---------------------------------------------------------

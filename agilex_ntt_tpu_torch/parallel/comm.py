@@ -1,10 +1,12 @@
 """The moves of the sharded ring between processes, in one place.
 
-A mesh built by ``multihost.pod_mesh`` in a world of several processes
-gives each process one position (one card, or the CPU): the process owns
-that position's block of every grid and nothing else.  The sharded
-transforms then run SPMD, every process on its own block, and the blocks
-move only here:
+A mesh of several processes (``make_mesh`` or ``multihost.pod_mesh`` in a
+world of processes) gives each process one or more positions (cards, or
+the CPU): the process holds those positions' blocks of every grid and
+nothing else (``shards.Layout``).  The sharded transforms then run SPMD,
+every process on its own blocks.  Moves between two blocks of one
+process are device copies (or K11 reading its partner on a peer card) and
+never come here; the blocks move between processes only here:
 
 - ``exchange``: the partner's whole shard of a cross stage (``copy_`` when
   the partner is in this process, one ``batch_isend_irecv`` pair with the
@@ -12,16 +14,25 @@ move only here:
   it and returns at once (``sp_comm="overlap"``);
 - ``all_to_all``: the four-step retile, ``all_to_all_single`` on one
   contiguous buffer over the sp group;
-- ``all_gather``: every process's block, for ``shards.join``.
+- ``transfer``: any set of point-to-point moves posted as one batch, for
+  an sp line whose processes hold several shards each or hold them at
+  different replicas (``shards.Fetch``);
+- ``all_gather``: every process's blocks, for ``shards.join``.
+
+The first two serve meshes of one position a process, where every sp
+line's shards sit in distinct processes.
 
 Every transfer moves int32 views of the uint32 words (gloo refuses
 ``torch.uint32``).  Under NCCL the tensors go on the wire from the card and
 NCCL orders its stream after the launches that wrote them; ``wait`` makes
-the current stream wait for the transfer.  Under gloo a CUDA tensor is
-staged through pinned host memory (``stages_through_host``): that is the
-route of several processes sharing one card, which NCCL refuses
-(``check_cards`` raises for it).  Nothing falls back from one route to the
-other.
+the current stream wait for the transfer.  A process with several cards
+puts what it sends and receives on its first card, ``mesh.home`` (a device
+copy, never through the host): NCCL runs a process's transfers on the
+card the process took as its current device (``init_distributed``).
+Under gloo a CUDA tensor is staged through pinned host memory
+(``stages_through_host``): that is the route of several processes sharing
+one card, which NCCL refuses (``check_cards`` raises for it).  Nothing
+falls back from one route to the other.
 """
 
 from __future__ import annotations
@@ -71,22 +82,24 @@ def card_id(device) -> Optional[tuple]:
     return (socket.gethostname(), str(getattr(props, "uuid", device.index)))
 
 
-def check_cards(backend: str, cards: Sequence[Optional[tuple]]) -> None:
+def check_cards(backend: str, cards: Sequence[Sequence[Optional[tuple]]]
+                ) -> None:
     """Raise when NCCL is asked for and two processes share a card
-    (``cards[r]``: rank r's ``card_id``)."""
+    (``cards[r]``: the ``card_id`` of each of rank r's devices; a process
+    may name one card several times)."""
     if backend != dist.Backend.NCCL:
         return
     seen = {}
-    for rank, card in enumerate(cards):
-        if card is None:
-            raise ValueError(f"NCCL needs a card in every process; rank "
-                             f"{rank} has none")
-        if card in seen:
-            raise ValueError(
-                f"NCCL takes one process a card, but ranks {seen[card]} and "
-                f"{rank} share {card}; run several processes on one card "
-                "over gloo (host-staged) instead")
-        seen[card] = rank
+    for rank, mine in enumerate(cards):
+        for card in mine:
+            if card is None:
+                raise ValueError(f"NCCL needs a card in every process; rank "
+                                 f"{rank} has a device that is none")
+            if seen.setdefault(card, rank) != rank:
+                raise ValueError(
+                    f"NCCL takes one process a card, but ranks {seen[card]} "
+                    f"and {rank} share {card}; run several processes on one "
+                    "card over gloo (host-staged) instead")
 
 
 def _words(x: torch.Tensor) -> torch.Tensor:
@@ -173,6 +186,31 @@ def all_to_all(blocks: Sequence[torch.Tensor], line: Line) -> Pending:
     work = dist.all_to_all_single(wire_recv, wire_send, group=line.group,
                                   async_op=True)
     return Pending([work], recv, (wire_send, wire_recv), host)
+
+
+def transfer(sends, recvs, group, home) -> List[torch.Tensor]:
+    """Point-to-point moves posted as one batch and waited for.  ``sends``
+    lists (tensor, peer rank, tag), ``recvs`` (a tensor shaped like the
+    one that arrives, peer rank, tag); returns what arrived, uint32 on
+    ``home`` in the order of ``recvs``.  What goes on the wire sits on
+    ``home`` (in pinned host memory under gloo for a card).  Both sides
+    must list the moves between them in one order, with one tag each."""
+    staged = stages_through_host(group, home)
+    ops, wire, outs = [], [], []
+    for t, peer, tag in sends:
+        w = _words(t)
+        w = _to_host(w) if staged else w.to(home).contiguous()
+        wire.append(w)
+        ops.append(dist.P2POp(dist.isend, w, peer, group, tag))
+    for like, peer, tag in recvs:
+        buf = (_pinned(_words(like)) if staged else
+               torch.empty(like.shape, dtype=torch.int32, device=home))
+        outs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [_u32(o.to(home) if staged else o) for o in outs]
 
 
 def all_gather(block: torch.Tensor, group) -> List[torch.Tensor]:

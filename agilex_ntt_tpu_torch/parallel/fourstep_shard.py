@@ -15,14 +15,18 @@ bit-identical to the single-device transforms.
 ``comm="overlap"`` keeps the JAX package's chunking: the local batch is
 split into up to ``_OVERLAP_CHUNKS`` independent chains.
 
-On a mesh of several processes (``multihost.pod_mesh``) ``fwd_grid`` and
-``inv_grid`` take the sp group of this process (``line``) and run SPMD on
-its one shard: the column pass (K1 on the column tables), its slice of the
-twiddle and the row pass as above, the two retiles an ``all_to_all`` each
-over the sp group (``comm.all_to_all``).  With ``"overlap"`` the chunks'
-retiles are posted ahead: every chunk's first retile at once, then each
-chunk's second as soon as its column pass is done, so that a chunk's
-retile is on the wire while the next chunk computes.
+On a mesh of several processes ``fwd_grid`` and ``inv_grid`` take the
+grid's ``shards.Layout`` and run SPMD on this process's shards, each sp
+group by ``Layout.mover``.  A group whose shards are all in this process
+runs as above.  In a group of one shard a process: the column pass (K1 on
+the column tables), its slice of the twiddle and the row pass as above,
+the two retiles an ``all_to_all`` each over the sp group
+(``comm.all_to_all``); with ``"overlap"`` the chunks' retiles are posted
+ahead: every chunk's first retile at once, then each chunk's second as
+soon as its column pass is done, so that a chunk's retile is on the wire
+while the next chunk computes.  Otherwise the bodies run on this
+process's shards, each retile's parts read here or brought by
+``shards.Fetch`` (whole batch, no chunks).
 """
 
 from __future__ import annotations
@@ -75,24 +79,35 @@ def _twiddle(m: torch.Tensor, plan, P, d, inverse) -> torch.Tensor:
     return mm.shoup_mulmod_lazy(m.to(torch.int64), w, p, plan.q).to(torch.uint32)
 
 
-def _rows_to_cols(ms, d: int, n2p: int) -> torch.Tensor:
-    """Shard d's columns from every shard's (B, n1/P, n2) rows block:
-    (B, n1, n2/P) on shard d's device."""
-    dev = ms[d].device
-    return shards.u32(torch.cat(
-        [shards.words(m)[:, :, d * n2p:(d + 1) * n2p].to(dev) for m in ms],
-        dim=1,
-    ))
+def _parts(ms, cut, fetch=None):
+    """The parts of a retile of the shards ``ms`` of one sp group (None
+    where another process holds the shard): ``parts(d)`` lists
+    ``cut(m_e, d)`` for every shard e, in order, on shard d's device.
+    Without ``fetch`` every shard is here and each part is cut when asked
+    for; with a ``shards.Fetch`` every part of this process's shards moves
+    at once."""
+    if fetch is None:
+        return lambda d: [shards.words(cut(m, d)).to(ms[d].device) for m in ms]
+    return fetch(ms, lambda d: range(len(ms)), cut).__getitem__
 
 
-def _cols_to_rows(ms, d: int, n1p: int) -> torch.Tensor:
-    """Shard d's rows from every shard's (B, n1, n2/P) columns block:
-    (B, n1/P, n2) on shard d's device."""
-    dev = ms[d].device
-    return shards.u32(torch.cat(
-        [shards.words(m)[:, d * n1p:(d + 1) * n1p, :].to(dev) for m in ms],
-        dim=2,
-    ))
+def _joined(parts, dim: int) -> torch.Tensor:
+    """A retile's parts joined along ``dim``."""
+    return shards.u32(torch.cat([shards.words(t) for t in parts], dim=dim))
+
+
+def _rows_to_cols(ms, n2p: int, fetch=None):
+    """Each shard's columns from every shard's (B, n1/P, n2) rows block:
+    (B, n1, n2/P) on the shard's device, by shard."""
+    parts = _parts(ms, lambda m, d: m[..., d * n2p:(d + 1) * n2p], fetch)
+    return lambda d: _joined(parts(d), -2)
+
+
+def _cols_to_rows(ms, n1p: int, fetch=None):
+    """Each shard's rows from every shard's (B, n1, n2/P) columns block:
+    (B, n1/P, n2) on the shard's device, by shard."""
+    parts = _parts(ms, lambda m, d: m[..., d * n1p:(d + 1) * n1p, :], fetch)
+    return lambda d: _joined(parts(d), -1)
 
 
 def _columns(m: torch.Tensor) -> torch.Tensor:
@@ -106,41 +121,51 @@ def _uncolumns(y: torch.Tensor, b: int, c: int) -> torch.Tensor:
     return shards.u32(shards.words(y).view(b, c, -1).transpose(1, 2))
 
 
-def _fwd_body(xs, plan: FourStepPlan):
+def _fwd_body(xs, plan: FourStepPlan, fetch=None):
+    """The forward transform of one sp group's shards ``xs``; with a
+    ``shards.Fetch`` of the shards here (the others None)."""
     P = len(xs)
-    b = xs[0].shape[0]
+    here = [d for d, x in enumerate(xs) if x is not None]
+    b = xs[here[0]].shape[0]
     n1, n2 = plan.n1, plan.n2
     n1p, n2p = n1 // P, n2 // P
-    ms = [x.view(b, n1p, n2) for x in xs]
-    mids = []
-    for d in range(P):
+    cols = _rows_to_cols([None if x is None else x.view(b, n1p, n2)
+                          for x in xs], n2p, fetch)
+    mids = [None] * P
+    for d in here:
         ft = _tables(plan, xs[d].device)
-        yc = K.fwd_ntt(_columns(_rows_to_cols(ms, d, n2p)), ft.col)
-        mids.append(_twiddle(_uncolumns(yc, b, n2p), plan, P, d, False))
-    outs = []
-    for d in range(P):
+        yc = K.fwd_ntt(_columns(cols(d)), ft.col)
+        mids[d] = _twiddle(_uncolumns(yc, b, n2p), plan, P, d, False)
+    rows = _cols_to_rows(mids, n1p, fetch)
+    outs = [None] * P
+    for d in here:
         ft = _tables(plan, xs[d].device)
-        rows = _cols_to_rows(mids, d, n1p).reshape(b * n1p, n2)
-        outs.append(K.fwd_ntt(rows, ft.row).view(b, n1p * n2))
+        outs[d] = K.fwd_ntt(rows(d).reshape(b * n1p, n2), ft.row
+                            ).view(b, n1p * n2)
     return outs
 
 
-def _inv_body(ys, plan: FourStepPlan, scale: int):
+def _inv_body(ys, plan: FourStepPlan, scale: int, fetch=None):
+    """The inverse of ``_fwd_body`` times ``scale``."""
     P = len(ys)
-    b = ys[0].shape[0]
+    here = [d for d, y in enumerate(ys) if y is not None]
+    b = ys[here[0]].shape[0]
     n1, n2 = plan.n1, plan.n2
     n1p, n2p = n1 // P, n2 // P
-    ms = []
-    for y in ys:
-        ft = _tables(plan, y.device)
-        ms.append(K.inv_ntt(y.view(b * n1p, n2), ft.row).view(b, n1p, n2))
-    cms = []
-    for d in range(P):
+    ms = [None] * P
+    for d in here:
         ft = _tables(plan, ys[d].device)
-        mu = _twiddle(_rows_to_cols(ms, d, n2p), plan, P, d, True)
+        ms[d] = K.inv_ntt(ys[d].view(b * n1p, n2), ft.row).view(b, n1p, n2)
+    cols = _rows_to_cols(ms, n2p, fetch)
+    cms = [None] * P
+    for d in here:
+        ft = _tables(plan, ys[d].device)
+        mu = _twiddle(cols(d), plan, P, d, True)
         c = K.inv_ntt(_columns(mu), ft.col, scale=ft.col_scale(scale))
-        cms.append(_uncolumns(c, b, n2p))
-    return [_cols_to_rows(cms, d, n1p).reshape(b, n1p * n2) for d in range(P)]
+        cms[d] = _uncolumns(c, b, n2p)
+    rows = _cols_to_rows(cms, n1p, fetch)
+    return [None if ys[d] is None else rows(d).reshape(b, n1p * n2)
+            for d in range(P)]
 
 
 def _num_chunks(b: int) -> int:
@@ -260,25 +285,43 @@ def _check_call(plan: FourStepPlan, num_devices: int, comm: str) -> None:
         raise ValueError(f"unknown comm {comm!r}")
 
 
-def fwd_grid(grid, plan: FourStepPlan, comm: str = "ppermute", line=None):
-    """``fwd_group`` on every sp group (dp row) of a grid; with ``line``
-    (a grid of one shard a process) on this process's shard."""
+def _by_row(grid, layout, local, line, fetched):
+    """Each sp group (dp row) of a grid by its ``Layout.mover``:
+    ``local(row)`` when every shard is here (always without a ``layout``),
+    ``line(x, line)`` on this process's shard of a row of one shard a
+    process, ``fetched(row, fetch)`` otherwise."""
+    out = []
+    for i, row in enumerate(grid):
+        how = None if layout is None else layout.mover((i,))
+        if how == "skip":
+            out.append(row)
+        elif how is None:
+            out.append(local(row))
+        elif isinstance(how, transport.Line):
+            out.append([None if x is None else line(x, how) for x in row])
+        else:
+            out.append(fetched(row, how))
+    return out
+
+
+def fwd_grid(grid, plan: FourStepPlan, comm: str = "ppermute", layout=None):
+    """``fwd_group`` on every sp group (dp row) of a grid; ``layout``: the
+    grid's ``shards.Layout`` on a mesh of several processes."""
     _check_call(plan, len(grid[0]), comm)
-    if line is not None:
-        return shards.map_grid(lambda x: _fwd_line(x, line, plan, comm), grid)
-    return [fwd_group(row, plan, comm) for row in grid]
+    return _by_row(grid, layout, lambda r: fwd_group(r, plan, comm),
+                   lambda x, line: _fwd_line(x, line, plan, comm),
+                   lambda r, fetch: _fwd_body(r, plan, fetch))
 
 
 def inv_grid(grid, plan: FourStepPlan, scale: Optional[int] = None,
-             comm: str = "ppermute", line=None):
+             comm: str = "ppermute", layout=None):
     """``inv_group`` on every sp group of a grid; scale defaults to n^-1.
-    ``line`` as in :func:`fwd_grid`."""
+    ``layout`` as in :func:`fwd_grid`."""
     _check_call(plan, len(grid[0]), comm)
     scale = plan.n_inv if scale is None else scale
-    if line is not None:
-        return shards.map_grid(
-            lambda y: _inv_line(y, line, plan, scale, comm), grid)
-    return [inv_group(row, plan, scale, comm) for row in grid]
+    return _by_row(grid, layout, lambda r: inv_group(r, plan, scale, comm),
+                   lambda y, line: _inv_line(y, line, plan, scale, comm),
+                   lambda r, fetch: _inv_body(r, plan, scale, fetch))
 
 
 def _run(x, plan, mesh, axis, dp_axis, comm, body):

@@ -17,12 +17,12 @@ rows block; coefficient sharding (sp) runs the stage-sharded transform
 channel x coefficient four-step transform (``chsp.py``).  Results are
 bit-identical to the single-device ring.
 
-A mesh may also span several processes, one card each
-(``multihost.pod_mesh``): ``ShardedRing`` and ``ShardedRNSRing`` then run
-SPMD, each process on its own block, the blocks moving between processes
-in ``comm.py``, and every process gets the global result.  There the dp
-and sp axes must give each process one block, and ``ShardedRNSRing``
-takes no ch axis.
+A mesh may also span several processes (``make_mesh`` in a world of
+processes, ``multihost.pod_mesh``), one card each or several:
+``ShardedRing`` and ``ShardedRNSRing`` then run SPMD, each process on the
+blocks of its own positions (replicated over the mesh axes a ring does
+not name), the blocks moving between processes in ``comm.py``, and every
+process gets the global result.
 """
 
 from __future__ import annotations
@@ -31,13 +31,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api import CyclicRing, Ring, RNSRing
 from ..ops import basechange, fourstep, gadget
 from ..ops import modmul as mm
 from ..ops import ntt_kernel as K
 from ..ops.plain_ntt import make_rns_tables
-from . import chsp, fourstep_shard, shards, stage_shard
+from . import chsp, comm, fourstep_shard, shards, stage_shard
 
 
 class Mesh:
@@ -84,16 +85,43 @@ class Mesh:
         return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
 
 
+def local_devices():
+    """This process's devices in a world of several processes: its
+    current card, the CPU without one."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cpu")]
+
+
+def _world() -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def make_mesh(*, devices=None, **axes: int) -> Mesh:
     """Build a named mesh, e.g. ``make_mesh(dp=4, sp=2)``.
 
     ``devices`` defaults to every visible CUDA device (none without a card);
     a caller may pass any list, a device repeating in it, such as
     ``["cuda:0"] * 8`` or ``["cpu"] * 8``.  The first prod(axes) devices
-    fill the axes in row-major order."""
+    fill the axes in row-major order.
+
+    In a world of several processes (``torch.distributed`` initialised,
+    ``multihost.init_distributed``) the mesh is global: ``devices`` names
+    this process's devices (default ``local_devices()``, its current card
+    or the CPU), every process names as many, and their devices fill the
+    positions in rank order, so that each process's positions are
+    consecutive in row-major order (the innermost axes stay inside a
+    process).  prod(axes) must equal the devices of every process.  The
+    mesh records ``owners``, ``rank``, the world group and a group for
+    each line of every axis (``axis_groups``).  Under NCCL two processes
+    may not share a card (``comm.check_cards``)."""
     names = tuple(axes.keys())
     shape = tuple(axes.values())
     want = int(np.prod(shape))
+    if _world() > 1:
+        return _world_mesh(names, shape, devices)
     if devices is None:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         devices = [torch.device("cuda", i) for i in range(have)]
@@ -109,6 +137,45 @@ def make_mesh(*, devices=None, **axes: int) -> Mesh:
     grid = np.empty(want, dtype=object)
     grid[:] = devices[:want]
     return Mesh(grid.reshape(shape), names)
+
+
+def _world_mesh(names, shape, devices) -> Mesh:
+    """``make_mesh`` over every process's devices (see there)."""
+    local = [torch.device(d) for d in (local_devices() if devices is None
+                                       else devices)]
+    for dev in local:
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {dev}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    placed = [None] * world
+    dist.all_gather_object(placed, [(str(d), comm.card_id(d)) for d in local])
+    counts = [len(p) for p in placed]
+    if len(set(counts)) != 1:
+        raise ValueError(f"every process of a mesh names as many devices; "
+                         f"the ranks name {counts}")
+    want, have = int(np.prod(shape)), sum(counts)
+    if want != have:
+        raise ValueError(
+            f"mesh needs {want} devices, but the {world} processes have "
+            f"{have} ({counts[0]} each) and a mesh of several processes "
+            "takes them all")
+    comm.check_cards(dist.get_backend(),
+                     [[card for _, card in p] for p in placed])
+    grid = np.empty(want, dtype=object)
+    grid[:] = [torch.device(d) for p in placed for d, _ in p]
+    owners = (np.arange(want) // counts[0]).reshape(shape)
+    # a group for each line of every axis (its distinct ranks, ascending);
+    # every rank creates every group, in one order
+    axis_groups = {}
+    for ax, name in enumerate(names):
+        lines = np.moveaxis(owners, ax, -1).reshape(-1, shape[ax])
+        groups = axis_groups[name] = {}
+        for line in lines.tolist():
+            ranks = tuple(sorted(set(line)))
+            if ranks not in groups:
+                groups[ranks] = dist.new_group(list(ranks))
+    return Mesh(grid.reshape(shape), names, owners=owners, rank=rank,
+                process_group=dist.group.WORLD, axis_groups=axis_groups)
 
 
 def dp_shard_batch(x, mesh: Mesh, axis: str = "dp"):
@@ -149,11 +216,14 @@ class ShardedRing:
     on their devices between steps.  All results are bit-identical to the
     single-device ring.
 
-    On a mesh of several processes (``multihost.pod_mesh``) every process
-    calls each method with the same global tensor, the axes give each
-    process one block, and each process transforms its own block (SPMD);
-    the blocks move between processes through ``comm.py`` and every process
-    gets the global result on its own device.
+    On a mesh of several processes (``make_mesh``, ``multihost.pod_mesh``)
+    every process calls each method with the same global tensor and
+    transforms the blocks of its own positions (SPMD; ``shards.Layout``):
+    one or several, and on a mesh axis the ring does not name, the same
+    blocks as the other processes along it (replicated).  An sp group
+    inside one process runs as on one process; the blocks move between
+    processes through ``comm.py``, and every process gets the global
+    result on its own device (``mesh.home``).
     """
 
     def __init__(
@@ -206,8 +276,7 @@ class ShardedRing:
         self._dp = len(self._devices)
         self._tables = {}
         # where the blocks live across processes (None: all in this one)
-        self._layout = shards.grid_layout(mesh, dp_axis, sp_axis)
-        self._line = None if self._layout is None else self._layout.line
+        self._layout = shards.layout(mesh, dp_axis, sp_axis)
 
     # -- plumbing ------------------------------------------------------------
 
@@ -250,7 +319,8 @@ class ShardedRing:
         return shards.pad_rows(x, self._dp), x.shape[0]
 
     def _split(self, x: torch.Tensor):
-        return shards.split(x, self._devices, self._layout)
+        here = self._devices if self._layout is None else self._layout.devices
+        return shards.split(x, here)
 
     def _true_rows(self, grid, b: int) -> torch.Tensor:
         """The global result of a grid, padded rows sliced off."""
@@ -262,18 +332,18 @@ class ShardedRing:
         if self.sp_axis is not None:
             if self.sp_method == "fourstep":
                 return fourstep_shard.fwd_grid(grid, self._plan, self.sp_comm,
-                                               self._line)
+                                               self._layout)
             return stage_shard.fwd_grid(grid, self.ring.params, self.sp_comm,
-                                        self._line)
+                                        self._layout)
         return shards.map_grid(self._local_ntt, grid)
 
     def _intt_grid(self, grid, scale: Optional[int] = None):
         if self.sp_axis is not None:
             if self.sp_method == "fourstep":
                 return fourstep_shard.inv_grid(grid, self._plan, scale,
-                                               self.sp_comm, self._line)
+                                               self.sp_comm, self._layout)
             return stage_shard.inv_grid(grid, self.ring.params, scale,
-                                        self.sp_comm, self._line)
+                                        self.sp_comm, self._layout)
         return shards.map_grid(lambda x: self._local_intt(x, scale), grid)
 
     def _local_ntt(self, x: torch.Tensor) -> torch.Tensor:
@@ -444,19 +514,21 @@ class ShardedRNSRing:
     whole.  ``sp_comm`` is passed to the stacked ``ShardedRing``s.
     Bit-identical to the single-device RNSRing.
 
-    On a mesh of several processes (``multihost.pod_mesh``, one card a
-    process) every process calls each method with the same global tensor
-    and gets the global result on its own device (``mesh.home``): under
-    dp each process launches the multi-prime kernel on its rows block,
-    under sp and dp x sp the stacked ``ShardedRing``s run SPMD, the mixing
-    ops run on this process's dp/sp block, the permutations on the global
-    tensor every process holds, and the blocks meet by ``comm.all_gather``
-    (``shards.join_channels``).  The key switch's extended-basis ring is
-    built on the same mesh.  Every route is decided from the global shape
-    and the configuration, so every process issues the same collectives in
-    the same order.  Refused there with a ``ValueError``: a ch axis, and
-    dp/sp axes that do not give each process exactly one block (a process
-    that owns several positions, or none).
+    On a mesh of several processes (``make_mesh``, ``multihost.pod_mesh``;
+    one card a process or several) every process calls each method with
+    the same global tensor and gets the global result on its own device
+    (``mesh.home``).  Each process runs the blocks of its positions
+    (``shards.Layout``; replicated over the axes the ring does not name):
+    under ch (x dp) the multi-prime kernel on each channel block it holds,
+    on that block's tables built on its card; under ch x sp the ``chsp``
+    passes, the retiles through each sp line; under dp, sp and dp x sp as
+    on one process.  The mixing ops run on the dp/sp blocks this process
+    holds with every channel (the channel axis replicated), the
+    permutations on the global tensor every process holds, and the blocks
+    meet by ``shards.join_channels``.  The key switch's extended-basis
+    ring is built on the same mesh (on a ch mesh, replicated over ch).
+    Every route is decided from the global shape and the configuration,
+    so every process issues the same collectives in the same order.
     """
 
     def __init__(
@@ -473,12 +545,6 @@ class ShardedRNSRing:
         if not isinstance(rns, RNSRing):
             raise TypeError(
                 f"ShardedRNSRing wraps an RNSRing; got {type(rns).__name__}"
-            )
-        if mesh.multiprocess and ch_axis is not None:
-            raise ValueError(
-                f"ShardedRNSRing on a mesh of several processes takes no ch "
-                f"axis (got ch_axis={ch_axis!r}): shard the batch (dp) or "
-                "the coefficients (sp)"
             )
         self.rns = rns
         self.mesh = mesh
@@ -526,9 +592,12 @@ class ShardedRNSRing:
         self._dp = len(self._devices[0])
         self._tables: Dict[tuple, object] = {}
         self._consts: Dict[tuple, tuple] = {}
-        # where the blocks live across processes (None: all in this one);
-        # without a ch axis the mixing ops' grid is the same grid
-        self._layout = shards.channel_layout(mesh, dp_axis, sp_axis)
+        # where the blocks live across processes (None: all in this one):
+        # the ring's grid and the mixing ops' (the channel axis whole, so
+        # replicated over ch)
+        self._layout = shards.layout(mesh, ch_axis, dp_axis, sp_axis)
+        self._mix_layout = (self._layout if ch_axis is None else
+                            shards.layout(mesh, None, dp_axis, sp_axis))
 
     @property
     def L(self) -> int:
@@ -611,16 +680,17 @@ class ShardedRNSRing:
             self._consts[key] = hit
         return hit
 
-    def _grid_call(self, body, *xs, devices=None) -> torch.Tensor:
-        """body(*grids) -> grid on the channel grids of the operands, their
-        batch padded to the dp size; the global result, padded rows
-        sliced off."""
-        devices = self._devices if devices is None else devices
+    def _grid_call(self, body, *xs, mixing: bool = False) -> torch.Tensor:
+        """body(*grids) -> grid on the channel grids of the operands (the
+        mixing ops' grid with ``mixing``), their batch padded to the dp
+        size; the global result, padded rows sliced off."""
+        layout = self._mix_layout if mixing else self._layout
+        devices = (self._mix_devices if mixing else self._devices) \
+            if layout is None else layout.devices
         b = xs[0].shape[1]
         grids = [shards.split_channels(shards.pad_rows(x, self._dp, axis=1),
-                                       devices, self._layout) for x in xs]
-        return shards.join_channels(body(*grids), self._first, b,
-                                    self._layout)
+                                       devices) for x in xs]
+        return shards.join_channels(body(*grids), self._first, b, layout)
 
     def _launch(self, kernel, *grids):
         """One multi-prime kernel launch a block, on its channels' tables."""
@@ -668,7 +738,7 @@ class ShardedRNSRing:
         x = self._global(x)
         if self._chsp():
             return self._grid_call(
-                lambda g: chsp.fwd_grid(g, self._chsp_plans), x)
+                lambda g: chsp.fwd_grid(g, self._chsp_plans, self._layout), x)
         if self._kernel_path():
             return self._grid_call(lambda g: self._launch(K.fwd_ntt_rns, g), x)
         return self._stacked(lambda sr, xi: sr.ntt(xi), x)
@@ -679,7 +749,8 @@ class ShardedRNSRing:
         x = self._global(x)
         if self._chsp():
             return self._grid_call(
-                lambda g: chsp.inv_grid(g, self._chsp_plans), x)
+                lambda g: chsp.inv_grid(g, self._chsp_plans,
+                                        layout=self._layout), x)
         if self._kernel_path():
             return self._grid_call(lambda g: self._launch(K.inv_ntt_rns, g), x)
         return self._stacked(lambda sr, xi: sr.intt(xi), x)
@@ -700,17 +771,18 @@ class ShardedRNSRing:
         return self._stacked(lambda sr, ai, bi: sr.polymul(ai, bi), a, b)
 
     def _chsp_polymul(self, ga, gb):
-        plans = self._chsp_plans
-        fa, fb = chsp.fwd_grid(ga, plans), chsp.fwd_grid(gb, plans)
+        plans, lay = self._chsp_plans, self._layout
+        fa, fb = chsp.fwd_grid(ga, plans, lay), chsp.fwd_grid(gb, plans, lay)
         prod = shards.map_channels(self._mont, fa, fb)
-        return chsp.inv_grid(prod, plans, self.rns.polymul_scale)
+        return chsp.inv_grid(prod, plans, self.rns.polymul_scale, lay)
 
     def _chsp_polydot(self, ga, gb):
         """sum_i a_i b_i under ch x sp: per term two sharded forward
         transforms and the lazy Montgomery product, the sum kept below 2q
         (term order as the single-device polydot's), one scaled inverse."""
-        plans = self._chsp_plans
-        k = ga[0][0][0].shape[2]
+        plans, lay = self._chsp_plans, self._layout
+        k = next(b for plane in ga for row in plane for b in row
+                 if b is not None).shape[2]
 
         def term(grid, i):
             return shards.map_channels(
@@ -724,11 +796,11 @@ class ShardedRNSRing:
 
         acc = None
         for i in range(k):
-            fa = chsp.fwd_grid(term(ga, i), plans)
-            fb = chsp.fwd_grid(term(gb, i), plans)
+            fa = chsp.fwd_grid(term(ga, i), plans, lay)
+            fb = chsp.fwd_grid(term(gb, i), plans, lay)
             t = shards.map_channels(self._mont, fa, fb)
             acc = t if acc is None else shards.map_channels(accumulate, acc, t)
-        return chsp.inv_grid(acc, plans, self.rns.polymul_scale)
+        return chsp.inv_grid(acc, plans, self.rns.polymul_scale, lay)
 
     def polydot(self, a, b) -> torch.Tensor:
         """Inner product sum_i a_i * b_i per prime channel of (L, B, k, n)
@@ -821,7 +893,7 @@ class ShardedRNSRing:
         return self._grid_call(
             lambda g: shards.map_channels(
                 lambda c, v: fn(v.to(torch.int64)).to(torch.uint32), g),
-            x, devices=self._mix_devices,
+            x, mixing=True,
         )
 
     def base_convert(self, x, dst, *, correction: str = "none") -> torch.Tensor:
@@ -909,10 +981,16 @@ class ShardedRNSRing:
             )
         return qs_ext
 
-    def _sharded_ext(self, qs_ext: tuple, ext) -> "ShardedRNSRing":
+    def _sharded_ext(self, qs_ext: tuple, ext):
         """The extended-basis ring, sharded like this one (dp/sp; the
-        channel axis whole: K generally does not divide the ch axis),
-        cached per prime tuple (the ring itself in ``rns._ext_rings``)."""
+        channel axis whole: K generally does not divide the ch axis, so on
+        a ch mesh it is replicated over ch), cached per prime tuple (the
+        ring itself in ``rns._ext_rings``).  With neither a dp nor an sp
+        axis it is replicated whole: the ``RNSRing`` itself, on the first
+        device (every process's own), where the JAX package's sharded ring
+        refuses a ring with no axis."""
+        if self.dp_axis is None and self.sp_axis is None:
+            return self.rns._ext(ext)
         sext = self._ext_sharded.get(qs_ext)
         if sext is None:
             sext = ShardedRNSRing(

@@ -1,19 +1,24 @@
-"""Multi-process setup: one process a card, over ``torch.distributed``.
+"""Multi-process setup over ``torch.distributed``.
 
 Counterpart of ``agilex_ntt_tpu/parallel/multihost.py``.  There every host
 runs the same program, ``jax.distributed.initialize`` wires the control
 plane and the mesh spans all hosts' devices; XLA routes the collectives,
 so the sharded transforms run unchanged.  Here every process runs the same
-program too: ``init_distributed`` starts the process group,
-``pod_mesh`` gives a ``Mesh`` over every process's card in rank order that
-records which rank owns each position, and ``ShardedRing`` on such a mesh
-runs SPMD: each process transforms its own block, and the blocks move
-between processes through ``comm.py`` (the cross stages' pair exchanges,
-the four-step retiles, the gather of the result).
+program too: ``init_distributed`` starts the process group, and
+``make_mesh`` (or ``pod_mesh``, its (dp, sp) form) gives a ``Mesh`` over
+every process's devices in rank order, one card a process or several,
+that records which rank owns each position.  ``ShardedRing`` and
+``ShardedRNSRing`` on such a mesh run SPMD: each process transforms the
+blocks of its own positions (a process holds a block of every mesh axis
+the ring does not name, as JAX replicates over such an axis), blocks of
+one process meet by device copies, and the blocks move between processes
+through ``comm.py`` (the cross stages' exchanges, the four-step retiles,
+the gather of the result).
 
 Axis order (the JAX module's rule): sp is the innermost axis, so that the
-per-stage exchanges and the retiles run between consecutive ranks, on one
-host; dp is outermost.
+per-stage exchanges and the retiles run between consecutive positions:
+inside one process when an sp line is no longer than its card count, else
+between consecutive ranks, on one host; dp is outermost.
 """
 
 from __future__ import annotations
@@ -21,12 +26,11 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import comm
 from .mesh import Mesh, make_mesh
+from .mesh import local_devices as mesh_local_devices
 
 # the environment that marks a cluster, the JAX module's list;
 # TPU_WORKER_HOSTNAMES counts only with more than one host, and torch's
@@ -52,6 +56,7 @@ def init_distributed(
     *,
     force: bool = False,
     backend: Optional[str] = None,
+    device=None,
 ) -> None:
     """Start the process group (a no-op for a single process).
 
@@ -63,10 +68,11 @@ def init_distributed(
     cluster environment this is a no-op (a lone process would wait for
     peers that never come); ``force=True`` starts the group anyway from
     the environment.  ``backend`` defaults to "nccl" on a machine with a
-    card and "gloo" otherwise.  With a card, the process takes card
-    ``LOCAL_RANK`` (else its rank modulo the cards it sees) first, so that
-    each process owns one card.  Must run on every process before any
-    ``pod_mesh``."""
+    card and "gloo" otherwise.  With a card, the process takes ``device``
+    as its current card (the first of its mesh devices; NCCL runs the
+    process's transfers there), by default card ``LOCAL_RANK`` (else its
+    rank modulo the cards it sees), so that each process owns one card.
+    Must run on every process before any ``make_mesh`` or ``pod_mesh``."""
     if num_processes is not None and num_processes <= 1:
         return
     if (coordinator_address is None and num_processes is None
@@ -82,7 +88,10 @@ def init_distributed(
         process_id = int(env["RANK"])
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if torch.cuda.is_available():
+    if device is not None:
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(torch.device(device))
+    elif torch.cuda.is_available():
         local = env.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local else
                               (process_id or 0) % torch.cuda.device_count())
@@ -108,61 +117,28 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def _local_devices(world: int):
-    if world > 1:
-        if torch.cuda.is_available():
-            return [torch.device("cuda", torch.cuda.current_device())]
-        return [torch.device("cpu")]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return []
-
-
 def pod_mesh(dp: int = 1, sp: int = 1, *, local_devices=None) -> Mesh:
-    """Global (dp, sp) mesh over every device of every process.
+    """Global (dp, sp) mesh over every device of every process:
+    ``make_mesh(dp=dp, sp=sp, devices=local_devices)``.
 
     sp is placed on the innermost axis so that coefficient-sharded
     exchanges (the stage exchanges, the four-step retiles) run between
-    neighbouring ranks; dp spans the rest.  The devices are each process's
-    ``local_devices`` in rank order, filled row-major.  They default to
-    this process's card (``cuda:<current device>``, the CPU without one)
-    in a world of several processes, and to every visible card in one.
-
-    In a world of several processes every process passes one device, and
-    the mesh records the rank that owns each position, the world group and
-    the groups of each dp and sp line (``Mesh.owners``,
-    ``Mesh.process_group``, ``Mesh.axis_groups``).  Under NCCL two
-    processes may not share a card (``comm.check_cards``)."""
+    neighbouring positions, inside a process where its devices cover an sp
+    line; dp spans the rest.  ``local_devices`` are this process's
+    devices: by default its card (``cuda:<current device>``, the CPU
+    without one) in a world of several processes, and every visible card
+    in one; a process may pass several (every process as many)."""
     world = process_count()
-    local = [torch.device(d) for d in (_local_devices(world)
-                                       if local_devices is None
-                                       else local_devices)]
-    count = len(local) * world if world > 1 else len(local)
+    local = local_devices
+    if local is None:
+        local = mesh_local_devices() if world > 1 else [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    count = len(local) * world
     if dp * sp != count:
         raise ValueError(
             f"mesh dp*sp = {dp * sp} must equal global device count {count}"
         )
-    if world == 1:
-        return make_mesh(dp=dp, sp=sp, devices=local)
-    if len(local) != 1:
-        raise ValueError(
-            f"a mesh of {world} processes takes one device a process, got "
-            f"{len(local)} ({local})")
-    placed = [None] * world
-    dist.all_gather_object(placed, (str(local[0]), comm.card_id(local[0])))
-    comm.check_cards(dist.get_backend(), [card for _, card in placed])
-    devices = np.empty(world, dtype=object)
-    devices[:] = [torch.device(d) for d, _ in placed]
-    owners = np.arange(world).reshape(dp, sp)
-    # every rank creates every group, in one order
-    axis_groups = {
-        "dp": {tuple(line): dist.new_group(line)
-               for line in owners.T.tolist()},
-        "sp": {tuple(line): dist.new_group(line) for line in owners.tolist()},
-    }
-    return Mesh(devices.reshape(dp, sp), ("dp", "sp"), owners=owners,
-                rank=dist.get_rank(), process_group=dist.group.WORLD,
-                axis_groups=axis_groups)
+    return make_mesh(dp=dp, sp=sp, devices=local)
 
 
 def process_local_batch(global_batch: int) -> slice:

@@ -33,11 +33,14 @@ Every function here is single-controller, as the JAX package's: one process
 drives every device of the mesh.  ``fwd_grid``/``inv_grid`` transform a
 grid of shards (``shards.py``) and leave each block on its device;
 ``stage_sharded_fwd``/``stage_sharded_inv`` take and return the global
-(B, n) tensor.  On a mesh of several processes (``multihost.pod_mesh``)
-``fwd_grid``/``inv_grid`` take the sp group of this process (``line``) and
-run SPMD on its one shard: the same stages, the partner's shard arriving
-from its process (``comm.exchange``, then one K11 launch a stage; with
-``"overlap"`` chunk by chunk, ``overlap.xchg_remote``).
+(B, n) tensor.  On a mesh of several processes ``fwd_grid``/``inv_grid``
+take the grid's ``shards.Layout`` and run SPMD on this process's shards,
+each sp group (dp row) by ``Layout.mover``: a row whose shards are all in
+this process as above; a row of one shard a process, the partner's shard
+arriving from its process (``comm.exchange``, then one K11 launch a
+stage; with ``"overlap"`` chunk by chunk, ``overlap.xchg_remote``); else
+each shard's partner read here or brought by ``shards.Fetch``, then one
+K11 launch a stage for this process's shards of each card.
 """
 
 from __future__ import annotations
@@ -106,8 +109,10 @@ def _check(params, num_devices: int, comm: str) -> None:
 def _cross_stage(xs, params, *, inverse, tdev, a_log, index_of, last, scale,
                  comm, line=None):
     """One cross stage over the P shards ``xs`` of one sp group; returns the
-    new shards.  With ``line`` only this process's shard is here (the
-    others None) and its partner arrives from its process."""
+    new shards.  With ``line`` (a ``comm.Line``) only this process's shard
+    is here (the others None) and its partner arrives from its process;
+    with a ``shards.Fetch`` this process's shards are here and each
+    partner is read here or fetched."""
     def row(d):
         return _cross_row(params, index_of(d), xs[d].shape[1], inverse,
                           xs[d].device)
@@ -116,6 +121,16 @@ def _cross_stage(xs, params, *, inverse, tdev, a_log, index_of, last, scale,
         return ((d >> a_log) & 1) == 0
 
     kw = dict(fwd=not inverse, q=params.q, last=last, scale=scale)
+    if isinstance(line, shards.Fetch):
+        here = [d for d, x in enumerate(xs) if x is not None]
+        got = line(xs, lambda d: (d ^ tdev,), lambda x, d: x)
+        new = overlap.launch_by_device(
+            [xs[d] for d in here], [got[d][0] for d in here],
+            [row(d) for d in here], [role(d) for d in here], **kw)
+        out = [None] * len(xs)
+        for d, y in zip(here, new):
+            out[d] = y
+        return out
     if line is not None:
         d = line.index
         out = [None] * len(xs)
@@ -147,8 +162,9 @@ def _local(xs, transform):
 def fwd_group(xs, params, comm: str = "ppermute", line=None):
     """Forward NTT of the P coefficient shards ``xs`` (each (B, S) uint32 in
     [0, 4q), shard d on its device) -> the P output shards in [0, q).
-    With ``line``, shard ``line.index`` alone is here (the others None) and
-    the others are in the processes of ``line``."""
+    With ``line`` (``Layout.mover``'s ``comm.Line`` or ``shards.Fetch``)
+    only this process's shards are here (the others None) and the others
+    are in other processes."""
     P = len(xs)
     n_cross = _log2(P)
     for s in range(n_cross):
@@ -184,28 +200,29 @@ def inv_group(xs, params, scale: int, comm: str = "ppermute", line=None):
     return xs
 
 
-def _rows(grid, line):
-    """The sp groups of a grid to transform: every row, or with ``line``
-    (a grid of one shard a process) the row holding this process's."""
-    return [line is None or row[line.index] is not None for row in grid]
+def _movers(grid, layout):
+    """Each sp group's ``Layout.mover`` (None: every shard here)."""
+    if layout is None:
+        return [None] * len(grid)
+    return [layout.mover((i,)) for i in range(len(grid))]
 
 
-def fwd_grid(grid, params, comm: str = "ppermute", line=None):
-    """``fwd_group`` on every sp group (dp row) of a grid; ``line``: this
-    process's sp group on a mesh of several processes."""
+def fwd_grid(grid, params, comm: str = "ppermute", layout=None):
+    """``fwd_group`` on every sp group (dp row) of a grid; ``layout``: the
+    grid's ``shards.Layout`` on a mesh of several processes."""
     _check(params, len(grid[0]), comm)
-    return [fwd_group(row, params, comm, line) if here else row
-            for row, here in zip(grid, _rows(grid, line))]
+    return [row if how == "skip" else fwd_group(row, params, comm, how)
+            for row, how in zip(grid, _movers(grid, layout))]
 
 
 def inv_grid(grid, params, scale: Optional[int] = None, comm: str = "ppermute",
-             line=None):
+             layout=None):
     """``inv_group`` on every sp group of a grid; scale defaults to n^-1.
-    ``line`` as in :func:`fwd_grid`."""
+    ``layout`` as in :func:`fwd_grid`."""
     _check(params, len(grid[0]), comm)
     scale = params.n_inv if scale is None else scale
-    return [inv_group(row, params, scale, comm, line) if here else row
-            for row, here in zip(grid, _rows(grid, line))]
+    return [row if how == "skip" else inv_group(row, params, scale, comm, how)
+            for row, how in zip(grid, _movers(grid, layout))]
 
 
 def _run(x, params, mesh, axis, dp_axis, comm, body):

@@ -1,17 +1,20 @@
-"""``ShardedRing``, ``ShardedRNSRing`` and the schemes' ``mesh=`` with one
-process a card, checked and timed.
+"""``ShardedRing``, ``ShardedRNSRing`` and the schemes' ``mesh=`` on a mesh
+of several processes, checked and timed.
 
 On a machine with cards, from the repository root:
 
     python3 -m agilex_ntt_tpu_torch.utils.multihost_probe [--procs N]
+        [--cards-per-proc C]
 
 It builds the kernels, then spawns N processes (default 4) that start a
 process group (``multihost.init_distributed`` on a ``file://`` store in a
-temporary directory) and build ``pod_mesh`` meshes.  With at least N cards
-the group runs NCCL, one process a card; with fewer (one card) it runs
-gloo with every process on ``cuda:0`` and every transfer staged through
-pinned host memory (``comm.stages_through_host``), since NCCL refuses two
-processes on one card.  Each process:
+temporary directory) and build ``pod_mesh`` and ``make_mesh`` meshes over
+their devices (``LOCAL``: C cards a process, default 1).  With at least
+N x C cards the group runs NCCL, process r on cards r C .. r C + C - 1;
+with fewer (one card) it runs gloo with every process's C devices
+``cuda:0`` and every transfer staged through pinned host memory
+(``comm.stages_through_host``), since NCCL refuses two processes on one
+card.  With C = 1 each process:
 
   * runs ``check_world``: ``check_calls``, each call of the plan
     (``FOUR_CARD_PLAN``, or ``ONE_CARD_PLAN`` on one card) held word for
@@ -34,9 +37,23 @@ processes on one card.  Each process:
     alike, beside the unsharded call on one card (on one card, by rank 0
     alone while the others wait).
 
+With N = 4 and four cards the same world then runs ``CH_FOUR_CARD``:
+``ShardedRNSRing`` over ``make_mesh(ch=4)`` and ``make_mesh(ch=2, dp=2)``
+(the n16384 chain's ring ops and key switch; K4a, K4b, K5 and K6b on each
+process's channel block, the key switch's extended ring replicated over
+ch) and ``make_mesh(ch=2, sp=2)`` (``RNSRing(2^16, 4)``'s four-step
+transforms on ``chsp``), checked, then timed alike.  With C = 2 (N = 2)
+the plans are ``PAIR_PLAN`` and ``RNS_PAIR``: ``pod_mesh(dp=2, sp=2)``,
+each sp line inside a process (K11 reading its partner on the process's
+other card; dp across the two), and on one card ``make_mesh(ch=2, dp=2)``
+too.
+
 ``chip_smoke.py`` phase 3k runs ``run_world`` with ``check_world`` on
-``ONE_CARD_PLAN`` and ``RNS_ONE_CARD`` (and, with four cards or more,
-``FOUR_CARD_PLAN`` and ``RNS_FOUR_CARD``).
+``ONE_CARD_PLAN`` and ``RNS_ONE_CARD``, and on ``PAIR_PLAN`` and
+``RNS_PAIR`` with two devices ``cuda:0`` a process (and, with four cards
+or more, ``FOUR_CARD_PLAN`` and ``RNS_FOUR_CARD`` + ``CH_FOUR_CARD`` on
+four processes, and ``PAIR_PLAN`` and ``RNS_PAIR`` on two processes of
+two cards).
 """
 
 from __future__ import annotations
@@ -44,7 +61,6 @@ from __future__ import annotations
 import argparse
 import multiprocessing
 import multiprocessing.connection
-import os
 import pickle
 import statistics
 import subprocess
@@ -115,32 +131,62 @@ SCHEME_OPS = ("CKKS multiply+rescale", "CKKS rotate 1", "BGV multiply",
 MULTI_PRIME = ("fwd_rns", "inv_rns", "polymul_rns", "polydot_rns")
 STAGE_SP = ("fwd", "inv", "xchg_fwd", "xchg_inv")
 RNS_ONE_CARD = (
-    ("dp=2", (2, 1), {}, MULTI_PRIME),
-    ("sp=2", (1, 2), dict(sp_axis="sp"), STAGE_SP),
+    ("dp=2", (2, 1), {}, MULTI_PRIME, "rns"),
+    ("sp=2", (1, 2), dict(sp_axis="sp"), STAGE_SP, "rns"),
 )
 RNS_FOUR_CARD = (
-    ("dp=4", (4, 1), {}, MULTI_PRIME),
-    ("dp=2 x sp=2", (2, 2), dict(sp_axis="sp"), STAGE_SP),
+    ("dp=4", (4, 1), {}, MULTI_PRIME, "rns"),
+    ("dp=2 x sp=2", (2, 2), dict(sp_axis="sp"), STAGE_SP, "rns"),
 )
+# ShardedRNSRing's channel layouts across processes, and the layouts of
+# two cards a process: (label, mesh: a (dp, sp) pod_mesh or make_mesh's
+# axes, ShardedRNSRing and context axes, kernels the layout must launch,
+# its calls: "rns" the RNS plan above, "chain" the n16384 chain's ring ops
+# (RNS_OPS at KS_BATCH rows) and its key switch, "chsp" CHSP_OPS)
+CH_KW = dict(ch_axis="ch", dp_axis=None)
+CHSP_N, CHSP_L = 1 << 16, 4
+CHSP_OPS = ("ntt", "intt", "polymul")
+CH_FOUR_CARD = (
+    ("ch=4", dict(ch=4), CH_KW, MULTI_PRIME, "chain"),
+    ("ch=2 x dp=2", dict(ch=2, dp=2), dict(ch_axis="ch"), MULTI_PRIME,
+     "chain"),
+    ("ch=2 x sp=2", dict(ch=2, sp=2), dict(CH_KW, sp_axis="sp"),
+     ("fwd_rns", "inv_rns"), "chsp"),
+)
+PAIR_PLAN = (
+    ("Ring(32768) dp=2 x sp=2, each sp line in a process", 32768, False,
+     (2, 2), dict(sp_axis="sp"), 1024, TRANSFORMS),
+    ("Ring(32768) dp=2 x sp=2 overlap, each sp line in a process", 32768,
+     False, (2, 2), dict(sp_axis="sp", sp_comm="overlap"), 1024,
+     TRANSFORMS),
+)
+RNS_PAIR = (("dp=2 x sp=2, two cards a process", (2, 2), dict(sp_axis="sp"),
+             STAGE_SP, "rns"),)
+RNS_PAIR_ONE_CARD = RNS_PAIR + (
+    ("ch=2 x dp=2, two devices a process", dict(ch=2, dp=2),
+     dict(ch_axis="ch"), MULTI_PRIME, "chain"),)
 PLAIN_ROWS = 2
 REPS = 3
+# this process's devices (``run_world``'s ``cards``), set in each process
+LOCAL = None
 
 
 def log(msg: str) -> None:
     print(f"multihost_probe: {msg}", flush=True)
 
 
-def _entry(rank: int, world: int, backend: str, tmp: str, one_card: bool,
+def _entry(rank: int, world: int, backend: str, tmp: str, local,
            fn, args) -> None:
-    """One process: start the group, run ``fn(*args)``, keep its result."""
-    if one_card:
-        os.environ["LOCAL_RANK"] = "0"  # every process on cuda:0
+    """One process: start the group on its first device ``local[0]``, run
+    ``fn(*args)``, keep its result."""
+    global LOCAL
     import torch.distributed as dist
 
     from ..parallel import multihost
 
+    LOCAL = local
     multihost.init_distributed(f"file://{tmp}/store", world, rank,
-                               backend=backend)
+                               backend=backend, device=local[0])
     try:
         out = fn(*args)
         Path(tmp, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
@@ -149,15 +195,19 @@ def _entry(rank: int, world: int, backend: str, tmp: str, one_card: bool,
 
 
 def run_world(procs: int, backend: str, fn, *args, one_card: bool = False,
-              timeout: float = 600.0) -> list:
+              cards: int = 1, timeout: float = 600.0) -> list:
     """``fn(*args)`` in each of ``procs`` spawned processes of one group on
-    ``backend``; their results in rank order.  A process that fails (its
-    traceback on stderr) stops the others, and so does the timeout; then
-    this raises.  ``one_card`` puts every process on ``cuda:0``."""
+    ``backend``, ``cards`` devices a process (process r on cards r cards ..
+    r cards + cards - 1); their results in rank order.  A process that
+    fails (its traceback on stderr) stops the others, and so does the
+    timeout; then this raises.  ``one_card`` makes every device of every
+    process ``cuda:0``."""
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         ps = [ctx.Process(target=_entry,
-                          args=(r, procs, backend, tmp, one_card, fn, args))
+                          args=(r, procs, backend, tmp,
+                                [f"cuda:{0 if one_card else r * cards + j}"
+                                 for j in range(cards)], fn, args))
               for r in range(procs)]
         for p in ps:
             p.start()
@@ -182,8 +232,12 @@ def run_world(procs: int, backend: str, fn, *args, one_card: bool = False,
                 for r in range(procs)]
 
 
-def expected_launches(op: str, four: bool, axes, kw, batch: int) -> dict:
-    """The K1, K2 and K11 launches one process makes for one call."""
+def expected_launches(op: str, four: bool, axes, kw, batch: int,
+                      cards: int = 1, distinct: bool = True) -> dict:
+    """The K1, K2 and K11 launches one process of ``cards`` devices
+    (``distinct`` cards, or one card repeated) makes for one call.  With
+    several devices a process, every sp line lies in one process (sp equal
+    to ``cards``; the stage transform)."""
     from ..parallel import fourstep_shard, overlap
 
     dp, sp = axes
@@ -191,7 +245,15 @@ def expected_launches(op: str, four: bool, axes, kw, batch: int) -> dict:
     fwd, inv = {"ntt": (1, 0), "intt": (0, 1), "polymul": (2, 1)}[op]
     overlapped = kw.get("sp_comm") == "overlap"
     if kw.get("sp_axis") is None:
-        return {"fwd": fwd, "inv": inv}
+        return {"fwd": fwd * cards, "inv": inv * cards}
+    if cards > 1:
+        if sp != cards or four:
+            raise ValueError("several devices a process: the stage "
+                             "transform, one sp line a process")
+        # K1/K2 on each shard; K11 one launch a card a cross stage
+        stages = (sp.bit_length() - 1) * (sp if distinct else 1)
+        return {"fwd": fwd * sp, "inv": inv * sp, "xchg_fwd": fwd * stages,
+                "xchg_inv": inv * stages}
     if four:
         chunks = fourstep_shard._num_chunks(rows) if overlapped else 1
         return {"fwd": 2 * fwd * chunks, "inv": 2 * inv * chunks}
@@ -199,6 +261,20 @@ def expected_launches(op: str, four: bool, axes, kw, batch: int) -> dict:
                                       if overlapped else 1)
     return {"fwd": fwd, "inv": inv, "xchg_fwd": fwd * stages,
             "xchg_inv": inv * stages}
+
+
+def _mesh(spec):
+    """A (dp, sp) ``pod_mesh`` or ``make_mesh(**spec)`` over this process's
+    devices."""
+    from ..parallel import make_mesh, pod_mesh
+
+    if isinstance(spec, tuple):
+        return pod_mesh(*spec, local_devices=LOCAL)
+    return make_mesh(devices=LOCAL, **spec)
+
+
+def _own_cards():
+    return {int(str(d).split(":")[1]) for d in LOCAL}
 
 
 def _ring(n: int, four: bool, device):
@@ -227,12 +303,12 @@ def check_calls(plan) -> dict:
     import torch.distributed as dist
 
     from ..ops import ntt_kernel as K
-    from ..parallel import ShardedRing, comm, pod_mesh
+    from ..parallel import ShardedRing, comm
 
     rank = dist.get_rank()
     seen = {"rank": rank, "backend": dist.get_backend(), "calls": []}
     for label, n, four, axes, kw, batch, ops in plan:
-        mesh = pod_mesh(*axes)
+        mesh = _mesh(axes)
         dev = mesh.home
         seen["device"] = str(dev)
         seen["staged"] = comm.stages_through_host(mesh.process_group, dev)
@@ -260,7 +336,8 @@ def check_calls(plan) -> dict:
             if not torch.equal(got[:PLAIN_ROWS].cpu(), first):
                 raise AssertionError(f"{what} differs from the plain version")
             want_launches = {k: v for k, v in expected_launches(
-                op, four, axes, kw, batch).items() if v}
+                op, four, axes, kw, batch, len(LOCAL),
+                len(set(LOCAL)) == len(LOCAL)).items() if v}
             if dev.type == "cuda" and launches != want_launches:
                 raise AssertionError(f"{what} launched {launches}, not "
                                      f"{want_launches}")
@@ -273,22 +350,26 @@ def check_calls(plan) -> dict:
 
 def _host_ms(call, dev, run: bool = True) -> float:
     """Median of ``REPS`` host-clock times of ``call()`` (after one
-    warm-up), each from a barrier and a synchronized card to every card
-    synchronized, the largest over the processes; a process with ``run``
-    False only waits (the call of one process alone)."""
+    warm-up), each from a barrier and this process's synchronized cards
+    to every card synchronized, the largest over the processes; a process
+    with ``run`` False only waits (the call of one process alone)."""
     import torch
     import torch.distributed as dist
+
+    def synchronize():
+        for card in set(LOCAL):
+            torch.cuda.synchronize(card)
 
     if run:
         call()
     times = []
     for _ in range(REPS):
         dist.barrier()
-        torch.cuda.synchronize(dev)
+        synchronize()
         t0 = time.perf_counter()
         if run:
             call()
-        torch.cuda.synchronize(dev)
+        synchronize()
         # gloo reduces host tensors
         t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64,
                          device=dev if dist.get_backend() == "nccl" else "cpu")
@@ -299,14 +380,17 @@ def _host_ms(call, dev, run: bool = True) -> float:
 
 def time_calls(plan) -> list:
     """(label, call, sharded ms, transform-alone ms, unsharded ms at the
-    plan's one-card batch, that batch) for each call of ``plan``."""
+    plan's one-card batch, that batch, staging ms) for each call of
+    ``plan``; with several cards a process, the staging of a forward
+    transform's output blocks onto the process's first card for the
+    gather (``Layout.gather``'s device copies), alone."""
     import torch
 
-    from ..parallel import ShardedRing, pod_mesh
+    from ..parallel import ShardedRing, shards
 
     rows = []
     for label, n, four, axes, kw, batch, ops, one_batch in plan:
-        mesh = pod_mesh(*axes)
+        mesh = _mesh(axes)
         dev = mesh.home
         ring = _ring(n, four, dev)
         sr = ShardedRing(ring, mesh, **kw)
@@ -322,7 +406,14 @@ def time_calls(plan) -> list:
                 alone = _host_ms(lambda: transform(grid), dev)
                 del grid
             base = _host_ms(lambda: getattr(ring, op)(*one_args), dev)
-            rows.append((label, op, full, alone, base, one_batch))
+            staging = None
+            if op == "ntt" and len(set(LOCAL)) > 1:
+                out = sr._ntt_grid(sr._split(xs["x"]))
+                blocks = [b for row in out for b in row if b is not None]
+                staging = _host_ms(lambda: torch.stack(
+                    [shards.words(b).to(dev) for b in blocks]), dev)
+                del out, blocks
+            rows.append((label, op, full, alone, base, one_batch, staging))
         del xs, one
         torch.cuda.empty_cache()
     return rows
@@ -350,7 +441,7 @@ def _rns_calls(ring, batch: int, dev) -> dict:
     x, a, b = (_channels(gen, qs, 1, (batch,), n, dev) for _ in range(3))
     y = _channels(gen, qs, 2, (batch,), n, dev)  # the inverse's lazy range
     da, db = (_channels(gen, qs, 1, (batch, RNS_K), n, dev) for _ in range(2))
-    dst = find_primes(n, RNS_L + 2)[RNS_L:]
+    dst = find_primes(n, ring.L + 2)[ring.L:]
     return {
         "ntt": lambda t: t.ntt(x), "intt": lambda t: t.intt(y),
         "polymul": lambda t: t.polymul(a, b),
@@ -429,25 +520,40 @@ def _scheme_calls(mesh, sp_axis, dev) -> dict:
     return calls
 
 
+def _paired(label, ring, sr, calls) -> dict:
+    """Each of ``calls`` (by op, a function of the target) as (the
+    unsharded call, the sharded call), by ``label`` and op."""
+    return {f"{label} {op}": (lambda f=f: f(ring), lambda f=f: f(sr))
+            for op, f in calls.items()}
+
+
 def _rns_plan_calls(layout, mesh) -> dict:
     """Every call of one layout of the RNS plan on ``mesh``, this process's
-    ``pod_mesh`` of the layout: by name, (the unsharded call on this
-    process's device, the sharded call)."""
+    mesh of the layout: by name, (the unsharded call on this process's
+    device, the sharded call)."""
     from ..api import RNSRing
     from ..parallel import ShardedRNSRing
 
-    _, axes, kw, _ = layout
+    _, spec, kw, _, kind = layout
     dev = mesh.home
-    ring = RNSRing(RNS_N, RNS_L, device=dev)
-    sr = ShardedRNSRing(ring, mesh, **kw)
-    calls = {f"RNSRing({RNS_N}, {RNS_L}) {op}": (lambda f=f: f(ring),
-                                                 lambda f=f: f(sr))
-             for op, f in _rns_calls(ring, RNS_ROWS * axes[0], dev).items()}
+    if kind == "chsp":
+        ring = RNSRing(CHSP_N, CHSP_L, device=dev, method="fourstep")
+        calls = _rns_calls(ring, KS_BATCH, dev)
+        return _paired(f"RNSRing(2^16, {CHSP_L})", ring,
+                       ShardedRNSRing(ring, mesh, **kw),
+                       {op: calls[op] for op in CHSP_OPS})
     ks_ring, ks = _ks_calls(dev)
     ks_sr = ShardedRNSRing(ks_ring, mesh, **kw)
-    calls.update((f"n{KS_N} {op}", (lambda f=f: f(ks_ring),
-                                    lambda f=f: f(ks_sr)))
-                 for op, f in ks.items())
+    if kind == "chain":
+        calls = _paired(f"n{KS_N}", ks_ring, ks_sr,
+                        _rns_calls(ks_ring, KS_BATCH, dev))
+        calls.update(_paired(f"n{KS_N}", ks_ring, ks_sr, ks))
+        return calls
+    ring = RNSRing(RNS_N, RNS_L, device=dev)
+    calls = _paired(f"RNSRing({RNS_N}, {RNS_L})", ring,
+                    ShardedRNSRing(ring, mesh, **kw),
+                    _rns_calls(ring, RNS_ROWS * mesh.shape["dp"], dev))
+    calls.update(_paired(f"n{KS_N}", ks_ring, ks_sr, ks))
     calls.update(_scheme_calls(mesh, kw.get("sp_axis"), dev))
     return calls
 
@@ -477,8 +583,8 @@ def check_rns(layouts) -> dict:
     rank = dist.get_rank()
     seen = {"rank": rank, "calls": [], "layouts": {}}
     for layout in layouts:
-        label, axes, _, must = layout
-        mesh = pod_mesh(*axes)
+        label, spec, _, must, _ = layout
+        mesh = _mesh(spec)
         dev = mesh.home
         calls = _rns_plan_calls(layout, mesh)
         seen["device"] = str(dev)
@@ -511,12 +617,15 @@ def check_rns(layouts) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     if dev.type == "cuda":
+        own = _own_cards()
         others = [i for i in range(torch.cuda.device_count())
-                  if i != dev.index and torch.cuda.max_memory_allocated(i)]
+                  if i not in own and torch.cuda.max_memory_allocated(i)]
         if others:
-            raise AssertionError(f"rank {rank} on {dev} allocated on the "
-                                 f"cards {others}")
-        seen["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            raise AssertionError(f"rank {rank} on {sorted(own)} allocated "
+                                 f"on the cards {others}")
+        seen["peak_bytes"] = sum(torch.cuda.max_memory_allocated(i)
+                                 for i in own)
+        seen["cards"] = sorted(own)
     return seen
 
 
@@ -532,12 +641,10 @@ def time_rns(layouts, one_card: bool) -> list:
     import torch
     import torch.distributed as dist
 
-    from ..parallel import pod_mesh
-
     rows = []
     alone = not one_card or dist.get_rank() == 0
     for layout in layouts:
-        mesh = pod_mesh(*layout[1])
+        mesh = _mesh(layout[1])
         dev = mesh.home
         calls = _rns_plan_calls(layout, mesh)
         for name, (unsharded, sharded) in calls.items():
@@ -557,7 +664,7 @@ def report_rns(results) -> dict:
         staged = " (staged through pinned host memory)" if seen["staged"] else ""
         log(f"rank {seen['rank']} on {seen['device']}{staged}, peak "
             f"{seen.get('peak_bytes', 0) / 2**30:.3f} GiB allocated on its "
-            "card, none on another:")
+            f"cards {seen.get('cards')}, none on another:")
         for label, name, launches, seconds in seen["calls"]:
             log(f"  {label} {name}: equal to the unsharded call, launches "
                 f"{launches}, {seconds * 1e3:.3f} ms once (host clock)")
@@ -596,33 +703,42 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--procs", type=int, default=4,
                         help="processes, one a card when the cards suffice")
-    procs = parser.parse_args().procs
+    parser.add_argument("--cards-per-proc", type=int, default=1,
+                        help="cards a process (2 runs PAIR_PLAN, RNS_PAIR)")
+    args = parser.parse_args()
+    procs, per = args.procs, args.cards_per_proc
     if not torch.cuda.is_available():
         print("multihost_probe: needs a CUDA device", file=sys.stderr)
         return 2
     from ..ops import _build
 
     cards = torch.cuda.device_count()
-    one_card = cards < procs
+    one_card = cards < procs * per
     backend = "gloo" if one_card else "nccl"
-    log(f"card {card_line()}; {cards} card(s), {procs} processes on "
-        f"{backend}" + (", every process on cuda:0, transfers staged "
-                        "through pinned host memory" if one_card else ""))
+    log(f"card {card_line()}; {cards} card(s), {procs} processes of {per} "
+        f"device(s) on {backend}"
+        + (", every device cuda:0, transfers staged through pinned host "
+           "memory" if one_card else ""))
     t0 = time.perf_counter()
     _build.build()  # before the processes start, so that they only load it
     log(f"build {time.perf_counter() - t0:.1f} s")
-    plan = ONE_CARD_PLAN if one_card else FOUR_CARD_PLAN
-    layouts = RNS_ONE_CARD if one_card else RNS_FOUR_CARD
+    if per > 1:
+        plan = PAIR_PLAN
+        layouts = RNS_PAIR_ONE_CARD if one_card else RNS_PAIR
+    else:
+        plan = ONE_CARD_PLAN if one_card else FOUR_CARD_PLAN
+        layouts = RNS_ONE_CARD if one_card else RNS_FOUR_CARD
+        if not one_card and procs == 4:
+            layouts += CH_FOUR_CARD
+    world = dict(one_card=one_card, cards=per)
     t0 = time.perf_counter()
-    results = run_world(procs, backend, check_world, plan, layouts,
-                        one_card=one_card)
+    results = run_world(procs, backend, check_world, plan, layouts, **world)
     log(f"launches over the processes: "
         f"{report_checks([r['ring'] for r in results])}; RNS plan "
         f"{report_rns([r['rns'] for r in results])}; checks "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows = run_world(procs, backend, time_rns, layouts, one_card,
-                     one_card=one_card)[0]
+    rows = run_world(procs, backend, time_rns, layouts, one_card, **world)[0]
     log(f"RNS plan times (host clock, barrier and every card synchronized "
         f"around a call, the largest over {procs} processes, median of "
         f"{REPS}; ms; the unsharded call on one card"
@@ -633,12 +749,16 @@ def main() -> int:
     if one_card:
         return 0
     t0 = time.perf_counter()
-    rows = run_world(procs, backend, time_calls, TIME_PLAN)[0]
+    time_plan = (tuple(entry + (entry[5],) for entry in PAIR_PLAN)
+                 if per > 1 else TIME_PLAN)
+    rows = run_world(procs, backend, time_calls, time_plan, **world)[0]
     log(f"times (host clock, barrier and every card synchronized around a "
         f"call, the largest over {procs} processes, median of {REPS}; ms):")
-    for label, op, full, alone, base, one_batch in rows:
+    for label, op, full, alone, base, one_batch, staging in rows:
         log(f"  {label} {op}: {full:.4f}"
             + ("" if alone is None else f", transform alone {alone:.4f}")
+            + ("" if staging is None else
+               f", staging its blocks on its first card {staging:.4f}")
             + f"; Ring on one card at B={one_batch} {base:.4f}")
     log(f"timing {time.perf_counter() - t0:.1f} s")
     return 0

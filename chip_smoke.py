@@ -160,7 +160,7 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       ptxas lines and launch shape; and the ten examples
       (``agilex_ntt_tpu_torch/examples``) through their ``main`` on the
       card, each with its wall seconds;
-   k. the sharded ring with one process a card
+   k. the sharded rings on a mesh of several processes
       (``utils/multihost_probe.py``): the kernels built, two spawned
       processes on ``cuda:0`` over gloo (NCCL refuses two processes on
       one card, so every transfer is staged through pinned host memory,
@@ -180,9 +180,23 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       t=65537), each process's words equal to the unsharded ring's or
       context's on its card, every multi-prime kernel (K4a, K4b, K5, K6b)
       launched at dp=2 and K1, K2 and K11 at sp=2, no allocation on
-      another card; on a machine with four cards or more the same on
-      NCCL, one process a card (sp=4 at B=1024 and 8192, dp=4, dp=2 x
-      sp=2, four-step sp=4; the RNS plan at dp=4 and dp=2 x sp=2).
+      another card; a second gloo world of two processes, each owning
+      ``["cuda:0", "cuda:0"]``: ``pod_mesh(dp=2, sp=2)`` (each sp line
+      inside a process; ``ShardedRing(Ring(32768))`` at B=1024 with both
+      ``sp_comm``, the RNS plan as above) and ``make_mesh(ch=2, dp=2)``
+      (the n16384 chain's ring ops and key switch on ``ShardedRNSRing``
+      with a ch axis, K4a, K4b, K5 and K6b launched); on a machine with
+      four cards or more the same on NCCL, one process a card (sp=4 at
+      B=1024 and 8192, dp=4, dp=2 x sp=2, four-step sp=4; the RNS plan at
+      dp=4 and dp=2 x sp=2; ``make_mesh(ch=4)`` and ``make_mesh(ch=2,
+      dp=2)`` on the n16384 chain, ntt, intt, polymul, polydot (k=2),
+      base_convert, rescale, mod_down, keyswitch and hoisted_keyswitch at
+      B=64, K4a, K4b, K5 and K6b launched on each process's channel
+      block; ``make_mesh(ch=2, sp=2)`` on ``RNSRing(2^16, 4)``'s four-step
+      transforms, K4a and K4b on ``chsp``), and two processes of two
+      cards each, ``pod_mesh(dp=2, sp=2)`` with each sp line inside a
+      process (one K11 launch a card a cross stage, reading the partner
+      on the process's other card; the RNS plan).
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -218,7 +232,9 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4`` (one process) and
-   ``utils/multihost_probe.py --procs 4`` (one process a card).
+   ``utils/multihost_probe.py --procs 4`` (one process a card; also the
+   ch layouts) and ``--procs 2 --cards-per-proc 2`` (two cards a
+   process).
 
 Output: the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -2301,24 +2317,35 @@ def main() -> int:
         from agilex_ntt_tpu_torch.utils import multihost_probe as MP
 
         t3k = time.perf_counter()
-        worlds = [(2, "gloo", MP.ONE_CARD_PLAN, MP.RNS_ONE_CARD, True)]
+        # (processes, backend, ShardedRing plan, RNS layouts, every device
+        # cuda:0?, devices a process)
+        worlds = [(2, "gloo", MP.ONE_CARD_PLAN, MP.RNS_ONE_CARD, True, 1),
+                  (2, "gloo", MP.PAIR_PLAN, MP.RNS_PAIR_ONE_CARD, True, 2)]
         if torch.cuda.device_count() >= 4:
-            worlds.append((4, "nccl", MP.FOUR_CARD_PLAN, MP.RNS_FOUR_CARD,
-                           False))
+            worlds += [(4, "nccl", MP.FOUR_CARD_PLAN,
+                        MP.RNS_FOUR_CARD + MP.CH_FOUR_CARD, False, 1),
+                       (2, "nccl", MP.PAIR_PLAN, MP.RNS_PAIR, False, 2)]
         k_launches = dict.fromkeys(K.LAUNCHES, 0)
-        for procs, backend, plan, layouts, one_card in worlds:
+        for procs, backend, plan, layouts, one_card, per in worlds:
+            tw = time.perf_counter()
             log(f"backend {backend}")
-            log(f"world size {procs}")
+            log(f"world size {procs}, {per} device(s) a process: layouts "
+                f"{[layout[0] for layout in layouts]}")
             log(card)
             if one_card:
-                log("every process on cuda:0: gloo, each transfer staged "
-                    "through pinned host memory (comm.stages_through_host)")
-            # check_rns raises when a call differs from the unsharded one,
-            # when a layout launched none of its kernels (MP.MULTI_PRIME at
-            # dp, MP.STAGE_SP under sp) and when a process allocated on
-            # another card
+                log("every device of every process cuda:0: gloo, each "
+                    "transfer staged through pinned host memory "
+                    "(comm.stages_through_host)")
+            # check_calls raises when a call's K1, K2 or K11 launches are
+            # not the expected ones (with two cards a process, one K11
+            # launch a card a cross stage: K11 reading its partner on the
+            # process's other card); check_rns raises when a call differs
+            # from the unsharded one, when a layout launched none of its
+            # kernels (MP.MULTI_PRIME at dp and on the ch blocks, K4a and
+            # K4b on chsp, MP.STAGE_SP under sp) and when a process
+            # allocated on a card not its own
             results = MP.run_world(procs, backend, MP.check_world, plan,
-                                   layouts, one_card=one_card)
+                                   layouts, one_card=one_card, cards=per)
             ring_seen = [r["ring"] for r in results]
             rns_seen = [r["rns"] for r in results]
             if one_card and not all(
@@ -2330,8 +2357,9 @@ def main() -> int:
             for key, count in MP.report_checks(ring_seen).items():
                 k_launches[key] += count
             k_rns = MP.report_rns(rns_seen)
-            log(f"ShardedRNSRing and the schemes on pod_mesh ({procs} "
-                f"processes, {backend}): launches over the processes {k_rns}")
+            log(f"ShardedRNSRing and the schemes ({procs} processes of "
+                f"{per} device(s), {backend}): launches over the processes "
+                f"{k_rns}; world {time.perf_counter() - tw:.1f} s")
             for key, count in k_rns.items():
                 k_launches[key] += count
         missing = [key for key in ("fwd", "inv", "xchg_fwd", "xchg_inv")
