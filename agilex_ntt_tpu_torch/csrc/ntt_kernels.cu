@@ -33,6 +33,10 @@
 //   wide_fwd_cluster_kernel, wide_fwd_pass_kernel  <- fwd_stages64
 //   wide_inv_cluster_kernel, wide_inv_pass_kernel  <- inv_stages64
 //   wide_pointwise_kernel                  <- WideRing's elementwise bodies
+// the matrix-product four-step passes on the int8 tensor cores (no Pallas
+// kernel, the JAX package's jnp dot_general of agilex_ntt_tpu/ops/
+// mxu_ntt.py; see ntt_mxu.cuh):
+//   mxu_col_kernel, mxu_row_kernel         <- _digit_matmul (M1)
 // and five of agilex_ntt_tpu/ops/fourstep.py (n = n1 * n2 > 32768; see the
 // four-step section below and ntt_fourstep_cluster.cuh for their design):
 //   fwd4_cluster_kernel, where the matrix fits in a cluster, else
@@ -93,6 +97,7 @@
 
 #include "ntt_arith.cuh"
 #include "ntt_fourstep_cluster.cuh"
+#include "ntt_mxu.cuh"
 #include "ntt_polydot_cluster.cuh"
 #include "ntt_rns_transform.cuh"
 #include "ntt_wide.cuh"
@@ -926,6 +931,51 @@ cudaError_t wide_passes(const WideShape& sh, bool inverse, Launch launch) {
   return cudaSuccess;
 }
 
+// M1 (ntt_mxu.cuh): one CTA a 64 x 32 tile of a pass, the column pass
+// (G = D X) and the row pass (H = T G R^T) on one template, with
+// kMxuSmemBytes of dynamic shared memory.
+__global__ void __launch_bounds__(kMxuThreads)
+mxu_col_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const int8_t* __restrict__ mat, const MxuShape sh) {
+  extern __shared__ __align__(16) uint8_t mxu_smem[];
+  mxu_pass_body<false>(x, y, mat, nullptr, nullptr, sh, mxu_smem);
+}
+
+__global__ void __launch_bounds__(kMxuThreads)
+mxu_row_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+               const int8_t* __restrict__ mat,
+               const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ twp, const MxuShape sh) {
+  extern __shared__ __align__(16) uint8_t mxu_smem[];
+  mxu_pass_body<true>(x, y, mat, tw, twp, sh, mxu_smem);
+}
+
+const void* mxu_kernel(int row) {
+  return row ? (const void*)mxu_row_kernel : (const void*)mxu_col_kernel;
+}
+
+size_t mxu_smem_bytes(int row) {
+  return row ? kMxuSmemBytes<true> : kMxuSmemBytes<false>;
+}
+
+// A pass over (B, 2^logn1, 2^logn2) words (row: the row pass, else the
+// column pass): its shape and its CTAs, N / 32 N tiles of M / 64 M tiles.
+cudaError_t mxu_launch(int row, int logn1, int logn2, long long batch,
+                       uint32_t q, MxuShape* sh, long long* blocks) {
+  if (logn1 < kMxuMinLog || logn1 > kMxuMaxLog || logn2 < kMxuMinLog ||
+      logn2 > kMxuMaxLog || batch < 1 || q < 3 || (row != 0 && row != 1))
+    return cudaErrorInvalidValue;
+  sh->logm = row ? logn2 : logn1;
+  sh->logn1 = logn1;
+  sh->logn2 = logn2;
+  sh->mtiles = (1 << sh->logm) / kMxuTileM;
+  sh->k = make_mxu_consts(q);
+  const long long cols = batch << (row ? logn1 : logn2);
+  *blocks = cols / kMxuTileN * sh->mtiles;
+  if (*blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return allow_smem(mxu_kernel(row), mxu_smem_bytes(row));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1451,6 +1501,57 @@ int ntt_wide_pointwise(const uint32_t* alo, const uint32_t* ahi,
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) *launches = 1;
   return (int)err;
+}
+
+// M1: one pass of the matrix-product four-step transform on (B, 2^logn1,
+// 2^logn2) words, x -> y.  Column pass (row = 0): x in [0, 4q), y = D x
+// mod q; row pass (row = 1): x in [0, q), y = (T x) R^T mod q, with the
+// (n1, n2) twiddles tw and their Shoup words twp.  mat: the pass's (4, M,
+// M) int8 digit planes.  y in [0, q).
+int ntt_mxu_pass(const uint32_t* x, uint32_t* y, const int8_t* mat,
+                 const uint32_t* tw, const uint32_t* twp, long long batch,
+                 int logn1, int logn2, int row, uint32_t q, void* stream) {
+  MxuShape sh;
+  long long blocks = 0;
+  const cudaError_t err = mxu_launch(row, logn1, logn2, batch, q, &sh,
+                                     &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t bytes = mxu_smem_bytes(row);
+  if (row)
+    mxu_row_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(x, y, mat,
+                                                                tw, twp, sh);
+  else
+    mxu_col_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(x, y, mat,
+                                                                sh);
+  return (int)cudaGetLastError();
+}
+
+// The launch of an M1 pass: info = {tile M, tile N, tile K, threads a CTA,
+// shared memory bytes a CTA, registers a thread, local memory bytes a
+// thread (spills), CTAs an SM, CTAs launched}.
+int ntt_mxu_launch_info(int row, int logn1, int logn2, long long batch,
+                        int* info) {
+  for (int i = 0; i < 9; ++i) info[i] = 0;
+  MxuShape sh;
+  long long blocks = 0;
+  cudaError_t err = mxu_launch(row, logn1, logn2, batch, 3, &sh, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, mxu_kernel(row));
+  if (err != cudaSuccess) return (int)err;
+  info[0] = kMxuTileM;
+  info[1] = kMxuTileN;
+  info[2] = kMxuTileK;
+  info[3] = kMxuThreads;
+  info[4] = (int)mxu_smem_bytes(row);
+  info[5] = attr.numRegs;
+  info[6] = (int)attr.localSizeBytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[7], mxu_kernel(row), kMxuThreads, mxu_smem_bytes(row));
+  if (err != cudaSuccess) return (int)err;
+  info[8] = (int)blocks;
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

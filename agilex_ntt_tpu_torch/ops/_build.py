@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh",
+SOURCES = ("ntt_arith.cuh", "ntt_fourstep_cluster.cuh", "ntt_mxu.cuh",
            "ntt_polydot_cluster.cuh", "ntt_rns_transform.cuh",
            "ntt_wide.cuh", "ntt_xchg.cuh", "ntt_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -94,6 +94,11 @@ SIGNATURES = {
     # 2^128 mod q, stream, launches
     "ntt_wide_pointwise": (_P, _P, _P, _P, _P, _P, _LL, _I, _U64, _U64, _U64,
                            _P, _P),
+    # the matrix-product four-step pass (M1): x, y, mat (int8 digits), tw,
+    # twp (row pass), batch, logn1, logn2, row, q, stream
+    "ntt_mxu_pass": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _U, _P),
+    # row, logn1, logn2, batch, info (9 ints)
+    "ntt_mxu_launch_info": (_I, _I, _I, _LL, _P),
 }
 
 

@@ -57,6 +57,8 @@ LAUNCHES = {
     "dit_inv": 0, "xchg_fwd": 0, "xchg_inv": 0,
     # the wide ring's kernels (ops/wide_kernel.py)
     "wide_fwd": 0, "wide_inv": 0, "wide_pointwise": 0,
+    # the matrix-product four-step pass (ops/mxu_ntt.py)
+    "mxu": 0,
 }
 
 

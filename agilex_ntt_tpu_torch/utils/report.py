@@ -38,6 +38,9 @@ HBM_BYTES_PER_S = 3.35e12
 # issues at most 128 lane-operations a clock.
 INT32_PIPE_PER_S = 67e12 / 4
 INT32_ISSUE_PER_S = 67e12 / 2
+# int8 dense on the tensor cores (data sheet): 1,979 T operations a second,
+# a multiply-add counting as two
+INT8_TC_OPS_PER_S = 1979e12
 
 # int32 operations the kernels' arithmetic needs (ntt_arith.cuh) as
 # (multiplies, compares or selects, adds), each at its fewest instructions:
@@ -68,6 +71,14 @@ OPS_WIDE_BUTTERFLY = (16, 4, 14)  # CT or GS: Shoup, cond_sub, 3 adds
 OPS_WIDE_FINAL = (0, 8, 4)  # two conditional subtractions a word
 OPS_WIDE_SCALE = (16, 4, 8)  # the inverse's scale: Shoup and cond_sub
 OPS_WIDE_MONT = (24, 2, 12)  # a full product, m, its high, the sum
+# the matrix-product pass (M1, ntt_mxu.cuh): a data word's split into four
+# int8 digits (an add and an xor, and two byte permutes a word into the
+# planes), and an output word's reconstruction (seven wide multiply-adds,
+# the Barrett high product of four wide multiplies and its adds, the
+# quotient times q, the subtract, one conditional subtraction; a wide
+# product counts as two multiplies, as above)
+OPS_MXU_SPLIT = (0, 0, 4)
+OPS_MXU_REDUCE = (24, 1, 9)
 
 
 def ops_sum(*terms):
@@ -143,18 +154,37 @@ def wide_inv_ops(batch: int, n: int):
                    (batch * n, OPS_WIDE_SCALE))
 
 
+def mxu_pass_cost(batch: int, n1: int, n2: int, *, row: bool):
+    """(words moved, int32 operations, int8 multiply-adds) of one pass of
+    the matrix-product four-step transform (M1) at (batch, n1, n2): the
+    column pass (K = n1: the input reduced from [0, 4q)) or the row pass
+    (K = n2: the twiddle, a Shoup product and a conditional subtraction, and
+    its two (n1, n2) tables).  Each word read and written once, the (4, K,
+    K) int8 digit planes once (K^2 words); 16 digit products of K terms an
+    output word."""
+    n, k = n1 * n2, (n2 if row else n1)
+    words = 2 * batch * n + k * k + (2 * n if row else 0)
+    pre = OPS_SCALE_REDUCE if row else OPS_FINAL_REDUCE
+    ops = ops_sum((batch * n, pre), (batch * n, OPS_MXU_SPLIT),
+                  (batch * n, OPS_MXU_REDUCE))
+    return words, ops, 16 * batch * n * k
+
+
 def scaled(L: int, ops):
     """The operations of L channels."""
     return tuple(L * v for v in ops)
 
 
-def bound(words_moved: int, ops):
+def bound(words_moved: int, ops, int8_macs: int = 0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    the int32 operations over the rate of the pipes they need."""
+    the operations over the rate of the units they need: the int32
+    operations over the SM pipes', and ``int8_macs`` int8 multiply-adds
+    over the tensor cores' (the matrix-product pass, M1)."""
     mul, cmp, add = ops
     t_bytes = words_moved * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = max(mul / INT32_PIPE_PER_S, cmp / INT32_PIPE_PER_S,
-                (mul + cmp + add) / INT32_ISSUE_PER_S) * 1e3
+                (mul + cmp + add) / INT32_ISSUE_PER_S,
+                2 * int8_macs / INT8_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -196,7 +196,16 @@ fails the run (non-zero exit, no result line) when it goes wrong:
       transforms, K4a and K4b on ``chsp``), and two processes of two
       cards each, ``pod_mesh(dp=2, sp=2)`` with each sp line inside a
       process (one K11 launch a card a cross stage, reading the partner
-      on the process's other card; the RNS plan).
+      on the process's other card; the RNS plan);
+   l. the matrix-product four-step transform (``ops/mxu_ntt.py``, M1 on
+      the int8 tensor cores): ``fwd_ntt_fourstep_mxu``,
+      ``fwd_col_pass_mxu`` and the row pass alone at the shapes of the
+      JAX package's TPU A/B (2^16 at B=512, 2^18 at 128, 2^20 at 32) and
+      at n = 4096, 2^21 (n1 = 2048, the partials' bound), on
+      ``CyclicRing(2^16)``'s plan and at a ragged batch (2^16, B=7), every
+      input over the lazy [0, 4q) with its edge words; four M1 launches a
+      shape asserted; each pass against its plain version and each
+      transform against ``Ring.ntt`` (the four-step route), word for word.
 4. Timing: each kernel and its plain version (CUDA events) at its main
    path's shape, beside the least time the card could take
    (``bound_ms``), K4a and K4b also at the key switch's shapes (n =
@@ -228,7 +237,12 @@ fails the run (non-zero exit, no result line) when it goes wrong:
    events, median of 3, launches by the counters), and the mesh
    multiplies' device busy and idle share (``torch.profiler``); the wide
    kernels at (8192, 4096) with their ptxas lines, and phase 3i's
-   ``WideRing`` calls end to end with their launches.  One card
+   ``WideRing`` calls end to end with their launches; M1's launch shapes
+   and ptxas lines, its column pass in the kernels line (``library_ms``:
+   its 16 digit products by ``torch._int_mm``), and the A/B of
+   ``utils/mxu_probe.py`` at 2^16, 2^18 and 2^20: the transform beside
+   ``Ring.ntt`` in turns, each pass beside its bound and its
+   ``torch._int_mm`` products, the column pass beside K9a.  One card
    measures the sharded path's
    correctness and its cost on one card; the sharded ring across cards is
    timed by ``utils/xchg_probe.py --cards 4`` (one process) and
@@ -261,8 +275,8 @@ from agilex_ntt_tpu_torch.utils.profiling import (  # noqa: E402
 from agilex_ntt_tpu_torch.utils.report import (  # noqa: E402
     HBM_BYTES_PER_S, OPS_SCALE_REDUCE, OPS_SHOUP, OPS_WIDE_MONT,
     OPS_XCHG_FWD, OPS_XCHG_INV, bound, butterflies, dot_ops, fwd4_ops,
-    fwd_ops, inv4_ops, inv_ops, ops_sum, polymul4_ops, ptxas_lines, scaled,
-    wide_fwd_ops, wide_inv_ops,
+    fwd_ops, inv4_ops, inv_ops, mxu_pass_cost, ops_sum, polymul4_ops,
+    ptxas_lines, scaled, wide_fwd_ops, wide_inv_ops,
 )
 
 MAIN_N, MAIN_BATCH, MAIN_K, MAIN_DOT_BATCH = 4096, 8192, 3, 2048
@@ -362,6 +376,7 @@ BODY_SOURCE = {
                    "flat_fwd", "flat_inv", "flat_polymul")},
     **{key: "agilex_ntt_tpu_torch/csrc/ntt_wide.cuh"
        for key in ("wide_fwd", "wide_inv", "wide_pointwise")},
+    "mxu": "agilex_ntt_tpu_torch/csrc/ntt_mxu.cuh",
 }
 KERNELS = {  # row -> (name, TPU kernel replaced)
     "fwd": ("fwd_ntt", "agilex_ntt_tpu/ops/ntt_kernel.py:97"),
@@ -391,6 +406,9 @@ KERNELS = {  # row -> (name, TPU kernel replaced)
     "wide_fwd": ("wide_fwd", "agilex_ntt_tpu/ops/wide.py:203"),
     "wide_inv": ("wide_inv", "agilex_ntt_tpu/ops/wide.py:240"),
     "wide_pointwise": ("wide_pointwise", "agilex_ntt_tpu/api.py:2024"),
+    # the matrix-product four-step pass (M1): no Pallas kernel, the JAX
+    # package's jnp dot_general digit products
+    "mxu": ("mxu_pass", "agilex_ntt_tpu/ops/mxu_ntt.py:149"),
 }
 # the CKKS phase (3f): the "n16384" chain (KS_N, KS_L, one special prime) at
 # CKKS_BATCH ciphertexts, rotations by CKKS_ROT, a linear transform of the
@@ -452,6 +470,13 @@ WIDE_RINGS = ((MAIN_N, 62, MAIN_BATCH), (MAIN_N, 45, MAIN_BATCH),
 WIDE_KAT = Path(__file__).resolve().parent / "tests" / "vectors" / "ntt_kat.npz"
 WIDE_GOLDEN_ROWS = 4
 WIDE_OPS = ("ntt", "intt", "polymul", "pointwise_mul", "add", "sub")
+# phase 3l: the matrix-product four-step transform (M1) as (plan, n, batch):
+# the main path at the TPU A/B's shapes (tools/ab_mxu.py), then the checks
+MXU_PATH = (("negacyclic", 1 << 16, 512), ("negacyclic", 1 << 18, 128),
+            ("negacyclic", 1 << 20, 32))
+MXU_CHECKS = (("negacyclic", MAIN_N, 64), ("negacyclic", 1 << 21, 4),
+              ("cyclic", 1 << 16, 16), ("negacyclic", 1 << 16, 7))
+MXU_KERNELS = ("mxu_col_kernel", "mxu_row_kernel")
 # phase 3j: the presets' batch, the autotuner's (n, batch), the report's
 TUNE_SHAPES = ((4096, 8192), (16384, 2048), (32768, 1024), (65536, 512))
 PRESET_BATCH = 64
@@ -2375,6 +2400,73 @@ def main() -> int:
         return k_launches
 
     k_launches = multihost_path()
+
+    # -- 3l. the matrix-product four-step transform (M1) ----------------------
+    from agilex_ntt_tpu_torch.ops import mxu_ntt as MX
+    from agilex_ntt_tpu_torch.utils import mxu_probe as MXP
+
+    def mxu_path():
+        """Phase 3l in its own scope: ``fwd_ntt_fourstep_mxu``,
+        ``fwd_col_pass_mxu`` and the row pass at MXU_PATH and MXU_CHECKS,
+        counted; every pass against its plain version and every transform
+        against ``Ring.ntt``.  Returns the counted run's launches and the
+        main shape's ring and input for phase 4."""
+        t3l = time.perf_counter()
+        cases = []  # (label, ring, x (B, n) over [0, 4q), g (B, n1, n2) < q)
+        for kind, n_, b_ in MXU_PATH + MXU_CHECKS:
+            r_ = (CyclicRing if kind == "cyclic" else Ring)(
+                n_, method="fourstep", device=dev)
+            gen = torch.Generator(dev).manual_seed(n_ + b_)
+            x_ = rand(gen, 4 * r_.q, (b_, n_))
+            x_[0, 0], x_[0, 1], x_[-1, -1] = 4 * r_.q - 1, 0, r_.q
+            g_ = rand(gen, r_.q, (b_, r_.plan.n1, r_.plan.n2))
+            g_[0, 0, 0] = r_.q - 1
+            cases.append((f"{kind} n={n_} ({r_.plan.n1}x{r_.plan.n2}) "
+                          f"B={b_}", r_, x_.to(torch.uint32),
+                          g_.to(torch.uint32)))
+        tables = [MX.mxu_tables(r_.plan, dev) for _, r_, _, _ in cases]
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        outs = [(MX.fwd_ntt_fourstep_mxu(x_, r_.plan),
+                 MX.fwd_col_pass_mxu(x_.view(g_.shape), r_.plan),
+                 MX.mxu_pass(g_, mt, row=True))
+                for (_, r_, x_, g_), mt in zip(cases, tables)]
+        torch.cuda.synchronize()
+        mxu_s = time.perf_counter() - t0
+        mxu_launches = dict(K.LAUNCHES)
+        log(f"main path: fwd_ntt_fourstep_mxu, fwd_col_pass_mxu and the row "
+            f"pass at " + "; ".join(c[0] for c in cases) + f" in {mxu_s:.3f} "
+            f"s (host clock); launches "
+            f"{({k: v for k, v in mxu_launches.items() if v})}")
+        want = {"mxu": 4 * len(cases)}
+        if {k: v for k, v in mxu_launches.items() if v} != want:
+            raise AssertionError(f"the matrix-product path launched "
+                                 f"{mxu_launches}, expected {want}: two M1 "
+                                 "launches a transform, one a pass")
+        log("M1 vs its plain version (tolerance 0), the transforms vs "
+            "Ring.ntt:")
+        for (label, r_, x_, g_), mt, (full, col, row) in zip(cases, tables,
+                                                             outs):
+            x3 = x_.view(g_.shape).to(torch.int64)
+            col_want = MX.col_pass_plain(x3, mt)
+            compare("mxu", col, col_want, f"{label} col")
+            compare("mxu", row, MX.row_pass_plain(g_.to(torch.int64), mt),
+                    f"{label} row")
+            compare("mxu", full, MX.row_pass_plain(col_want, mt).view(
+                x_.shape), f"{label} transform")
+            if not torch.equal(full, r_.ntt(x_)):
+                raise AssertionError(f"fwd_ntt_fourstep_mxu {label} differs "
+                                     "from Ring.ntt")
+            del x3, col_want
+        log(f"matrix-product path: every M1 pass equals its plain version "
+            f"and every transform Ring.ntt's words; phase 3l took "
+            f"{time.perf_counter() - t3l:.1f} s")
+        return mxu_launches, cases[0][1:3]
+
+    mxu_launches, mxu_main = mxu_path()
+    torch.cuda.empty_cache()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. timing at the main shapes -----------------------------------------
@@ -2532,11 +2624,25 @@ def main() -> int:
             lambda: WK.wide_pointwise_plain(wa64, wb64, wt, "mont"),
             6 * wb * wn, scaled(wb * wn, OPS_WIDE_MONT), wshape + " mont"),
     })
+    # M1's column pass at the A/B's main shape (2^16, B=512); its bound
+    # counts the tensor cores' int8 multiply-adds beside bytes and int32
+    # operations
+    r_m, x_m = mxu_main
+    mt_m = MX.mxu_tables(r_m.plan, dev)
+    xm3 = x_m.view(-1, mt_m.n1, mt_m.n2)
+    xm3l = xm3.to(torch.int64)
+    words_m, ops_m, macs_m = mxu_pass_cost(xm3.shape[0], mt_m.n1, mt_m.n2,
+                                           row=False)
+    timed["mxu"] = (lambda: MX.mxu_pass(xm3, mt_m, False),
+                    lambda: MX.col_pass_plain(xm3l, mt_m), words_m,
+                    ops_m + (macs_m,),
+                    f"(B={xm3.shape[0]}, {mt_m.n1}x{mt_m.n2}) col pass")
     # a kernel's launches over every path of phase 3 (the flat path's are
     # the flat rows')
     paths = {"3a": launches, "3b": rns_launches, "3c": fs_launches,
              "3e": slice_launches, "3f": ckks_launches, "3g": int_launches,
-             "3h": h_launches, "3i": wide_launches, "3k": k_launches}
+             "3h": h_launches, "3i": wide_launches, "3k": k_launches,
+             "3l": mxu_launches}
     for key in tuple(ONE_KERNELS) + MULTI + ("xchg_fwd", "xchg_inv"):
         log(f"{KERNELS[key][0]} launches by path: " + ", ".join(
             f"{p} {c[key]}" for p, c in paths.items()))
@@ -2659,11 +2765,12 @@ def main() -> int:
     for key, (kern, plain, words, ops, shape) in timed.items():
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain, warmup=1, reps=3, inner=2)
-        bound_ms, bound_by = bound(words, ops)
+        bound_ms, bound_by = bound(words, ops[:3], *ops[3:])
         name, replaces = KERNELS[key]
+        macs = f", {ops[3]} int8 multiply-adds" if len(ops) > 3 else ""
         log(f"  {name:30s} {shape:36s} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}; {words * 4} bytes, int32 "
-            f"{ops[0]} multiplies, {ops[1]} compares, {ops[2]} adds), "
+            f"{ops[0]} multiplies, {ops[1]} compares, {ops[2]} adds{macs}), "
             f"{bound_ms / ms:.1%} of bound")
         count = (flat_launches[FLAT[key]] if key in FLAT
                  else sum(c[key] for c in paths.values()))
@@ -2675,8 +2782,33 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": shape,
         })
-    log("library_ms: null for every kernel - no PyTorch call computes a "
-        "negacyclic NTT mod q")
+    log("library_ms: null for every kernel but M1 - no PyTorch call computes "
+        "a negacyclic NTT mod q")
+    lib_ms, why = MXP.library_ms(mt_m, xm3, False)
+    rows[list(timed).index("mxu")]["library_ms"] = lib_ms
+    log(f"  M1's library_ms: its 16 digit products alone by torch._int_mm "
+        f"at {timed['mxu'][4]}: "
+        + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"null ({why})"))
+    log("M1 (mxu_col_kernel, mxu_row_kernel) launch shapes at the A/B's "
+        "shapes, and ptxas:")
+    for _, n_, b_ in MXU_PATH:
+        mt_ = MX.mxu_tables(Ring(n_, device=dev).plan, dev)
+        for row_ in (False, True):
+            info = MX.mxu_launch_info(mt_, row_, b_)
+            log(f"  {'row' if row_ else 'col'} pass n={n_} ({mt_.n1}x"
+                f"{mt_.n2}) B={b_}: tile {info['tile_m']}x{info['tile_n']} "
+                f"over k chunks of {info['tile_k']}, {info['threads']} "
+                f"threads, {info['smem_bytes']} bytes of shared memory, "
+                f"{info['registers']} registers, {info['local_bytes']} "
+                f"bytes of local memory a thread, {info['ctas_per_sm']} CTAs "
+                f"an SM, {info['ctas']} CTAs")
+    for name in MXU_KERNELS:
+        log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
+    log(f"the matrix-product four-step A/B on {card} (utils/mxu_probe.py; "
+        "CUDA events, median of 5 runs of 10 calls; the transform and "
+        "Ring.ntt in turns):")
+    MXP.measure(dev, emit=lambda row_: log("  mxu " + json.dumps(row_)),
+                check=False)
     log(f"K3 and K6a beyond the main shapes on {card} (CUDA events, median "
         "of 5 runs of 10 calls):")
     gen = torch.Generator(dev).manual_seed(92)

@@ -8,7 +8,9 @@ size-8 transforms against ``ops/plain_ntt.py``).  The bodies of the
 cluster kernels K7a, K7b, K8, of K9a's and K9b's slab kernels
 (``csrc/ntt_fourstep_cluster.cuh``), of the polydot K5/K6b, and K3/K6a
 at one channel (``csrc/ntt_polydot_cluster.cuh``), and of the transforms
-K4a/K4b, K1/K2 and K12 (``csrc/ntt_rns_transform.cuh``) run here too: one host thread a GPU
+K4a/K4b, K1/K2 and K12 (``csrc/ntt_rns_transform.cuh``) run here too
+(and the matrix-product pass M1's int64 epilogue and digit packing,
+``csrc/ntt_mxu.cuh``, against Python integers and the plain version): one host thread a GPU
 thread, four a CTA (the polydot: a sixteenth of its words), ``std::barrier``
 for ``__syncthreads`` and for the cluster's barrier, each CTA's slab a host
 array that the others reach as through ``map_shared_rank``, in a spawned
@@ -34,6 +36,7 @@ import pytest
 import torch
 
 from agilex_ntt_tpu_torch.ops import modmul as mm
+from agilex_ntt_tpu_torch.ops import mxu_ntt
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
 from agilex_ntt_tpu_torch.params import find_primes, make_params
 
@@ -47,9 +50,19 @@ SHIM = r"""
 #define __device__
 #define __forceinline__ inline
 #include "ntt_arith.cuh"
+#include "ntt_mxu.cuh"
 #include "ntt_xchg.cuh"
 
 extern "C" {
+// M1's epilogue over n rows of seven partials, and its digit planes over n
+// groups of four words
+void h_mxu_reduce(const int32_t* p, uint32_t q, uint32_t* out, long n) {
+  const MxuConsts k = make_mxu_consts(q);
+  for (long i = 0; i < n; ++i) out[i] = mxu_reduce(p + kMxuParts * i, k);
+}
+void h_mxu_pack(const uint32_t* v, uint32_t* w, long n) {
+  for (long i = 0; i < n; ++i) mxu_pack_digits(v + 4 * i, w + 4 * i);
+}
 void h_cond_sub(const uint32_t* x, uint32_t bound, uint32_t* out, long n) {
   for (long i = 0; i < n; ++i) out[i] = ntt_cond_sub(x[i], bound);
 }
@@ -392,6 +405,8 @@ def lib(tmp_path_factory):
     h.h_xchg_group.argtypes = [I, P, I, ctypes.c_longlong, I, U, I, U, U]
     h.h_ct_radix.argtypes = [I, P, P, P, U, L]
     h.h_gs_radix.argtypes = [I, P, P, P, U, P, L]
+    h.h_mxu_reduce.argtypes = [P, U, P, L]
+    h.h_mxu_pack.argtypes = [P, P, L]
     return h
 
 
@@ -990,3 +1005,34 @@ def test_montgomery_redc(lib, q):
     exact = a.astype(object) * b.astype(object) * r_inv % q
     assert int(got.max()) < 2 * q
     assert np.array_equal(got.astype(object) % q, exact)
+
+
+@pytest.mark.parametrize("q", PRIMES)
+def test_mxu_epilogue_and_digits(lib, q):
+    """M1's arithmetic (``csrc/ntt_mxu.cuh``): the int64 epilogue
+    ``mxu_reduce`` against Python integers and the plain version's Horner
+    reconstruction (the JAX package's words), on partials over the bound
+    +-4 * 2048 * 2^14 = +-2^27 with its edges; the packed digit planes of
+    ``mxu_pack_digits`` against the plain ``_balanced_digits``."""
+    bound = 1 << 27
+    rng = np.random.default_rng(q)
+    p = rng.integers(-bound, bound + 1, size=(COUNT, 7)).astype(np.int32)
+    p[0], p[1], p[2] = bound, -bound, 0
+    p[3, ::2], p[3, 1::2] = bound, -bound
+    out = np.empty(COUNT, dtype=np.uint32)
+    lib.h_mxu_reduce(_ptr(p), q, _ptr(out), COUNT)
+    exact = sum(p[:, s].astype(object) * 256 ** s for s in range(7)) % q
+    assert np.array_equal(out.astype(object), exact)
+    plain = mxu_ntt._reconstruct_mod(
+        [torch.from_numpy(p[:, s].astype(np.int64)) for s in range(7)], q)
+    assert np.array_equal(out, plain.numpy())
+    # byte j of word i of a group is digit i of the group's word j, for
+    # words up to 2^30 - 1 (the top digit's bound)
+    v = _operands(q, 1 << 30, 14)
+    v[-1] = (1 << 30) - 1
+    w = np.empty_like(v)
+    lib.h_mxu_pack(_ptr(v), _ptr(w), COUNT // 4)
+    digits = mxu_ntt._balanced_digits(torch.from_numpy(v.astype(np.int64)))
+    want = np.stack([d.numpy().view(np.uint8).reshape(-1, 4) for d in digits],
+                    axis=1)
+    assert np.array_equal(w.view(np.uint8).reshape(-1, 4, 4), want)

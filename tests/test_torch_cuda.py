@@ -15,6 +15,7 @@ from agilex_ntt_tpu_torch import (
 )
 from agilex_ntt_tpu_torch.ops import basechange as B
 from agilex_ntt_tpu_torch.ops import fourstep as FS
+from agilex_ntt_tpu_torch.ops import mxu_ntt as MX
 from agilex_ntt_tpu_torch.ops import ntt_kernel as K
 from agilex_ntt_tpu_torch.ops import plain_ntt as P
 from agilex_ntt_tpu_torch.ops import wide as W
@@ -369,7 +370,9 @@ def test_fourstep_kernels_match_plain(cuda):
     kernel; K9b's walking kernel likewise).  The cluster each wrapper picks
     and K9a's and K9b's slab width and threads are checked; K8's first
     operands hold the edge words q - 1 and 0, K9b's input reaches 2^32 - 1
-    and 4q - 1."""
+    and 4q - 1.  Where 64 <= n1, n2 <= 2048, M1 (``ops/mxu_ntt.py``): both
+    passes against their plain versions and its transform against K7a's
+    words."""
     # (n, n1, batch, cyclic, log2 of K7a's and K7b's cluster, of K8's, K9a's
     # slab width and threads; -1 and 0: walking)
     for n, n1, batch, cyclic, c7, c8, w9, t9 in (
@@ -432,6 +435,18 @@ def test_fourstep_kernels_match_plain(cuda):
         got = K.inv_col_fourstep(z.to(torch.uint32), ft, scale=ft.polymul_scale)
         want = P.inv_col_fourstep_plain(z, ft, ft.polymul_scale)
         assert torch.equal(got.to(torch.int64), want), ("col_inv any word", n)
+        if 64 <= min(ft.n1, ft.n2) and max(ft.n1, ft.n2) <= 2048:
+            mt = MX.mxu_tables(plan, cuda)
+            for row, v in ((False, x), (True, a)):
+                before = K.LAUNCHES["mxu"]
+                got = MX.mxu_pass(v.to(torch.uint32), mt, row)
+                plain = MX.row_pass_plain if row else MX.col_pass_plain
+                assert K.LAUNCHES["mxu"] == before + 1
+                assert torch.equal(got.to(torch.int64), plain(v, mt)), (
+                    "mxu", row, n, cyclic)
+            full = MX.fwd_ntt_fourstep_mxu(x32.view(batch, n), plan)
+            assert torch.equal(full.view(shape),
+                               K.fwd_ntt_fourstep(x32, ft)), ("mxu", n)
 
 
 def test_fourstep_rings_on_the_card_match_the_cpu(cuda):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it and running its
-command-line check, single- and multi-prime, the DIT inverse and the
-sharded ring and the multi-process setup (one process), loads neither
+command-line check, single- and multi-prime, the DIT inverse, the
+matrix-product four-step transform and the sharded ring and the
+multi-process setup (one process), loads neither
 JAX nor the JAX package; and its CKKS, BGV and
 BFV evaluators run a key generation, an encryption and a multiply, the
 sharded RNS ring a channel x coefficient polymul, CKKS a multiply on a
@@ -18,14 +19,15 @@ import sys
 import agilex_ntt_tpu_torch
 from agilex_ntt_tpu_torch import RNSRing, Ring
 from agilex_ntt_tpu_torch.ops import (
-    basechange, dit_inv, fourstep, gadget, ntt_kernel, plain_ntt, wide,
-    wide_kernel,
+    basechange, dit_inv, fourstep, gadget, mxu_ntt, ntt_kernel, plain_ntt,
+    wide, wide_kernel,
 )
 from agilex_ntt_tpu_torch.parallel import (
     chsp, comm, fourstep_shard, mesh, multihost, overlap, shards, stage_shard,
 )
 from agilex_ntt_tpu_torch.utils import (
-    autotune, crt, multihost_probe, profiler_probe, profiling, report,
+    autotune, crt, multihost_probe, mxu_probe, profiler_probe, profiling,
+    report,
 )
 from agilex_ntt_tpu_torch import examples, native
 from agilex_ntt_tpu_torch.models import presets
@@ -58,6 +60,11 @@ mesh.ShardedRing(r, m, sp_axis="sp", sp_method="fourstep").ntt(
 pm = multihost.pod_mesh(dp=2, sp=2, local_devices=["cpu"] * 4)
 mesh.ShardedRing(r, pm, sp_axis="sp").ntt(np.ones((2, 1024), dtype=np.uint32))
 assert multihost.process_local_batch(8) == slice(0, 8)
+import torch
+r4 = Ring(4096, method="fourstep", device="cpu")
+x4 = np.arange(2 * 4096, dtype=np.uint32).reshape(2, 4096) % np.uint32(r4.q)
+print("MXU", torch.equal(mxu_ntt.fwd_ntt_fourstep_mxu(torch.from_numpy(x4),
+                                                      r4.plan), r4.ntt(x4)))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "agilex_ntt_tpu"))
 print("LEAKED", leaked)
@@ -72,6 +79,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "all checks passed (n=256, q=" in proc.stdout
     assert "all checks passed (n=256, L=3 primes" in proc.stdout
+    assert "MXU True" in proc.stdout, proc.stdout
     assert "LEAKED []" in proc.stdout, proc.stdout
 
 
