@@ -931,23 +931,69 @@ cudaError_t wide_passes(const WideShape& sh, bool inverse, Launch launch) {
   return cudaSuccess;
 }
 
-// M1 (ntt_mxu.cuh): one CTA a 64 x 32 tile of a pass, the column pass
-// (G = D X) and the row pass (H = T G R^T) on one template, with
-// kMxuSmemBytes of dynamic shared memory.
-__global__ void __launch_bounds__(kMxuThreads)
-mxu_col_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const int8_t* __restrict__ mat, const MxuShape sh) {
-  extern __shared__ __align__(16) uint8_t mxu_smem[];
-  mxu_pass_body<false>(x, y, mat, nullptr, nullptr, sh, mxu_smem);
+// M1 (ntt_mxu.cuh): persistent CTAs of three warpgroups (a converter, two
+// consumers on wgmma) that walk the 128 x 64 tiles of a pass, the column
+// pass (G = D X) and the row pass (H = T G R^T) on one template, with
+// kMxuSmemBytes of dynamic shared memory; one CTA an SM.
+__global__ void __launch_bounds__(kMxuThreads, 1)
+mxu_col_kernel(const __grid_constant__ CUtensorMap x,
+               uint32_t* __restrict__ y, const int8_t* __restrict__ mat,
+               const MxuShape sh) {
+  extern __shared__ __align__(128) uint8_t mxu_smem[];
+  mxu_pass_body<false>(MxuMaps{&x, nullptr, nullptr}, y, mat, sh, mxu_smem);
 }
 
-__global__ void __launch_bounds__(kMxuThreads)
-mxu_row_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-               const int8_t* __restrict__ mat,
-               const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ twp, const MxuShape sh) {
-  extern __shared__ __align__(16) uint8_t mxu_smem[];
-  mxu_pass_body<true>(x, y, mat, tw, twp, sh, mxu_smem);
+__global__ void __launch_bounds__(kMxuThreads, 1)
+mxu_row_kernel(const __grid_constant__ CUtensorMap x,
+               const __grid_constant__ CUtensorMap tw,
+               const __grid_constant__ CUtensorMap twp,
+               uint32_t* __restrict__ y, const int8_t* __restrict__ mat,
+               const MxuShape sh) {
+  extern __shared__ __align__(128) uint8_t mxu_smem[];
+  mxu_pass_body<true>(MxuMaps{&x, &tw, &twp}, y, mat, sh, mxu_smem);
+}
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point (the library links no libcuda); null where the driver has none.
+typedef CUresult (*MxuEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+MxuEncodeTiled mxu_encoder() {
+  static MxuEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (MxuEncodeTiled)p;
+  }
+  return fn;
+}
+
+// A tensor map of uint32 words: dims (innermost first) and the byte
+// strides of the outer dims, the box, the swizzle.
+cudaError_t mxu_map(CUtensorMap* map, const uint32_t* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const MxuEncodeTiled encode = mxu_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT32, (cuuint32_t)rank,
+      const_cast<uint32_t*>(base), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 const void* mxu_kernel(int row) {
@@ -959,21 +1005,37 @@ size_t mxu_smem_bytes(int row) {
 }
 
 // A pass over (B, 2^logn1, 2^logn2) words (row: the row pass, else the
-// column pass): its shape and its CTAs, N / 32 N tiles of M / 64 M tiles.
+// column pass): its shape (N / 64 N tiles of M / 128 M tiles, one of 64
+// rows at M = 64), the CTAs an SM and the persistent grid, the CTAs the
+// card runs at once or the tiles, the fewer.
 cudaError_t mxu_launch(int row, int logn1, int logn2, long long batch,
-                       uint32_t q, MxuShape* sh, long long* blocks) {
+                       uint32_t q, MxuShape* sh, long long* blocks,
+                       int* per_sm) {
   if (logn1 < kMxuMinLog || logn1 > kMxuMaxLog || logn2 < kMxuMinLog ||
       logn2 > kMxuMaxLog || batch < 1 || q < 3 || (row != 0 && row != 1))
     return cudaErrorInvalidValue;
   sh->logm = row ? logn2 : logn1;
   sh->logn1 = logn1;
   sh->logn2 = logn2;
-  sh->mtiles = (1 << sh->logm) / kMxuTileM;
+  sh->consumers = sh->logm > kMxuMinLog ? kMxuConsumers : 1;
+  sh->mtiles = (1 << sh->logm) / (sh->consumers * kMxuBlockRows);
   sh->k = make_mxu_consts(q);
   const long long cols = batch << (row ? logn1 : logn2);
-  *blocks = cols / kMxuTileN * sh->mtiles;
-  if (*blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return allow_smem(mxu_kernel(row), mxu_smem_bytes(row));
+  sh->tiles = cols / kMxuTileN * sh->mtiles;
+  cudaError_t err = allow_smem(mxu_kernel(row), mxu_smem_bytes(row));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, mxu_kernel(row), kMxuThreads, mxu_smem_bytes(row));
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * *per_sm;
+  *blocks = sh->tiles < resident ? sh->tiles : resident;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1506,52 +1568,90 @@ int ntt_wide_pointwise(const uint32_t* alo, const uint32_t* ahi,
 // M1: one pass of the matrix-product four-step transform on (B, 2^logn1,
 // 2^logn2) words, x -> y.  Column pass (row = 0): x in [0, 4q), y = D x
 // mod q; row pass (row = 1): x in [0, q), y = (T x) R^T mod q, with the
-// (n1, n2) twiddles tw and their Shoup words twp.  mat: the pass's (4, M,
-// M) int8 digit planes.  y in [0, q).
+// (n1, n2) twiddles tw and their Shoup words twp.  mat: the pass's int8
+// digit blocks (ops/mxu_ntt.py _kernel_tiles).  y in [0, q).
 int ntt_mxu_pass(const uint32_t* x, uint32_t* y, const int8_t* mat,
                  const uint32_t* tw, const uint32_t* twp, long long batch,
                  int logn1, int logn2, int row, uint32_t q, void* stream) {
   MxuShape sh;
   long long blocks = 0;
+  int per_sm = 0;
   const cudaError_t err = mxu_launch(row, logn1, logn2, batch, q, &sh,
-                                     &blocks);
+                                     &blocks, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = mxu_smem_bytes(row);
-  if (row)
-    mxu_row_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(x, y, mat,
-                                                                tw, twp, sh);
-  else
-    mxu_col_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(x, y, mat,
+  const cuuint64_t n1 = 1ull << logn1, n2 = 1ull << logn2;
+  CUtensorMap mx, mtw, mtwp;
+  cudaError_t e;
+  if (row) {
+    const cuuint64_t dx[2] = {n2, (cuuint64_t)batch * n1}, dt[2] = {n2, n1};
+    const cuuint64_t s[1] = {4 * n2};
+    const cuuint32_t box[2] = {kMxuTileK, kMxuTileN};
+    e = mxu_map(&mx, x, 2, dx, s, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == cudaSuccess)
+      e = mxu_map(&mtw, tw, 2, dt, s, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == cudaSuccess)
+      e = mxu_map(&mtwp, twp, 2, dt, s, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != cudaSuccess) return (int)e;
+    mxu_row_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(
+        mx, mtw, mtwp, y, mat, sh);
+  } else {
+    const cuuint64_t d[3] = {n2, n1, (cuuint64_t)batch};
+    const cuuint64_t s[2] = {4 * n2, 4 * n1 * n2};
+    const cuuint32_t box[3] = {kMxuTileN, kMxuTileK, 1};
+    e = mxu_map(&mx, x, 3, d, s, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != cudaSuccess) return (int)e;
+    mxu_col_kernel<<<(unsigned)blocks, kMxuThreads, bytes, st>>>(mx, y, mat,
                                                                 sh);
+  }
   return (int)cudaGetLastError();
 }
 
 // The launch of an M1 pass: info = {tile M, tile N, tile K, threads a CTA,
 // shared memory bytes a CTA, registers a thread, local memory bytes a
-// thread (spills), CTAs an SM, CTAs launched}.
+// thread (spills), CTAs an SM, CTAs launched, converter threads, consumer
+// threads, stages, raw stages, tiles}.
 int ntt_mxu_launch_info(int row, int logn1, int logn2, long long batch,
                         int* info) {
-  for (int i = 0; i < 9; ++i) info[i] = 0;
+  for (int i = 0; i < 14; ++i) info[i] = 0;
   MxuShape sh;
   long long blocks = 0;
-  cudaError_t err = mxu_launch(row, logn1, logn2, batch, 3, &sh, &blocks);
+  int per_sm = 0;
+  cudaError_t err =
+      mxu_launch(row, logn1, logn2, batch, 3, &sh, &blocks, &per_sm);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, mxu_kernel(row));
   if (err != cudaSuccess) return (int)err;
-  info[0] = kMxuTileM;
+  info[0] = sh.consumers * kMxuBlockRows;
   info[1] = kMxuTileN;
   info[2] = kMxuTileK;
   info[3] = kMxuThreads;
   info[4] = (int)mxu_smem_bytes(row);
   info[5] = attr.numRegs;
   info[6] = (int)attr.localSizeBytes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[7], mxu_kernel(row), kMxuThreads, mxu_smem_bytes(row));
-  if (err != cudaSuccess) return (int)err;
+  info[7] = per_sm;
   info[8] = (int)blocks;
+  info[9] = 128 * kMxuConverters;
+  info[10] = 128 * sh.consumers;
+  info[11] = kMxuStages;
+  info[12] = row ? kMxuRawStages<true> : kMxuRawStages<false>;
+  info[13] = (int)(sh.tiles < 0x7fffffffLL ? sh.tiles : 0x7fffffffLL);
   return (int)cudaSuccess;
 }
+
+#ifdef NTT_MXU_CLOCKS
+// The role counters of CTA 0's last M1 launch (ntt_mxu.cuh MxuClock):
+// clear them, or copy the kMxuClockSlots counters out.
+int ntt_mxu_clocks(long long* out, int clear) {
+  if (clear) {
+    const long long zero[kMxuClockSlots] = {};
+    return (int)cudaMemcpyToSymbol(g_mxu_clocks, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, g_mxu_clocks,
+                                   sizeof(long long) * kMxuClockSlots);
+}
+#endif
 
 }  // extern "C"

@@ -14,69 +14,109 @@
 //                C[k, (b, c)] is written to G[b, k, c];
 //   row pass:    A = R (n2 x n2), B[c, (b, r)] = T[r, c] G[b, r, c] mod q,
 //                N = B n1; C[p, (b, r)] is written to H[b, r, p].
-// As on the TPU's matrix unit, the mod-q product is built from int8 digits:
-// A and B are split into four balanced signed base-256 digits (A's on the
-// host, B's in the prologue), the 16 digit products run on the tensor cores
-// (mma.sync m16n8k32, s8 x s8 -> s32) into the seven partials
-// P_s = sum_{i + j = s} A_i B_j, exact in s32 (|P_s| <= 4 K 2^14 = 2^27 at
-// K = 2048), and the epilogue writes sum_s P_s (256^s mod q) mod q once, in
-// int64 (mxu_reduce).  The result in [0, q) is unique, so every word equals
-// the JAX package's Horner reconstruction.
+// As on the TPU's matrix unit, the mod-q product is built from int8 digits.
+// A is split on the host into its four balanced signed base-256 digits A_i,
+// A = sum_i 256^i A_i.  The data are taken at two powers, B^(0) = B and
+// B^(1) = 2^16 B mod q, each split into its digits B^(p)_j.  Then
+// A B = (A_0 + 256 A_1) B + (A_2 + 256 A_3) 2^16 B is congruent to
+// sum_s 256^s P_s with the five partials
+//   P_s = sum_{u + j = s} (A_u B^(0)_j + A_(2 + u) B^(1)_j),  u < 2,
+// 16 digit products (as the JAX package's seven partials take), exact in
+// s32: |P_s| <= 4 K 2^14 = 2^27 at K = 2048.  The epilogue writes
+// sum_s P_s (256^s mod q) mod q once, in int64 (mxu_reduce).  The result in
+// [0, q) is unique, so every word equals the JAX package's Horner
+// reconstruction of its seven partials.  kMxuPowers generalises this (one
+// power: the seven partials; four: four partials, 16 planes of B); two is
+// the balance on this card: seven partials would take 224 accumulator
+// registers a thread at a 64-column tile, four cost the converter three
+// Shoup products and 16 planes a word (a pass at 2^16 took 0.50 ms against
+// two powers' 0.41 in turns, PERF.md).  Splitting A^(j) = 256^j A mod q on
+// the host instead would read 16 planes of A a tile (2 GiB from L2 a pass
+// at 2^16).
 //
 // Bound on this card: the tensor cores.  A pass does 16 B n K int8
 // multiply-adds and moves 8 B n bytes (and the matrix's 4 K^2 once): at
 // n = 2^16 (K = 256, B = 512) 0.139 ms of tensor-core issue against 0.080
-// ms of memory.  The design:
-//   * a CTA of 4 warps owns a 64 x 32 tile of C and walks K in chunks of 64
-//     through shared memory; each warp holds a 32 x 16 tile as 7 partials of
-//     2 x 2 mma tiles, 112 accumulator registers a thread;
-//   * chunk c + 1's A digits and B words are copied by cp.async into a
-//     second stage while chunk c is converted and multiplied, so that no
-//     warp waits on device memory between its products;
-//   * the s8 mma takes both operands K-major (4 consecutive k in a
-//     register), so every digit plane sits in shared memory as [row][k]: A's
-//     rows are m, B's are n.  The row pass's data is K-contiguous in device
-//     memory; the column pass's is n-contiguous, so its prologue transposes
-//     by hand (ldmatrix.trans does not move 8-bit elements): a thread reads
-//     4 rows at one column of the stage and packs their digits into one
-//     word a plane;
-//   * the fragments come by ldmatrix (four 8 x 16-byte tiles an
-//     instruction: an A fragment, or both n tiles' B fragments of a digit);
-//     rows of a plane are 80 bytes apart, so a tile's 8 rows touch 32
-//     distinct banks;
-//   * the digit split is two instructions a word (the balanced digits are
-//     the bytes of (v + 0x808080) ^ 0x808080) and a byte transpose into the
-//     planes by PRMT;
-//   * the M tiles of one N tile are neighbouring CTAs, so the data tile they
-//     share comes from device memory once and from L2 after.
-// On the H100 the kernels take 242-244 registers, two CTAs an SM; capped
-// at three CTAs an SM (168 registers) they spill and run 20-50% slower.
-// mma.sync alone reaches 65% of the dense int8 rate there, M1 24-32% of its
-// bound, so the tensor cores' rate is not what holds it; the conversion and
-// the epilogue between a CTA's products are the likely cause, unmeasured
-// (utils/mxu_probe.py, PERF.md).
+// ms of memory.  The design, a persistent CTA of three warpgroups an SM:
+//   * the products are wgmma.mma_async m64n64k32 s32.s8.s8, both operands
+//     read from shared memory through matrix descriptors.  A CTA tile is
+//     128 x 64 of C: two consumer warpgroups of 64 rows each hold the five
+//     partials of their 64 x 64 block, 160 accumulator registers a thread;
+//   * shared memory holds a ring of kMxuStages stages, each one k step of
+//     32: A's four 64 x 32 digit blocks for each consumer (16 KiB) and B's
+//     8 planes B^(p)_j, 64 rows n x 32 k (16 KiB).  The s8 wgmma takes
+//     both operands K-major, so every block is [row][k] in the layout
+//     without swizzle: 8-row x 16-byte core matrices, the two k halves of a
+//     row group 128 bytes apart, row groups 256 (mxu_core_offset).  A's
+//     tables are stored in that order on the host (ops/mxu_ntt.py
+//     _kernel_tiles), so a stage's A is one bulk copy (cp.async.bulk) a
+//     consumer, issued by the first consumer's thread 0 as soon as both
+//     consumers release the stage;
+//   * the first warpgroup converts.  Its thread 0 keeps the raw data of the
+//     next kMxuRawStages<kRow> chunks in flight (TMA: one box of the column
+//     pass's x, three of the row pass's x, tw and twp, through tensor maps
+//     built on the host), on mbarriers; its 128 threads turn a raw chunk
+//     into B's planes, 16 words of one row n a thread: the reduction from
+//     [0, 4q) (column pass) or the inter-pass twiddle (row pass), a Shoup
+//     product by 2^16, the two-instruction digit split and the byte
+//     transpose, one 16-byte store a plane.  The column pass's data are
+//     n-contiguous in device memory, so the thread reads down a column of
+//     the raw box (the transpose); the row pass's boxes land with the
+//     128-byte swizzle so that 8 rows read at once touch distinct banks;
+//   * mbarriers guard both rings: a stage is full when the converter's 128
+//     threads have arrived and A's bytes have landed, empty when both
+//     consumers' products on it are done (wgmma.wait_group 1 releases the
+//     stage before last); the converter's writes pass to the tensor cores
+//     through fence.proxy.async;
+//   * setmaxnreg moves registers from the converter (72) to the consumers
+//     (216);
+//   * each CTA walks the (M tile, N tile) pairs t = blockIdx.x + i
+//     gridDim.x, the M tiles of an N tile adjacent, so that CTAs running at
+//     once share their data tiles in L2; the int64 epilogue and stores of
+//     one tile overlap the copies and conversion of the next.
+// M = 64 (n1 or n2 = 64) runs with one consumer.  The converter is what
+// the consumers wait for (utils/mxu_probe.py --clocks, PERF.md).
 //
-// The digit split and the epilogue's arithmetic are __host__ __device__, as
-// ntt_arith.cuh's are: tests/test_torch_arith_host.py builds them with g++.
-// The kernel body is device code only (__CUDACC__).
+// The digit split, the converter's layout and the epilogue's arithmetic are
+// __host__ __device__, as ntt_arith.cuh's are: tests/test_torch_arith_host.py
+// builds them with g++.  The kernel body is device code only (__CUDACC__).
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #include "ntt_arith.cuh"
 
 constexpr int kMxuDigits = 4;
-constexpr int kMxuParts = 2 * kMxuDigits - 1;
+// The data's powers B^(p) = 2^(32 p / kMxuPowers) B mod q (p < kMxuPowers),
+// A's digits kMxuSpan to a power: A_i with i = p kMxuSpan + u meets
+// B^(p)_j at weight 256^(u + j), so the partials are P_s for s <
+// kMxuSpan + 3.  One power would be the JAX package's seven partials, four
+// four partials and 16 planes of B; the kernel takes two: five partials
+// and 8 planes.
+constexpr int kMxuPowers = 2;
+constexpr int kMxuSpan = kMxuDigits / kMxuPowers;
+constexpr int kMxuParts = kMxuSpan + kMxuDigits - 1;
+constexpr int kMxuPlanes = kMxuPowers * kMxuDigits;  // B's a stage
 // log2 of the pass sizes M = K the kernel takes: its tile below, the bound
 // of the partials (and of the JAX reconstruction's offset) above.
 constexpr int kMxuMinLog = 6;
 constexpr int kMxuMaxLog = 11;
+// k a stage (one wgmma k step of s8), the rows of a block of A or B, and
+// the no-swizzle K-major layout's strides (bytes)
+constexpr int kMxuTileK = 32;
+constexpr int kMxuBlockRows = 64;
+constexpr int kMxuBlockBytes = kMxuBlockRows * kMxuTileK;
+constexpr int kMxuCoreLbo = 128;  // between a row group's two k halves
+constexpr int kMxuCoreSbo = 256;  // between row groups of 8
 
-// The epilogue's constants of q: c[s] = 256^s mod q (below 2^30, so each
-// term is one 32 x 32 -> 64-bit multiply-add), off a multiple of q above
-// 2^61 that makes the signed sum positive, mu = floor(2^64 / q).
+// The epilogue's and the converter's constants of q: c[j] = 256^j mod q
+// (below 2^30, so each term is one 32 x 32 -> 64-bit multiply-add) and
+// their Shoup words cp[j], off a multiple of q above 2^61 that makes the
+// signed sum positive, mu = floor(2^64 / q).
 struct MxuConsts {
   int32_t c[kMxuParts];
+  uint32_t cp[kMxuParts];
   uint64_t off;
   uint64_t mu;
   uint32_t q;
@@ -87,6 +127,7 @@ NTT_HD MxuConsts make_mxu_consts(uint32_t q) {
   uint64_t c = 1 % q;
   for (int s = 0; s < kMxuParts; ++s) {
     k.c[s] = (int32_t)c;
+    k.cp[s] = (uint32_t)((c << 32) / q);
     c = c * 256 % q;
   }
   k.off = ((1ull << 61) / q + 1) * q;
@@ -104,9 +145,10 @@ NTT_HD uint64_t mxu_mulhi64(uint64_t a, uint64_t b) {
 #endif
 }
 
-// sum_s p[s] 256^s mod q in [0, q), for |p[s]| <= 2^27 and q < 2^30: each
-// term is below 2^57 in size and the sum below 2^60, so t = sum + off lies
-// in [0, 2^62); Barrett by mu leaves t - floor(t mu / 2^64) q in [0, 2q).
+// sum_s p[s] 256^s mod q in [0, q), for |p[s]| <= 2^27, at most seven of
+// them, and q < 2^30: each term is below 2^57 in size and the sum below
+// 2^60, so t = sum + off lies in [0, 2^62); Barrett by mu leaves
+// t - floor(t mu / 2^64) q in [0, 2q).
 NTT_HD uint32_t mxu_reduce(const int32_t* p, const MxuConsts& k) {
   int64_t s = 0;
   NTT_UNROLL
@@ -155,287 +197,556 @@ NTT_HD void mxu_pack_digits(const uint32_t* v, uint32_t* w) {
   w[3] = mxu_byte_perm(hi01, hi23, 0x7632);
 }
 
+// x - b if x >= b, else x, for x < b + 2^32 - b (x < 2b and b < 2^31): one
+// subtraction and an unsigned minimum.
+NTT_HD uint32_t mxu_sub_if(uint32_t x, uint32_t b) {
+  const uint32_t d = x - b;
+  return d < x ? d : x;
+}
+
+// The byte of (row, k) in a block of rows x 32 k bytes, K-major without
+// swizzle as wgmma reads it: core matrices of 8 rows x 16 bytes (128
+// contiguous bytes), the two k halves of a row group kMxuCoreLbo apart,
+// row groups kMxuCoreSbo apart.
+NTT_HD int mxu_core_offset(int row, int k) {
+  return (row >> 3) * kMxuCoreSbo + ((k >> 4) & 1) * kMxuCoreLbo +
+         (row & 7) * 16 + (k & 15);
+}
+
+NTT_HD void mxu_store16(uint8_t* dst, const uint32_t* w) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+#else
+  memcpy(dst, w, 16);
+#endif
+}
+
+// The converter's work for one thread: the words v[0..15] < q of row `row`
+// at k = 16 half .. 16 half + 15 of a stage, into B's kMxuPlanes planes
+// (each a block of kMxuBlockBytes, plane 4 p + j holding digit j of
+// B^(p) = 256^(p kMxuSpan) v mod q): a Shoup product by 256^(p kMxuSpan)
+// (c[p kMxuSpan]), the digit split, one 16-byte store a plane.
+NTT_HD void mxu_convert16(const uint32_t* v, uint8_t* planes, int row,
+                          int half, const MxuConsts& k) {
+  const int at = mxu_core_offset(row, 16 * half);
+  NTT_UNROLL
+  for (int i = 0; i < kMxuPowers; ++i) {
+    uint32_t w[16];
+    NTT_UNROLL
+    for (int e = 0; e < 16; ++e)
+      w[e] = i == 0 ? v[e]
+                    : mxu_sub_if(ntt_shoup_lazy(v[e],
+                                                (uint32_t)k.c[i * kMxuSpan],
+                                                k.cp[i * kMxuSpan], k.q),
+                                 k.q);
+    uint32_t p[kMxuDigits][4];
+    NTT_UNROLL
+    for (int e = 0; e < 4; ++e) {
+      uint32_t d[kMxuDigits];
+      mxu_pack_digits(w + 4 * e, d);
+      NTT_UNROLL
+      for (int j = 0; j < kMxuDigits; ++j) p[j][e] = d[j];
+    }
+    NTT_UNROLL
+    for (int j = 0; j < kMxuDigits; ++j)
+      mxu_store16(planes + (kMxuDigits * i + j) * kMxuBlockBytes + at, p[j]);
+  }
+}
+
 #ifdef __CUDACC__
 
-constexpr int kMxuThreads = 128;
-constexpr int kMxuWarps = kMxuThreads / 32;
-constexpr int kMxuWarpsM = 2;  // warps along M; kMxuWarps / 2 along N
-constexpr int kMxuWarpM = 32, kMxuWarpN = 16;
-constexpr int kMxuTileM = kMxuWarpsM * kMxuWarpM;                 // 64
-constexpr int kMxuTileN = (kMxuWarps / kMxuWarpsM) * kMxuWarpN;  // 32
-constexpr int kMxuTileK = 64;
-constexpr int kMxuPitch = kMxuTileK + 16;  // bytes a row of a digit plane
-constexpr int kMxuPlaneA = kMxuTileM * kMxuPitch;
-constexpr int kMxuPlaneB = kMxuTileN * kMxuPitch;
-constexpr int kMxuRawWords = kMxuTileK * kMxuTileN;  // B's words a chunk
-// A stage: A's digit planes and B's words of one chunk, as they arrive (the
-// row pass's with their twiddles and Shoup words); two stages and B's digit
-// planes a CTA: 66 KiB for the column pass, 98 KiB for the row pass.
+#include <cuda.h>  // CUtensorMap
+
+// warpgroups that copy and convert, and that multiply
+constexpr int kMxuConverters = 1;
+constexpr int kMxuConsumers = 2;
+constexpr int kMxuThreads = 128 * (kMxuConverters + kMxuConsumers);
+constexpr int kMxuTileN = kMxuBlockRows;  // 64
+constexpr int kMxuStages = 4;
+constexpr int kMxuAStage = kMxuConsumers * kMxuDigits * kMxuBlockBytes;
+constexpr int kMxuBStage = kMxuPlanes * kMxuBlockBytes;
+constexpr int kMxuStageBytes = kMxuAStage + kMxuBStage;  // 32 KiB
+// a raw box: the column pass's 32 rows k x 64 words, or one of the row
+// pass's three 64 rows n x 32 words (x, tw, twp; 128-byte swizzle)
+constexpr int kMxuBoxBytes = 4 * kMxuTileK * kMxuTileN;
 template <bool kRow>
-constexpr int kMxuStageBytes =
-    kMxuDigits * kMxuPlaneA + (kRow ? 3 : 1) * kMxuRawWords * 4;
+constexpr int kMxuRawStages = kRow ? 3 : 4;
+template <bool kRow>
+constexpr int kMxuRawBytes = (kRow ? 3 : 1) * kMxuBoxBytes;
+// the stages, the raw stages, the barriers, and 1 KiB to align the start
+// (a 128-byte swizzle's box lands on 1024 bytes)
 template <bool kRow>
 constexpr int kMxuSmemBytes =
-    2 * kMxuStageBytes<kRow> + kMxuDigits * kMxuPlaneB;
-static_assert(kMxuTileK / 4 == 4 * kMxuWarps,
-              "the column conversion gives each warp 4 words of k");
-static_assert(kMxuTileN == 32, "a lane a column of the column conversion");
+    kMxuStages * kMxuStageBytes + kMxuRawStages<kRow> * kMxuRawBytes<kRow> +
+    8 * (2 * kMxuStages + kMxuRawStages<kRow>) + 1024;
+// setmaxnreg: the launch gives 65536 / kMxuThreads registers a thread (down
+// to a multiple of 8: 168); the converter hands 96 of its to the consumers,
+// whose 160 accumulators spilled at 200 and 208 (72 / 216: no spill)
+constexpr int kMxuLaunchRegs = 65536 / kMxuThreads / 8 * 8;
+constexpr int kMxuConverterRegs = 72, kMxuConsumerRegs = 216;
+static_assert(kMxuConverters * kMxuConverterRegs +
+                      kMxuConsumers * kMxuConsumerRegs <=
+                  (kMxuConverters + kMxuConsumers) * kMxuLaunchRegs,
+              "setmaxnreg moves registers, it adds none");
+static_assert(kMxuSmemBytes<true> <= 232448 && kMxuSmemBytes<false> <= 232448,
+              "a CTA's shared memory");
 
-// A pass: log2 M (= log2 K), the (n1, n2) split, the M tiles of an N tile,
-// and q's epilogue constants.
+// A pass: log2 M (= log2 K), the (n1, n2) split, the 128-row tiles of M
+// (one of 64 rows at M = 64), the consumers with rows, the tiles, and q's
+// constants.
 struct MxuShape {
   int logm;
   int logn1, logn2;
   int mtiles;
+  int consumers;
+  long long tiles;
   MxuConsts k;
 };
 
-// c += a b on the tensor cores: a 16 x 32 s8 tile (row-major fragment), a
-// 32 x 8 s8 tile (column-major fragment), a 16 x 8 s32 sum.
-__device__ __forceinline__ void mxu_mma(int32_t* c, const uint32_t* a,
-                                        const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Cycle counters of one CTA's roles (utils/mxu_probe.py builds the
+// library with -DNTT_MXU_CLOCKS): the converter's waits for an empty stage
+// and for its raw words, its conversion; a consumer's waits for a full
+// stage, its products (issue to wgmma.wait_group), its epilogue.
+constexpr int kMxuClockSlots = 8;
+enum MxuClockSlot {
+  kClkEmpty, kClkRaw, kClkConvert, kClkConverter,
+  kClkFull, kClkProducts, kClkEpilogue, kClkConsumer
+};
+#ifdef NTT_MXU_CLOCKS
+__device__ long long g_mxu_clocks[kMxuClockSlots];
+__device__ __forceinline__ long long mxu_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct MxuClock {
+  long long t0, t, sum[kMxuClockSlots];
+  __device__ MxuClock() : t0(mxu_clock()), t(t0) {
+    for (int s = 0; s < kMxuClockSlots; ++s) sum[s] = 0;
+  }
+  __device__ void lap(int slot) {
+    const long long now = mxu_clock();
+    sum[slot] += now - t;
+    t = now;
+  }
+  __device__ void flush(int first, int last, int total) {
+    if (blockIdx.x != 0) return;
+    for (int s = first; s < last; ++s) g_mxu_clocks[s] = sum[s];
+    g_mxu_clocks[total] = mxu_clock() - t0;
+  }
+};
+#else
+struct MxuClock {
+  __device__ void lap(int) {}
+  __device__ void flush(int, int, int) {}
+};
+#endif
+
+__device__ __forceinline__ uint32_t mxu_sa(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Four 8 x 8 tiles of 16-bit words from shared memory, one a register
-// (ldmatrix): lanes 8 m to 8 m + 7 give the 16-byte rows of tile m, and lane
-// l gets bytes 4 (l % 4) to 4 (l % 4) + 3 of row l / 4 of each tile: for
-// s8 data, exactly an mma fragment's 4 k of a row.
-__device__ __forceinline__ void mxu_ldmatrix4(uint32_t* r, const uint8_t* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-
-// 16 bytes from device memory to shared memory without a register
-// (cp.async); mxu_copy_commit closes a chunk's group, mxu_copy_wait waits
-// for all of this thread's copies.
-__device__ __forceinline__ void mxu_copy16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
+__device__ __forceinline__ void mxu_bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mxu_sa(bar)),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void mxu_copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mxu_bar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(mxu_sa(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ void mxu_copy_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Arrive and add `bytes` to the phase's expected transaction count.
+__device__ __forceinline__ void mxu_bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          mxu_sa(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// Chunk [k0, k0 + 64) into a stage, as one group of copies: A's digit
-// planes at rows [m0, m0 + 64) (16-byte pieces of the (4, M, K) int8
-// matrix, 8 a thread), then B's words: the column pass's 64 rows k of 32
-// words of one batch row ([k][n]), or the row pass's 32 rows n of 64 words
-// ([n][k]) with their twiddles and Shoup words (4 pieces a thread each).
-template <bool kRow>
-__device__ __forceinline__ void mxu_prefetch(
-    uint8_t* stage, const int8_t* __restrict__ mat,
-    const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
-    const uint32_t* __restrict__ twp, const MxuShape& sh, int m0,
-    long long n0, int k0) {
-  constexpr int kRowPieces = kMxuTileK / 16;
-  constexpr int kPieces = kMxuDigits * kMxuTileM * kRowPieces;
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mxu_bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = mxu_sa(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A box of a tensor map at coordinates (c0, c1[, c2]), innermost first,
+// into shared memory, counted on `bar` when it lands (TMA).
+__device__ __forceinline__ void mxu_tma2(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(mxu_sa(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(mxu_sa(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mxu_tma3(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(mxu_sa(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(mxu_sa(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// to shared memory, counted on `bar` when they land.
+__device__ __forceinline__ void mxu_bulk(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(mxu_sa(dst)),
+      "l"(src), "r"(bytes), "r"(mxu_sa(bar))
+      : "memory");
+}
+
+// A matrix descriptor of a block at p: no swizzle, kMxuCoreLbo and
+// kMxuCoreSbo in 16-byte units.
+__device__ __forceinline__ uint64_t mxu_desc(const void* p) {
+  return (uint64_t)((mxu_sa(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(kMxuCoreLbo >> 4) << 16) |
+         ((uint64_t)(kMxuCoreSbo >> 4) << 32);
+}
+
+// d += a b: a 64 x 32 s8 block of A and a 64 x 32 s8 block of B (both
+// K-major, from shared memory), d the warpgroup's 64 x 64 s32 sum.
+__device__ __forceinline__ void mxu_wgmma(int32_t* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void mxu_fence_acc(int32_t (*acc)[32]) {
   NTT_UNROLL
-  for (int r = 0; r < kPieces / kMxuThreads; ++r) {
-    const int i = threadIdx.x + r * kMxuThreads;
-    const int piece = i % kRowPieces;
-    const int row = (i / kRowPieces) % kMxuTileM;
-    const int d = i / (kRowPieces * kMxuTileM);
-    mxu_copy16(stage + d * kMxuPlaneA + row * kMxuPitch + 16 * piece,
-               mat + ((long long)d << (2 * sh.logm)) +
-                   ((long long)(m0 + row) << sh.logm) + k0 + 16 * piece);
-  }
-  uint32_t* raw = reinterpret_cast<uint32_t*>(stage + kMxuDigits * kMxuPlaneA);
-  if constexpr (!kRow) {
-    constexpr int kLinePieces = kMxuTileN / 4;
-    const uint32_t* src = x + ((n0 >> sh.logn2) << (sh.logn1 + sh.logn2)) +
-                          (n0 & ((1LL << sh.logn2) - 1)) +
-                          ((long long)k0 << sh.logn2);
+  for (int j = 0; j < kMxuParts; ++j)
     NTT_UNROLL
-    for (int r = 0; r < kMxuRawWords / 4 / kMxuThreads; ++r) {
-      const int i = threadIdx.x + r * kMxuThreads;
-      const int piece = i % kLinePieces, k = i / kLinePieces;
-      mxu_copy16(raw + k * kMxuTileN + 4 * piece,
-                 src + ((long long)k << sh.logn2) + 4 * piece);
-    }
-  } else {
-    constexpr int kLinePieces = kMxuTileK / 4;
-    const long long mask1 = (1LL << sh.logn1) - 1;
-    NTT_UNROLL
-    for (int r = 0; r < kMxuRawWords / 4 / kMxuThreads; ++r) {
-      const int i = threadIdx.x + r * kMxuThreads;
-      const int piece = i % kLinePieces, row = i / kLinePieces;
-      const long long n = n0 + row;
-      const int at = row * kMxuTileK + 4 * piece;
-      const long long t = ((n & mask1) << sh.logn2) + k0 + 4 * piece;
-      mxu_copy16(raw + at, x + (n << sh.logn2) + k0 + 4 * piece);
-      mxu_copy16(raw + kMxuRawWords + at, tw + t);
-      mxu_copy16(raw + 2 * kMxuRawWords + at, twp + t);
-    }
-  }
-  mxu_copy_commit();
+    for (int r = 0; r < 32; ++r) asm volatile("" : "+r"(acc[j][r])::"memory");
 }
 
-// Four words of k at [4 k4, 4 k4 + 4) of B's row `row`, as digit planes.
-__device__ __forceinline__ void mxu_store_planes(uint8_t* bs, int row, int k4,
-                                                 const uint32_t* v) {
-  uint32_t w[kMxuDigits];
-  mxu_pack_digits(v, w);
-  NTT_UNROLL
-  for (int i = 0; i < kMxuDigits; ++i)
-    *reinterpret_cast<uint32_t*>(bs + i * kMxuPlaneB + row * kMxuPitch +
-                                 4 * k4) = w[i];
+template <int kPending>
+__device__ __forceinline__ void mxu_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
 }
 
-// The prologue of a chunk: B's words of a stage reduced to [0, q) and split
-// into digit planes.  Column pass: words in [0, 4q), two conditional
-// subtractions; a lane a column n, each warp 4 words of 4 rows k, so the
-// planes' [n][k] rows come out transposed.  Row pass: the twiddle T[r, c]
-// (Shoup, then a conditional subtraction); 16 lanes a row of 64 words.
+// The tensor maps of a pass's raw data (built on the host per launch,
+// passed as __grid_constant__ parameters): the column pass's x as (n2, n1,
+// B) words, boxes of 64 x 32 x 1; the row pass's x as (n2, B n1), tw and
+// twp as (n2, n1), boxes of 32 x 64 with the 128-byte swizzle.
+struct MxuMaps {
+  const CUtensorMap* x;
+  const CUtensorMap* tw;
+  const CUtensorMap* twp;
+};
+
+// Chunk (N tile at n0, k0) of the raw data into a raw stage, one thread:
+// the column pass's box of 32 rows k x 64 words ([k][n]), the row pass's
+// three boxes of 64 rows n x 32 words ([n][k], each 16-byte piece c of row
+// r at c ^ (r & 7)).
 template <bool kRow>
-__device__ __forceinline__ void mxu_convert(uint8_t* bs, const uint32_t* raw,
-                                            uint32_t q) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ void mxu_issue_raw(uint8_t* raw, uint64_t* bar,
+                                              const MxuMaps& maps,
+                                              const MxuShape& sh,
+                                              long long n0, int k0) {
+  mxu_bar_expect(bar, kMxuRawBytes<kRow>);
   if constexpr (!kRow) {
-    NTT_UNROLL
-    for (int i = 0; i < 4; ++i) {
-      const int k4 = warp + kMxuWarps * i;
-      uint32_t v[4];
-      NTT_UNROLL
-      for (int j = 0; j < 4; ++j)
-        v[j] = ntt_reduce_4q(raw[(4 * k4 + j) * kMxuTileN + lane], q);
-      mxu_store_planes(bs, lane, k4, v);
-    }
+    mxu_tma3(raw, maps.x, (int)(n0 & ((1LL << sh.logn2) - 1)), k0,
+             (int)(n0 >> sh.logn2), bar);
   } else {
-    const int k4 = lane & 15;
+    const int r0 = (int)(n0 & ((1LL << sh.logn1) - 1));
+    mxu_tma2(raw, maps.x, k0, (int)n0, bar);
+    mxu_tma2(raw + kMxuBoxBytes, maps.tw, k0, r0, bar);
+    mxu_tma2(raw + 2 * kMxuBoxBytes, maps.twp, k0, r0, bar);
+  }
+}
+
+// One converter thread's 16 words of a raw chunk into B's planes: row
+// t % 64, k half t / 64; the column pass reduces [0, 4q) to [0, q) (reading
+// down a column: the transpose), the row pass applies the twiddle T[r, c]
+// (a Shoup product and a conditional subtraction).
+template <bool kRow>
+__device__ __forceinline__ void mxu_convert(const uint8_t* raw,
+                                            uint8_t* planes,
+                                            const MxuConsts& k, int t) {
+  const int row = t & (kMxuTileN - 1), half = t / kMxuTileN;
+  uint32_t v[16];
+  if constexpr (!kRow) {
+    const uint32_t* r = reinterpret_cast<const uint32_t*>(raw);
     NTT_UNROLL
-    for (int i = 0; i < kMxuTileN / (2 * kMxuWarps); ++i) {
-      const int row = (lane >> 4) + 2 * (warp + kMxuWarps * i);
-      const int at = row * kMxuTileK + 4 * k4;
-      const uint4 a = *reinterpret_cast<const uint4*>(raw + at);
-      const uint4 w = *reinterpret_cast<const uint4*>(raw + kMxuRawWords + at);
+    for (int e = 0; e < 16; ++e)
+      v[e] = mxu_sub_if(
+          mxu_sub_if(r[(16 * half + e) * kMxuTileN + row], 2 * k.q), k.q);
+  } else {
+    NTT_UNROLL
+    for (int e = 0; e < 4; ++e) {
+      // the swizzle puts 8 rows' same pieces on distinct banks
+      const uint8_t* at = raw + row * 4 * kMxuTileK +
+                          16 * ((4 * half + e) ^ (row & 7));
+      const uint4 a = *reinterpret_cast<const uint4*>(at);
+      const uint4 w = *reinterpret_cast<const uint4*>(at + kMxuBoxBytes);
       const uint4 wp =
-          *reinterpret_cast<const uint4*>(raw + 2 * kMxuRawWords + at);
-      const uint32_t v[4] = {ntt_scale_reduce(a.x, w.x, wp.x, q),
-                             ntt_scale_reduce(a.y, w.y, wp.y, q),
-                             ntt_scale_reduce(a.z, w.z, wp.z, q),
-                             ntt_scale_reduce(a.w, w.w, wp.w, q)};
-      mxu_store_planes(bs, row, k4, v);
+          *reinterpret_cast<const uint4*>(at + 2 * kMxuBoxBytes);
+      v[4 * e] = mxu_sub_if(ntt_shoup_lazy(a.x, w.x, wp.x, k.q), k.q);
+      v[4 * e + 1] = mxu_sub_if(ntt_shoup_lazy(a.y, w.y, wp.y, k.q), k.q);
+      v[4 * e + 2] = mxu_sub_if(ntt_shoup_lazy(a.z, w.z, wp.z, k.q), k.q);
+      v[4 * e + 3] = mxu_sub_if(ntt_shoup_lazy(a.w, w.w, wp.w, k.q), k.q);
     }
   }
+  mxu_convert16(v, planes, row, half, k);
 }
 
-// One CTA: the tile (m0, n0) of C = A B mod q, blockIdx.x = n tile *
-// mtiles + m tile.  x: (B, n1, n2) words, y: the (B, n1, n2) output, mat:
-// A's (4, M, K) digits; tw, twp: the (n1, n2) twiddles (row pass).  Chunk
-// c + 1's copies fly while chunk c is converted and multiplied: two stages,
-// two barriers a chunk.
-template <bool kRow>
-__device__ __forceinline__ void mxu_pass_body(
-    const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-    const int8_t* __restrict__ mat, const uint32_t* __restrict__ tw,
-    const uint32_t* __restrict__ twp, const MxuShape& sh, uint8_t* smem) {
-  constexpr int kStage = kMxuStageBytes<kRow>;
-  uint8_t* bs = smem + 2 * kStage;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row, tile
-  const int wm = warp % kMxuWarpsM, wn = warp / kMxuWarpsM;
-  const int m0 = (int)(blockIdx.x % sh.mtiles) * kMxuTileM;
-  const long long n0 = (long long)(blockIdx.x / sh.mtiles) * kMxuTileN;
-  int32_t acc[kMxuParts][2][2][4];
-  NTT_UNROLL
-  for (int s = 0; s < kMxuParts; ++s)
-    NTT_UNROLL
-    for (int mi = 0; mi < 2; ++mi)
-      NTT_UNROLL
-      for (int ni = 0; ni < 2; ++ni)
-        NTT_UNROLL
-        for (int c = 0; c < 4; ++c) acc[s][mi][ni][c] = 0;
+// Chunk c of this CTA's tiles (K / 32 a tile): its tile and its k block.
+struct MxuChunk {
+  long long tile;
+  int kb;
+};
 
-  const int chunks = (1 << sh.logm) / kMxuTileK;
-  mxu_prefetch<kRow>(smem, mat, x, tw, twp, sh, m0, n0, 0);
-  NTT_NO_UNROLL
-  for (int ch = 0; ch < chunks; ++ch) {
-    const uint8_t* as = smem + (ch & 1) * kStage;
-    mxu_copy_wait();
-    __syncthreads();  // the chunk is in; the last chunk's products are done
-    if (ch + 1 < chunks)
-      mxu_prefetch<kRow>(smem + ((ch + 1) & 1) * kStage, mat, x, tw, twp, sh,
-                         m0, n0, (ch + 1) * kMxuTileK);
-    mxu_convert<kRow>(
-        bs, reinterpret_cast<const uint32_t*>(as + kMxuDigits * kMxuPlaneA),
-        sh.k.q);
-    __syncthreads();
+__device__ __forceinline__ MxuChunk mxu_chunk(long long c, int chunks) {
+  return MxuChunk{blockIdx.x + (c / chunks) * gridDim.x, (int)(c % chunks)};
+}
+
+// A's blocks of chunk c into its stage, one thread: the four digits' 64 x
+// 32 blocks of each consumer's rows, one bulk copy a consumer.
+__device__ __forceinline__ void mxu_issue_a(uint8_t* smem, uint64_t* full,
+                                            const int8_t* __restrict__ mat,
+                                            const MxuShape& sh, long long c,
+                                            int chunks) {
+  constexpr int kBytes = kMxuDigits * kMxuBlockBytes;
+  const int s = (int)(c % kMxuStages);
+  const MxuChunk ch = mxu_chunk(c, chunks);
+  const long long mb = (ch.tile % sh.mtiles) * sh.consumers;
+  mxu_bar_expect(&full[s], sh.consumers * kBytes);
+  for (int w = 0; w < sh.consumers; ++w)
+    mxu_bulk(smem + s * kMxuStageBytes + w * kBytes,
+             mat + ((mb + w) * chunks + ch.kb) * (long long)kBytes, kBytes,
+             &full[s]);
+}
+
+// The first warpgroup(s): for each chunk c of this CTA's tiles, wait for
+// its stage to be empty and for its raw words, convert them into B's
+// planes, arrive; then refill the raw stage with chunk c + kMxuRawStages
+// (thread 0).
+template <bool kRow>
+__device__ __forceinline__ void mxu_converter(const MxuMaps& maps,
+                                              const MxuShape& sh,
+                                              uint8_t* smem, uint64_t* full,
+                                              uint64_t* empty,
+                                              uint64_t* arrived) {
+  constexpr int kRaw = kMxuRawStages<kRow>;
+  uint8_t* raw = smem + kMxuStages * kMxuStageBytes;
+  const int t = threadIdx.x;
+  const int chunks = 1 << (sh.logm - 5);
+  const long long mine =
+      blockIdx.x < sh.tiles ? (sh.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long total = mine * chunks;
+  // the raw chunk c: its N tile's first column and its k
+  auto issue = [&](long long c) {
+    const MxuChunk ch = mxu_chunk(c, chunks);
+    const int r = (int)(c % kRaw);
+    mxu_issue_raw<kRow>(raw + r * kMxuRawBytes<kRow>, &arrived[r], maps, sh,
+                        (ch.tile / sh.mtiles) * kMxuTileN, ch.kb * kMxuTileK);
+  };
+  if (t == 0)
+    for (long long c = 0; c < total && c < kRaw; ++c) issue(c);
+  MxuClock clk;
+  for (long long c = 0; c < total; ++c) {
+    const int s = (int)(c % kMxuStages);
+    uint8_t* stage = smem + s * kMxuStageBytes;
+    mxu_bar_wait(&empty[s], (uint32_t)((c / kMxuStages) & 1) ^ 1u);
+    clk.lap(kClkEmpty);
+    const int r = (int)(c % kRaw);
+    mxu_bar_wait(&arrived[r], (uint32_t)((c / kRaw) & 1));
+    clk.lap(kClkRaw);
+    mxu_convert<kRow>(raw + r * kMxuRawBytes<kRow>, stage + kMxuAStage, sh.k,
+                      t);
+    // the planes were written by threads; the tensor cores read them
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mxu_bar_arrive(&full[s]);
+    // every converter thread is done with the raw stage
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kMxuConverters) : "memory");
+    if (t == 0 && c + kRaw < total) issue(c + kRaw);
+    clk.lap(kClkConvert);
+  }
+  if (t == 0) clk.flush(kClkEmpty, kClkConverter, kClkConverter);
+}
+
+// A consumer warpgroup (w: its 64 rows of the tile): for each of this CTA's
+// tiles, the 16 products of every chunk into the partials, then the
+// epilogue.  Lane (g, t4) of warp v holds, for r < 32, the sum at row
+// 16 v + g + 8 ((r >> 1) & 1), column 8 (r >> 2) + 2 t4 + (r & 1).  The
+// first consumer's thread 0 copies A: chunks 0 .. kMxuStages - 1 at the
+// start, chunk c + kMxuStages as soon as both consumers release chunk c's
+// stage.
+template <bool kRow>
+__device__ __forceinline__ void mxu_consumer(uint32_t* __restrict__ y,
+                                             const int8_t* __restrict__ mat,
+                                             const MxuShape& sh,
+                                             uint8_t* smem, uint64_t* full,
+                                             uint64_t* empty, int w) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int chunks = 1 << (sh.logm - 5);
+  const long long mask2 = (1LL << sh.logn2) - 1;
+  const long long mine =
+      blockIdx.x < sh.tiles ? (sh.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long total = mine * chunks;
+  const bool loader = w == 0 && tid == 0;
+  // release chunk c's stage; the loader refills it with chunk c + stages
+  auto release = [&](long long c) {
+    const int s = (int)(c % kMxuStages);
+    mxu_bar_arrive(&empty[s]);
+    if (loader && c + kMxuStages < total) {
+      mxu_bar_wait(&empty[s], (uint32_t)((c / kMxuStages) & 1));
+      mxu_issue_a(smem, full, mat, sh, c + kMxuStages, chunks);
+    }
+  };
+  if (loader)
+    for (long long c = 0; c < total && c < kMxuStages; ++c)
+      mxu_issue_a(smem, full, mat, sh, c, chunks);
+  int32_t acc[kMxuParts][32];
+  long long c = 0;
+  MxuClock clk;
+  for (long long tile = blockIdx.x; tile < sh.tiles; tile += gridDim.x) {
     NTT_UNROLL
-    for (int kk = 0; kk < kMxuTileK; kk += 32) {
-      // B's fragments of both n tiles of digit j in one ldmatrix: tiles
-      // (n 0-7, k 0-15), (n 0-7, k 16-31), (n 8-15, k 0-15), (n 8-15,
-      // k 16-31)
-      uint32_t b[kMxuDigits][2][2];
+    for (int j = 0; j < kMxuParts; ++j)
       NTT_UNROLL
-      for (int j = 0; j < kMxuDigits; ++j)
-        mxu_ldmatrix4(&b[j][0][0],
-                      bs + j * kMxuPlaneB +
-                          (wn * kMxuWarpN + 8 * (lm >> 1) + lr) * kMxuPitch +
-                          kk + 16 * (lm & 1));
+      for (int r = 0; r < 32; ++r) acc[j][r] = 0;
+    mxu_fence_acc(acc);
+    NTT_NO_UNROLL
+    for (int kb = 0; kb < chunks; ++kb, ++c) {
+      const int s = (int)(c % kMxuStages);
+      mxu_bar_wait(&full[s], (uint32_t)((c / kMxuStages) & 1));
+      clk.lap(kClkFull);
+      const uint8_t* stage = smem + s * kMxuStageBytes;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      // A_i with i = p kMxuSpan + u meets B^(p)_j in the partial u + j
       NTT_UNROLL
       for (int i = 0; i < kMxuDigits; ++i) {
-        // A's fragment a0..a3: tiles (m 0-7, k 0-15), (m 8-15, k 0-15),
-        // (m 0-7, k 16-31), (m 8-15, k 16-31)
-        uint32_t a[2][4];
-        NTT_UNROLL
-        for (int mi = 0; mi < 2; ++mi)
-          mxu_ldmatrix4(a[mi], as + i * kMxuPlaneA +
-                                   (wm * kMxuWarpM + mi * 16 + 8 * (lm & 1) +
-                                    lr) * kMxuPitch +
-                                   kk + 16 * (lm >> 1));
+        const int pw = i / kMxuSpan, u = i % kMxuSpan;
+        const uint64_t da =
+            mxu_desc(stage + (w * kMxuDigits + i) * kMxuBlockBytes);
         NTT_UNROLL
         for (int j = 0; j < kMxuDigits; ++j)
-          NTT_UNROLL
-          for (int mi = 0; mi < 2; ++mi)
-            NTT_UNROLL
-            for (int ni = 0; ni < 2; ++ni)
-              mxu_mma(acc[i + j][mi][ni], a[mi], b[j][ni]);
+          mxu_wgmma(acc[u + j], da,
+                    mxu_desc(stage + kMxuAStage +
+                             (kMxuDigits * pw + j) * kMxuBlockBytes));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the chunk before is done: release its stage
+      mxu_wgmma_wait<1>();
+      if (kb > 0) release(c - 1);
+      clk.lap(kClkProducts);
+    }
+    mxu_wgmma_wait<0>();
+    mxu_fence_acc(acc);
+    release(c - 1);
+    clk.lap(kClkProducts);
+
+    // the tile's first word (G[b, 0, c0] or H[n0, 0]); offsets from it fit
+    // in 32 bits (m << logn2 < 2^22, n < 64)
+    const long long n0 = (tile / sh.mtiles) * kMxuTileN;
+    uint32_t* yt = kRow ? y + (n0 << sh.logn2)
+                        : y + ((n0 >> sh.logn2) << (sh.logn1 + sh.logn2)) +
+                              (n0 & mask2);
+    const int m0 = (int)(tile % sh.mtiles) * sh.consumers * kMxuBlockRows +
+                   w * kMxuBlockRows + 16 * warp + g;
+    NTT_UNROLL
+    for (int r = 0; r < 32; r += 2) {
+      const int m = m0 + 8 * ((r >> 1) & 1);
+      const int n = 8 * (r >> 2) + 2 * t4;
+      uint32_t out[2];
+      NTT_UNROLL
+      for (int e = 0; e < 2; ++e) {
+        int32_t p[kMxuParts];
+        NTT_UNROLL
+        for (int j = 0; j < kMxuParts; ++j) p[j] = acc[j][r + e];
+        out[e] = mxu_reduce(p, sh.k);
+      }
+      if constexpr (!kRow) {
+        *reinterpret_cast<uint2*>(yt + (m << sh.logn2) + n) =
+            make_uint2(out[0], out[1]);
+      } else {
+        yt[(n << sh.logn2) + m] = out[0];
+        yt[((n + 1) << sh.logn2) + m] = out[1];
       }
     }
+    clk.lap(kClkEpilogue);
   }
+  if (threadIdx.x == 128 * kMxuConverters)
+    clk.flush(kClkFull, kClkConsumer, kClkConsumer);
+}
 
-  // the epilogue: lane (g, t) holds rows g and g + 8 of each 16 x 8 tile at
-  // columns 2t and 2t + 1
-  const long long mask2 = (1LL << sh.logn2) - 1;
-  NTT_UNROLL
-  for (int mi = 0; mi < 2; ++mi)
-    NTT_UNROLL
-    for (int ni = 0; ni < 2; ++ni)
-      NTT_UNROLL
-      for (int h = 0; h < 2; ++h) {
-        const long long m = m0 + wm * kMxuWarpM + mi * 16 + g + 8 * h;
-        const long long n = n0 + wn * kMxuWarpN + ni * 8 + 2 * t;
-        uint32_t out[2];
-        NTT_UNROLL
-        for (int e = 0; e < 2; ++e) {
-          int32_t p[kMxuParts];
-          NTT_UNROLL
-          for (int s = 0; s < kMxuParts; ++s) p[s] = acc[s][mi][ni][2 * h + e];
-          out[e] = mxu_reduce(p, sh.k);
-        }
-        if constexpr (!kRow) {
-          *reinterpret_cast<uint2*>(
-              y + ((n >> sh.logn2) << (sh.logn1 + sh.logn2)) +
-              (m << sh.logn2) + (n & mask2)) = make_uint2(out[0], out[1]);
-        } else {
-          y[(n << sh.logn2) + m] = out[0];
-          y[((n + 1) << sh.logn2) + m] = out[1];
-        }
-      }
+// One persistent CTA: maps the raw data's tensor maps (x: (B, n1, n2)
+// words; tw, twp: the (n1, n2) twiddles, row pass), y the (B, n1, n2)
+// output, mat A's digit blocks in _kernel_tiles' order.  Warpgroup 0
+// converts, warpgroups 1 .. sh.consumers multiply.
+template <bool kRow>
+__device__ __forceinline__ void mxu_pass_body(const MxuMaps& maps,
+                                              uint32_t* __restrict__ y,
+                                              const int8_t* __restrict__ mat,
+                                              const MxuShape& sh,
+                                              uint8_t* base) {
+  uint8_t* smem = base + ((1024 - (mxu_sa(base) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kMxuStages * kMxuStageBytes +
+      kMxuRawStages<kRow> * kMxuRawBytes<kRow>);
+  uint64_t* empty = full + kMxuStages;
+  uint64_t* arrived = empty + kMxuStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMxuStages; ++s) {
+      // A's copy, the converters' threads
+      mxu_bar_init(&full[s], 1 + 128 * kMxuConverters);
+      mxu_bar_init(&empty[s], 128 * sh.consumers);
+    }
+    for (int s = 0; s < kMxuRawStages<kRow>; ++s) mxu_bar_init(&arrived[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg < kMxuConverters) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kMxuConverterRegs));
+    mxu_converter<kRow>(maps, sh, smem, full, empty, arrived);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kMxuConsumerRegs));
+    if (wg < kMxuConverters + sh.consumers)
+      mxu_consumer<kRow>(y, mat, sh, smem, full, empty, wg - kMxuConverters);
+  }
 }
 
 #endif  // __CUDACC__

@@ -94,10 +94,11 @@ SIGNATURES = {
     # 2^128 mod q, stream, launches
     "ntt_wide_pointwise": (_P, _P, _P, _P, _P, _P, _LL, _I, _U64, _U64, _U64,
                            _P, _P),
-    # the matrix-product four-step pass (M1): x, y, mat (int8 digits), tw,
-    # twp (row pass), batch, logn1, logn2, row, q, stream
+    # the matrix-product four-step pass (M1): x, y, mat (int8 digit blocks
+    # in the kernel's order), tw, twp (row pass), batch, logn1, logn2, row,
+    # q, stream
     "ntt_mxu_pass": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _U, _P),
-    # row, logn1, logn2, batch, info (9 ints)
+    # row, logn1, logn2, batch, info (14 ints)
     "ntt_mxu_launch_info": (_I, _I, _I, _LL, _P),
 }
 

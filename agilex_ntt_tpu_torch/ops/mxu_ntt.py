@@ -17,9 +17,11 @@ output is bit-identical to ``Ring.ntt``'s four-step transform (both are
 the exact transform, reduced to [0, q)).
 
 On the card each pass is one launch of kernel M1 (``csrc/ntt_mxu.cuh``:
-``mma.sync`` on s8 digits, the digit split in its prologue, the
-reconstruction in its epilogue); ``mxu_pass`` is its wrapper and adds one
-to ``ntt_kernel.LAUNCHES["mxu"]`` a launch.  On a CPU tensor the wrapper
+``wgmma`` on s8 digits from shared memory, fed by bulk copies through
+mbarrier-guarded stages; a converting warpgroup splits the data, two
+consumer warpgroups multiply into five partials and reconstruct them);
+``mxu_pass`` is its wrapper and adds one to ``ntt_kernel.LAUNCHES["mxu"]``
+a launch.  On a CPU tensor the wrapper
 runs the plain version below, the JAX module's functions under its names:
 the same digit split, the 16 products (as float64 products, which are
 exact here: every sum is an integer below 2^53; PyTorch has no integer
@@ -52,7 +54,7 @@ from .plain_ntt import _u32_tensor
 DIGITS = 4
 # The pass sizes n1 and n2 the functions take: the JAX reconstruction's
 # offset (2^27) bounds the partials, |P_s| <= 4 K 2^14, so K <= 2048; the
-# kernel's tile is 64 x 32 over K in chunks of 64, so K >= 64 on the card.
+# kernel's blocks are 64 rows x 32 k, so K >= 64 on the card.
 MAX_SIDE = 1 << 11
 MIN_KERNEL_SIDE = 1 << 6
 
@@ -177,11 +179,34 @@ def _digit_matmul(mat_digits: torch.Tensor, x_digits: list, pattern: str,
 # -- the tables on a device, the kernel's wrapper --------------------------------
 
 
+# the kernel's blocks of A: 64 rows x 32 k, core matrices of 8 rows x 16
+# bytes (csrc/ntt_mxu.cuh mxu_core_offset)
+BLOCK_ROWS, BLOCK_K = 64, 32
+
+
+def _kernel_tiles(digits: torch.Tensor):
+    """A (DIGITS, M, K) int8 digit matrix in the order the kernel copies it:
+    for each 64-row block and 32-column block, the four digits' 64 x 32
+    blocks, each as wgmma reads it without swizzle (row groups of 8 at 256
+    bytes, a group's two 16-byte k halves at 128, 16 bytes a row); None
+    where M or K is below a block."""
+    d, m, k = digits.shape
+    if m < BLOCK_ROWS or k < BLOCK_K:
+        return None
+    t = digits.reshape(d, m // BLOCK_ROWS, BLOCK_ROWS // 8, 8, k // BLOCK_K,
+                       BLOCK_K // 16, 16)
+    # (digit, m block, row group, row, k block, k half, byte) ->
+    # (m block, k block, digit, row group, k half, row, byte)
+    return t.permute(1, 4, 0, 2, 5, 3, 6).contiguous()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MxuTables:
     """One plan's constants on one device: ``col`` and ``row`` the (DIGITS,
     n1, n1) and (DIGITS, n2, n2) int8 digit planes of D and R, ``tw`` and
-    ``tw_precon`` the (n1, n2) twiddles and their Shoup words, uint32."""
+    ``tw_precon`` the (n1, n2) twiddles and their Shoup words, uint32;
+    ``col_tiles`` and ``row_tiles`` the planes in the kernel's order
+    (``_kernel_tiles``, None below 64)."""
 
     n1: int
     n2: int
@@ -190,6 +215,8 @@ class MxuTables:
     row: torch.Tensor
     tw: torch.Tensor
     tw_precon: torch.Tensor
+    col_tiles: torch.Tensor | None
+    row_tiles: torch.Tensor | None
 
     @property
     def device(self) -> torch.device:
@@ -199,7 +226,8 @@ class MxuTables:
 @functools.lru_cache(maxsize=32)
 def mxu_tables(plan: FourStepPlan, device: torch.device) -> MxuTables:
     """The plan's matrix digits and twiddles on ``device``, built once per
-    plan and device (D's digits take 16 MiB at n1 = 2048)."""
+    plan and device (D's digits take 16 MiB at n1 = 2048, twice with the
+    kernel's copy)."""
     for side in (plan.n1, plan.n2):
         if side > MAX_SIDE:
             raise ValueError(
@@ -209,12 +237,13 @@ def mxu_tables(plan: FourStepPlan, device: torch.device) -> MxuTables:
     def digits(a):
         return torch.from_numpy(a).to(device)
 
+    col = digits(_col_matrix_digits(plan))
+    row = digits(_row_matrix_digits(plan))
     return MxuTables(
-        n1=plan.n1, n2=plan.n2, q=plan.q,
-        col=digits(_col_matrix_digits(plan)),
-        row=digits(_row_matrix_digits(plan)),
+        n1=plan.n1, n2=plan.n2, q=plan.q, col=col, row=row,
         tw=_u32_tensor(plan.tw, device),
         tw_precon=_u32_tensor(plan.tw_precon, device),
+        col_tiles=_kernel_tiles(col), row_tiles=_kernel_tiles(row),
     )
 
 
@@ -243,8 +272,9 @@ def mxu_pass(x3: torch.Tensor, mt: MxuTables, row: bool) -> torch.Tensor:
     (B, n1, n2) uint32 tensor in [0, q).
 
     On a CUDA tensor one launch of M1 (``mxu_col_kernel`` or
-    ``mxu_row_kernel``: 128 threads a 64 x 32 tile, ``mxu_launch_info``)
-    on the current stream; on a CPU tensor the plain version."""
+    ``mxu_row_kernel``: persistent CTAs of 384 threads over 128 x 64
+    tiles, ``mxu_launch_info``) on the current stream; on a CPU tensor the
+    plain version."""
     if not isinstance(x3, torch.Tensor):
         raise TypeError(f"mxu_pass: expected a torch.Tensor, got "
                         f"{type(x3).__name__}")
@@ -267,12 +297,13 @@ def mxu_pass(x3: torch.Tensor, mt: MxuTables, row: bool) -> torch.Tensor:
     if x3.data_ptr() % 16:
         raise ValueError("mxu_pass: the kernel copies 16-byte pieces; the "
                          "tensor's data must start on a 16-byte boundary")
+    tiles = mt.row_tiles if row else mt.col_tiles
     y = torch.empty_like(x3)
     lib = _build.load()
     with torch.cuda.device(x3.device):
         rc = lib.ntt_mxu_pass(
             x3.data_ptr(), y.data_ptr(),
-            (mt.row if row else mt.col).data_ptr(),
+            tiles.data_ptr(),
             mt.tw.data_ptr(), mt.tw_precon.data_ptr(), x3.shape[0],
             mt.n1.bit_length() - 1, mt.n2.bit_length() - 1, int(row), mt.q,
             _stream(x3),
@@ -283,16 +314,21 @@ def mxu_pass(x3: torch.Tensor, mt: MxuTables, row: bool) -> torch.Tensor:
 
 
 def mxu_launch_info(mt: MxuTables, row: bool, batch: int) -> dict:
-    """The launch of one M1 pass at (batch, n1, n2): its tile, threads and
-    shared memory a CTA, registers and local memory (spills) a thread, CTAs
-    an SM and CTAs launched."""
+    """The launch of one M1 pass at (batch, n1, n2): its tile (M x N, k a
+    stage), threads a CTA and by role (the converting warpgroup, the
+    consumers on wgmma), the stages of the operand ring and of the raw
+    ring, shared memory a CTA, registers a thread as launched (before
+    setmaxnreg) and local memory (spills), CTAs an SM, the persistent CTAs
+    launched and the tiles they walk."""
     lib = _build.load()
-    info = (ctypes.c_int * 9)()
+    info = (ctypes.c_int * 14)()
     _build.check(lib, lib.ntt_mxu_launch_info(
         int(row), mt.n1.bit_length() - 1, mt.n2.bit_length() - 1, batch,
         info), "mxu_launch_info")
     keys = ("tile_m", "tile_n", "tile_k", "threads", "smem_bytes",
-            "registers", "local_bytes", "ctas_per_sm", "ctas")
+            "registers", "local_bytes", "ctas_per_sm", "ctas",
+            "converter_threads", "consumer_threads", "stages", "raw_stages",
+            "tiles")
     return dict(zip(keys, info))
 
 

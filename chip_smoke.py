@@ -2785,7 +2785,10 @@ def main() -> int:
     log("library_ms: null for every kernel but M1 - no PyTorch call computes "
         "a negacyclic NTT mod q")
     lib_ms, why = MXP.library_ms(mt_m, xm3, False)
-    rows[list(timed).index("mxu")]["library_ms"] = lib_ms
+    mxu_row = rows[list(timed).index("mxu")]
+    mxu_row["library_ms"] = lib_ms
+    mxu_row["share_of_bound"] = mxu_row["bound_ms"] / mxu_row["ms"]
+    mxu_row["launch"] = MX.mxu_launch_info(mt_m, False, xm3.shape[0])
     log(f"  M1's library_ms: its 16 digit products alone by torch._int_mm "
         f"at {timed['mxu'][4]}: "
         + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"null ({why})"))
@@ -2798,10 +2801,14 @@ def main() -> int:
             log(f"  {'row' if row_ else 'col'} pass n={n_} ({mt_.n1}x"
                 f"{mt_.n2}) B={b_}: tile {info['tile_m']}x{info['tile_n']} "
                 f"over k chunks of {info['tile_k']}, {info['threads']} "
-                f"threads, {info['smem_bytes']} bytes of shared memory, "
-                f"{info['registers']} registers, {info['local_bytes']} "
-                f"bytes of local memory a thread, {info['ctas_per_sm']} CTAs "
-                f"an SM, {info['ctas']} CTAs")
+                f"threads ({info['converter_threads']} converting, "
+                f"{info['consumer_threads']} on wgmma), {info['stages']} "
+                f"stages and {info['raw_stages']} raw stages in "
+                f"{info['smem_bytes']} bytes of shared memory, "
+                f"{info['registers']} registers as launched, "
+                f"{info['local_bytes']} bytes of local memory a thread, "
+                f"{info['ctas_per_sm']} CTAs an SM, {info['ctas']} "
+                f"persistent CTAs over {info['tiles']} tiles")
     for name in MXU_KERNELS:
         log(f"  ptxas {name}: {'; '.join(ptxas.get(name, ['not found']))}")
     log(f"the matrix-product four-step A/B on {card} (utils/mxu_probe.py; "

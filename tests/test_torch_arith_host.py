@@ -9,8 +9,9 @@ cluster kernels K7a, K7b, K8, of K9a's and K9b's slab kernels
 (``csrc/ntt_fourstep_cluster.cuh``), of the polydot K5/K6b, and K3/K6a
 at one channel (``csrc/ntt_polydot_cluster.cuh``), and of the transforms
 K4a/K4b, K1/K2 and K12 (``csrc/ntt_rns_transform.cuh``) run here too
-(and the matrix-product pass M1's int64 epilogue and digit packing,
-``csrc/ntt_mxu.cuh``, against Python integers and the plain version): one host thread a GPU
+(and the matrix-product pass M1's int64 epilogue, digit packing and
+converter, ``csrc/ntt_mxu.cuh``, against Python integers and the plain
+version): one host thread a GPU
 thread, four a CTA (the polydot: a sixteenth of its words), ``std::barrier``
 for ``__syncthreads`` and for the cluster's barrier, each CTA's slab a host
 array that the others reach as through ``map_shared_rank``, in a spawned
@@ -54,8 +55,9 @@ SHIM = r"""
 #include "ntt_xchg.cuh"
 
 extern "C" {
-// M1's epilogue over n rows of seven partials, and its digit planes over n
-// groups of four words
+// M1's epilogue over n rows of four partials, its digit planes over n
+// groups of four words, and its converter on a stage of 64 rows x 32 words
+// below q (v[row][k]) into the stage's 16 planes
 void h_mxu_reduce(const int32_t* p, uint32_t q, uint32_t* out, long n) {
   const MxuConsts k = make_mxu_consts(q);
   for (long i = 0; i < n; ++i) out[i] = mxu_reduce(p + kMxuParts * i, k);
@@ -63,6 +65,13 @@ void h_mxu_reduce(const int32_t* p, uint32_t q, uint32_t* out, long n) {
 void h_mxu_pack(const uint32_t* v, uint32_t* w, long n) {
   for (long i = 0; i < n; ++i) mxu_pack_digits(v + 4 * i, w + 4 * i);
 }
+void h_mxu_convert(const uint32_t* v, uint32_t q, uint8_t* planes) {
+  const MxuConsts k = make_mxu_consts(q);
+  for (int row = 0; row < kMxuBlockRows; ++row)
+    for (int half = 0; half < kMxuTileK / 16; ++half)
+      mxu_convert16(v + row * kMxuTileK + 16 * half, planes, row, half, k);
+}
+int h_mxu_powers() { return kMxuPowers; }
 void h_cond_sub(const uint32_t* x, uint32_t bound, uint32_t* out, long n) {
   for (long i = 0; i < n; ++i) out[i] = ntt_cond_sub(x[i], bound);
 }
@@ -407,6 +416,8 @@ def lib(tmp_path_factory):
     h.h_gs_radix.argtypes = [I, P, P, P, U, P, L]
     h.h_mxu_reduce.argtypes = [P, U, P, L]
     h.h_mxu_pack.argtypes = [P, P, L]
+    h.h_mxu_convert.argtypes = [P, U, P]
+    h.h_mxu_powers.restype = ctypes.c_int
     return h
 
 
@@ -1010,21 +1021,31 @@ def test_montgomery_redc(lib, q):
 @pytest.mark.parametrize("q", PRIMES)
 def test_mxu_epilogue_and_digits(lib, q):
     """M1's arithmetic (``csrc/ntt_mxu.cuh``): the int64 epilogue
-    ``mxu_reduce`` against Python integers and the plain version's Horner
-    reconstruction (the JAX package's words), on partials over the bound
-    +-4 * 2048 * 2^14 = +-2^27 with its edges; the packed digit planes of
-    ``mxu_pack_digits`` against the plain ``_balanced_digits``."""
+    ``mxu_reduce`` of its 4 / P + 3 partials (P the data's powers) against
+    Python integers and the plain version's Horner reconstruction (the JAX
+    package's words), on partials over the bound +-4 * 2048 * 2^14 = +-2^27
+    with its edges; the packed digit planes of ``mxu_pack_digits`` against
+    the plain ``_balanced_digits``; the converter ``mxu_convert16`` on a
+    stage of 64 rows x 32 words (with the edges 0 and q - 1) against the
+    digits of 256^(4 p / P) v mod q by
+    ``_balanced_digits``, laid out by ``_kernel_tiles``, the order of A's
+    tables."""
+    powers = lib.h_mxu_powers()
+    parts = 4 // powers + 3
     bound = 1 << 27
     rng = np.random.default_rng(q)
-    p = rng.integers(-bound, bound + 1, size=(COUNT, 7)).astype(np.int32)
+    p = rng.integers(-bound, bound + 1, size=(COUNT, parts)).astype(np.int32)
     p[0], p[1], p[2] = bound, -bound, 0
     p[3, ::2], p[3, 1::2] = bound, -bound
+    p[4, :3], p[5, :3] = bound, -bound
     out = np.empty(COUNT, dtype=np.uint32)
     lib.h_mxu_reduce(_ptr(p), q, _ptr(out), COUNT)
-    exact = sum(p[:, s].astype(object) * 256 ** s for s in range(7)) % q
+    exact = sum(p[:, s].astype(object) * 256 ** s for s in range(parts)) % q
     assert np.array_equal(out.astype(object), exact)
+    zero = torch.zeros(COUNT, dtype=torch.int64)
     plain = mxu_ntt._reconstruct_mod(
-        [torch.from_numpy(p[:, s].astype(np.int64)) for s in range(7)], q)
+        [torch.from_numpy(p[:, s].astype(np.int64)) for s in range(parts)]
+        + [zero] * (7 - parts), q)
     assert np.array_equal(out, plain.numpy())
     # byte j of word i of a group is digit i of the group's word j, for
     # words up to 2^30 - 1 (the top digit's bound)
@@ -1036,3 +1057,18 @@ def test_mxu_epilogue_and_digits(lib, q):
     want = np.stack([d.numpy().view(np.uint8).reshape(-1, 4) for d in digits],
                     axis=1)
     assert np.array_equal(w.view(np.uint8).reshape(-1, 4, 4), want)
+    # the converter: plane 4 p + j of a stage holds digit j of
+    # 256^(4 p / P) v mod q
+    v = rng.integers(0, q, size=(64, 32), dtype=np.uint32)
+    v[0, 0], v[0, 17], v[63, 31] = 0, q - 1, q - 1
+    planes = np.zeros((4 * powers, 64 * 32), dtype=np.uint8)
+    lib.h_mxu_convert(_ptr(v), q, _ptr(planes))
+    for i in range(powers):
+        vi = (v.astype(np.int64) * pow(256, 4 // powers * i, q)) % q
+        digits = torch.stack(mxu_ntt._balanced_digits(torch.from_numpy(vi)))
+        tiles = mxu_ntt._kernel_tiles(digits)
+        assert tuple(tiles.shape[:3]) == (1, 1, 4)
+        for j in range(4):
+            assert np.array_equal(planes[4 * i + j],
+                                  tiles[0, 0, j].numpy().view(np.uint8)
+                                  .reshape(-1)), (i, j)

@@ -7,8 +7,10 @@ n = 4096 (64 x 64), and the transform against the port's four-step
 ``Ring``/``CyclicRing``.  Exact comparisons (tolerance 0: integer
 arithmetic).  The JAX side runs once a session in a process of its own
 (``test_torch_jaxref.computed_once``).  The reconstruction is held against
-Python integers at the partials' bound; the kernel's own epilogue and
-digit packing are built with g++ in ``test_torch_arith_host.py``."""
+Python integers at the partials' bound, and the kernel's four-partial
+decomposition against the JAX column pass at K = 2048; the kernel's own
+epilogue, digit packing and converter are built with g++ in
+``test_torch_arith_host.py``."""
 
 import numpy as np
 import pytest
@@ -30,6 +32,24 @@ def _digit_values() -> np.ndarray:
                                              dtype=np.uint32)
     v[: len(EDGES)] = EDGES
     return v
+
+
+# the widest pass the partials' bound allows: K = n1 = 2048 (n2 = 64, B = 1)
+WIDE_N1, WIDE_N = 2048, 2048 * 64
+
+
+def _wide_input(q: int) -> np.ndarray:
+    """(1, 2048, 64) words below q whose digits reach the ends: every low
+    digit -128 (0x7F7F80 + e 2^24) or 127 (0x7F7F7F + e 2^24), q - 1, 0,
+    then random words."""
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(0, q, size=(1, WIDE_N1, 64), dtype=np.uint32)
+    top = (q - 0x7F7F80) >> 24
+    flat = x.reshape(-1)
+    flat[: 3 * 4096: 3] = 0x7F7F80 + (rng.integers(0, top, 4096) << 24)
+    flat[1: 3 * 4096: 3] = 0x7F7F7F + (rng.integers(0, top, 4096) << 24)
+    flat[-2:] = q - 1, 0
+    return x
 
 
 def _inputs(q: int, seed: int):
@@ -70,6 +90,9 @@ def _jax_mxu():
             "fwd": np.asarray(mxu_ntt.fwd_ntt_fourstep_mxu(jnp.asarray(x), plan)),
             "col": np.asarray(mxu_ntt.fwd_col_pass_mxu(jnp.asarray(xt), plan)),
         }
+    q = find_primes(WIDE_N, 1)[0]
+    out["wide_col"] = np.asarray(mxu_ntt.fwd_col_pass_mxu(
+        jnp.asarray(_wide_input(q)), jfs.make_plan(WIDE_N, q, n1=WIDE_N1)))
     return out
 
 
@@ -145,10 +168,15 @@ def test_fwd_col_pass_mxu_matches_jax(jax_out, kind):
                                           ring.plan))
 
 
-def test_reconstruction_at_the_partials_bound():
+def test_reconstruction_at_the_partials_bound(jax_out):
     """_reconstruct_mod (the JAX package's Horner and Barrett words) equals
     sum_s P_s 256^s mod q in Python integers, for partials at and inside
-    +-4 * 2048 * 2^14 = +-2^27, at a 30-bit and a small prime."""
+    +-4 * 2048 * 2^14 = +-2^27, at a 30-bit and a small prime.  The
+    kernel's decomposition, with the data's P powers B^(p) = 2^(32 p / P) X
+    mod q: P_s = sum D_(p 4/P + u) B^(p)_j over u + j = s, and
+    sum_s P_s 256^s reduced in int64 as its epilogue does, gives the JAX
+    column pass's words at K = 2048 on data whose digits reach the ends,
+    its partials inside the bound, at P = 2 (the kernel's) and 4."""
     bound = 4 * 2048 * (1 << 14)
     rng = np.random.default_rng(SEED)
     for q in (find_primes(1 << 21, 1)[0], find_primes(N, 1)[0], 12289):
@@ -158,6 +186,33 @@ def test_reconstruction_at_the_partials_bound():
         got = M._reconstruct_mod(list(torch.from_numpy(p)), q).numpy()
         want = sum(p[s].astype(object) * (256 ** s) for s in range(7)) % q
         assert np.array_equal(got.astype(object), want), q
+
+    q = find_primes(WIDE_N, 1)[0]
+    plan = fourstep.make_plan(WIDE_N, q, n1=WIDE_N1)
+    x = torch.from_numpy(_wide_input(q)[0].astype(np.int64))  # (K, 64)
+    d = [torch.from_numpy(di).to(torch.float64)
+         for di in M._col_matrix_digits(plan)]
+    for powers in (2, 4):
+        span = M.DIGITS // powers
+        parts = [torch.zeros((WIDE_N1, 64), dtype=torch.float64)
+                 for _ in range(span + M.DIGITS - 1)]
+        for pw in range(powers):
+            xp = M._balanced_digits(x * pow(256, span * pw, q) % q)
+            for u in range(span):
+                for j in range(M.DIGITS):  # exact: below 2^53
+                    parts[u + j] += d[pw * span + u] @ xp[j].to(torch.float64)
+        parts = [p_.to(torch.int64) for p_ in parts]
+        assert max(int(p_.abs().max()) for p_ in parts) <= bound
+        # the epilogue: sum_s P_s (256^s mod q) + off, Barrett by
+        # floor(2^64 / q), in Python integers on the int64 sum (each term
+        # below 2^57)
+        s = sum(p_ * pow(256, j, q) for j, p_ in enumerate(parts))
+        off = ((1 << 61) // q + 1) * q
+        mu = ((1 << 64) - 1) // q
+        t = [int(v) + off for v in s.reshape(-1)]
+        r = [v - ((v * mu) >> 64) * q for v in t]
+        got = np.array([v - q if v >= q else v for v in r], dtype=np.uint32)
+        assert np.array_equal(got, jax_out["wide_col"].reshape(-1)), powers
 
 
 def test_refusals():
